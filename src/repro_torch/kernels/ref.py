@@ -1,0 +1,79 @@
+"""Plain PyTorch oracles for every ported kernel (the correctness contract).
+
+Each function is the definition its kernel must reproduce, written as in
+the reference package's ``kernels/ref.py``.  They run on any device: the
+CPU path of every kernel wrapper, the ``xla`` registry variant, the
+backward of every kernel op (autograd through these), and the
+comparison ``chip_smoke.py`` makes on the card.
+
+All of them compute in f32 and store in the input dtypes.  They are
+eager PyTorch, one operation at a time, so no multiply-add is ever
+contracted: ``fused_update_ref`` rounds exactly where its formula says.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30  # the reference's mask value (finite: fully-masked rows stay defined)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q (b, lq, hq, d); k/v (b, lk, hkv, d); GQA broadcast; f32 softmax.
+
+    Positions are aligned at the END: query i sits at absolute position
+    lk - lq + i.
+    """
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    scores = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) \
+        / math.sqrt(d)
+    qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    kpos = torch.arange(lk, device=q.device)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhlm,bmhd->blhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def residual_rmsnorm_ref(x: torch.Tensor, res: torch.Tensor,
+                         weight: torch.Tensor, eps: float = 1e-6
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``s = x + res; (s, rms_norm(s) * weight)`` with the sum and the
+    reduction in f32, both outputs cast back to x's dtype."""
+    sf = x.float() + res.float()
+    var = torch.mean(sf * sf, dim=-1, keepdim=True)
+    normed = sf * torch.rsqrt(var + eps) * weight.float()
+    return sf.to(x.dtype), normed.to(x.dtype)
+
+
+def fused_update_ref(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor, *,
+                     lr: float, beta: float, scale: float = 1.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One momentum-SGD step: ``m' = beta*m + scale*g; p' = p - lr*m'``
+    in f32 (every product and sum rounded), cast back to the input
+    dtypes."""
+    mf = beta * m.float() + scale * g.float()
+    pf = p.float() - lr * mf
+    return pf.to(p.dtype), mf.to(m.dtype)

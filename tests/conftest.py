@@ -40,3 +40,10 @@ def pytest_report_header(config):
                 f"modules: {', '.join(_SKIPPED)} "
                 "(pip install -r requirements-dev.txt to run them)")
     return None
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's Hopper kernels); "
+        "skipped where torch.cuda.is_available() is false")

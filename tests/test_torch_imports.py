@@ -1,0 +1,67 @@
+"""Import isolation: repro_torch and chip_smoke.py never import JAX or the
+reference package."""
+
+from __future__ import annotations
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+    names.append(m.name)
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "repro") or
+             k.startswith(("jax.", "jaxlib.", "repro.")))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_every_repro_torch_module_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    expected = {"repro_torch.api.session", "repro_torch.ps.worker",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.ps.sharded.server", "repro_torch.models.layers"}
+    assert expected <= set(res["modules"])
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _is_reference(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "repro")
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_repro():
+    names = list(_imports(ROOT / "chip_smoke.py"))
+    assert "repro_torch.api" in names or "repro_torch" in names
+    assert not [n for n in names if _is_reference(n)]
+
+
+def test_no_repro_torch_source_names_jax_or_repro_in_an_import():
+    offenders = []
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        offenders += [(path.name, n) for n in _imports(path)
+                      if _is_reference(n)]
+    assert offenders == []
