@@ -10,7 +10,7 @@ after an error:
 
   device   require CUDA; print the card's name and power limit
            (nvidia-smi), the torch and CUDA versions; TF32 off
-  build    compile the four Hopper kernels (src/repro_torch/kernels/csrc)
+  build    compile the seven Hopper kernels (src/repro_torch/kernels/csrc)
            with nvcc, one process per source, and load the library
   kernels  each kernel against its plain PyTorch version on the card, at
            the main path's shapes and a few others (ragged sizes, f32 and
@@ -26,6 +26,16 @@ after an error:
            and every kernel's launch count equal to what the run implies
   profile  two more steps (1 worker) under torch.profiler: device time
            per kernel group and the device's idle share of a step
+  server   the server layer at FULL width: (a) DSSP with coalesced
+           applies (ps.coalesce=2) and int8 wire compression, (b) BSP with
+           coalesced applies and top-k wire compression, 8 steps of 2
+           workers each; losses finite, staleness within s_upper, DSSP
+           extensions == credit releases, every shard's coalesce flushes
+           summing to its version, and the batched/compression kernels'
+           launch counts equal to what the flushes and pushes imply
+  paths    the monolithic packed server (coalesced) and the tree wire
+           (sharded server, global gate, tree apply) at smoke size, one
+           short BSP run each
 
 The last two lines of standard output are the JSON kernel table and the
 contract line ``{"ok": true, "device": {...}}``.  This script imports
@@ -34,6 +44,7 @@ nothing of JAX and nothing of the ``repro`` package.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -93,6 +104,14 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def free_device_memory(torch) -> None:
+    """Drop what earlier phases left so each phase's peak is its own: a
+    server and its coalescing windows refer to each other, so a closed
+    session's buffers wait for the cycle collector."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def bf16_ulp(torch, ref):
     """One bf16 ulp at each value of ``ref`` (f32 tensor)."""
     mag = ref.abs().clamp(min=2.0 ** -126)
@@ -141,6 +160,128 @@ def check_fused_update(torch, timer, fu, main_rows):
         out.append(rec)
         del p, m, gr, po, mo, pr, mr
     return out[-1]
+
+
+def _bitwise_err(torch, label, outs, refs):
+    """Max |kernel - plain| over paired outputs; fails unless bitwise."""
+    torch.cuda.synchronize()
+    for a, b in zip(outs, refs):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{label}: {a.dtype} {tuple(a.shape)} against the plain "
+                 f"version's {b.dtype} {tuple(b.shape)}")
+    errs = [(a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+            for a, b in zip(outs, refs)]
+    if not all(torch.equal(a, b) for a, b in zip(outs, refs)):
+        fail(f"{label}: not bitwise equal to the plain version (max |err| "
+             f"per output {errs})")
+    return max(errs)
+
+
+def check_fused_update_batched(torch, timer, fu, main_rows):
+    """K gradient regions folded in one launch, against the plain fold (K
+    sequential plain steps) and, for the time, two sequential launches
+    of the single kernel."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = [  # (label, dtype, rows, K, main)
+        ("bf16 shard-0 region K=2", torch.bfloat16, main_rows, 2, True),
+        ("f32 shard-0 region K=2", torch.float32, main_rows, 2, False),
+        ("bf16 shard-0 region K=3", torch.bfloat16, main_rows, 3, False),
+        ("bf16 shard-0 region K=1", torch.bfloat16, main_rows, 1, False),
+        ("bf16 8 rows K=2", torch.bfloat16, 8, 2, False),
+        ("bf16 (0, 512) K=2", torch.bfloat16, 0, 2, False),
+    ]
+    main = None
+    for label, dt, rows, k, is_main in cases:
+        shape = (rows, 512)
+        p, m = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        gs = [torch.randn(shape, generator=g, device="cuda").to(dt)
+              for _ in range(k)]
+        kw = dict(lr=3e-3, beta=0.9, scales=[1.0 / (1 + j) for j in range(k)])
+        out = fu.fused_update_batched(p, m, gs, **kw)
+        ref = fu.fused_update_batched_plain(p, m, gs, **kw)
+        err = _bitwise_err(torch, f"fused_update_batched {label}", out, ref)
+        rec = dict(kernel="fused_update_batched", case=label,
+                   shape=[k, rows, 512], max_abs_err=err,
+                   tolerance="bitwise")
+        if is_main or (rows == main_rows and dt == torch.float32):
+            n = p.numel()
+            rec["ms"] = timer(lambda: fu.fused_update_batched(p, m, gs, **kw))
+            rec["plain_ms"] = timer(
+                lambda: fu.fused_update_batched_plain(p, m, gs, **kw))
+
+            def sequential():
+                pp, mm = p, m
+                for gj, sj in zip(gs, kw["scales"]):
+                    pp, mm = fu.fused_update(pp, mm, gj, lr=3e-3, beta=0.9,
+                                             scale=sj)
+            rec["sequential_single_kernel_ms"] = timer(sequential)
+            # (2 + K) reads and 2 writes per element
+            rec["bound_ms"], rec["bound_by"] = bound(
+                (4 + k) * n * p.element_size(), (4 * k) * n,
+                str(dt).split(".")[1])
+            rec["library_ms"] = None   # no one PyTorch call folds K steps
+        say(rec)
+        if is_main:
+            main = rec
+        del p, m, gs, out, ref
+    return main
+
+
+def check_fused_compress(torch, timer, fc, main_rows):
+    """int8 and top-k error-feedback compression of a shard region, with
+    a non-zero carried error, against the plain versions."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cases = [  # (kernel, fraction, label, dtype, rows, main)
+        ("fused_int8_ef", None, "bf16 shard-0 region", torch.bfloat16,
+         main_rows, True),
+        ("fused_int8_ef", None, "f32 shard-0 region", torch.float32,
+         main_rows, False),
+        ("fused_int8_ef", None, "bf16 8 rows", torch.bfloat16, 8, False),
+        ("fused_int8_ef", None, "bf16 (0, 512)", torch.bfloat16, 0, False),
+        ("fused_topk_ef", 0.05, "bf16 shard-0 region fraction 0.05",
+         torch.bfloat16, main_rows, True),
+        ("fused_topk_ef", 0.01, "bf16 shard-0 region fraction 0.01",
+         torch.bfloat16, main_rows, False),
+        ("fused_topk_ef", 0.25, "bf16 shard-0 region fraction 0.25",
+         torch.bfloat16, main_rows, False),
+        ("fused_topk_ef", 0.05, "f32 shard-0 region fraction 0.05",
+         torch.float32, main_rows, False),
+        ("fused_topk_ef", 0.05, "bf16 8 rows", torch.bfloat16, 8, False),
+        ("fused_topk_ef", 0.05, "bf16 (0, 512)", torch.bfloat16, 0, False),
+    ]
+    main = {}
+    for name, frac, label, dt, rows, is_main in cases:
+        shape = (rows, 512)
+        gr = torch.randn(shape, generator=g, device="cuda").to(dt)
+        e = 0.01 * torch.randn(shape, generator=g, device="cuda")
+        if name == "fused_int8_ef":
+            kern = lambda: fc.fused_int8_ef(gr, e)
+            plain = lambda: fc.fused_int8_ef_plain(gr, e)
+            ops_per_elem = 8      # add, abs, max, divide, round, clip, mul, sub
+        else:
+            kern = lambda: fc.fused_topk_ef(gr, e, fraction=frac)
+            plain = lambda: fc.fused_topk_ef_plain(gr, e, fraction=frac)
+            ops_per_elem = 4 + 2 * 24   # 24 rounds of compare + count
+        err = _bitwise_err(torch, f"{name} {label}", kern(), plain())
+        rec = dict(kernel=name, case=label, shape=list(shape),
+                   max_abs_err=err, tolerance="bitwise")
+        if frac is not None:
+            rec["fraction"] = frac
+        if rows == main_rows and (is_main or dt == torch.float32):
+            n = gr.numel()
+            rec["ms"] = timer(kern)
+            rec["plain_ms"] = timer(plain)
+            # g read + g' written in g's dtype, e read + e' written in f32
+            rec["bound_ms"], rec["bound_by"] = bound(
+                n * (2 * gr.element_size() + 8), ops_per_elem * n,
+                "float32")
+            rec["library_ms"] = None   # no one PyTorch call does this
+        say(rec)
+        if is_main:
+            main[name] = rec
+        del gr, e
+    return main
 
 
 def check_norms(torch, timer, rn, rrn):
@@ -324,7 +465,7 @@ def run_train(torch, api):
     from repro_torch.obs.trace import TRACE
     from repro_torch.perfcount import LAUNCHES
     spec = main_path_spec(api, full=True, workers=2, sync="dssp")
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
     torch.cuda.reset_peak_memory_stats()
     session = api.build_session(spec)
     session.start()
@@ -362,6 +503,8 @@ def run_train(torch, api):
         "flash_attention_fwd": n_layers * passes * 2,
         "residual_rmsnorm": n_layers * passes * 2,
         "rmsnorm": (n_layers * 2 + 1) * passes,   # + the final norm
+        # no coalescing and no compression on this path
+        "fused_update_batched": 0, "fused_int8_ef": 0, "fused_topk_ef": 0,
     }
     if launches != expected:
         fail(f"train: launches {launches} != expected {expected}")
@@ -379,6 +522,132 @@ def run_train(torch, api):
                torch.cuda.max_memory_allocated() / 1e9}
     say(rec)
     return launches
+
+
+#: The server phase's linger: long enough for the two workers' pushes to
+#: meet in one window even when their first (warm-up) steps end seconds
+#: apart; a worker that finishes leaves the group, which ends a linger.
+COALESCE_WAIT_MS = 5000.0
+
+
+def server_spec(api, *, full: bool, sync: str, compression: str,
+                coalesce: int = 2, kind: str = "sharded",
+                wire: str = "packed"):
+    """The server layer's configuration: h2o-danube-1.8b, 2 workers of
+    equal speed, S=4 (sharded), coalescing with a linger long enough for
+    both workers' pushes to meet."""
+    sharded = kind == "sharded"
+    return api.RunSpec(
+        model=api.ModelSpec(arch="h2o-danube-1.8b", smoke=not full),
+        data=api.DataSpec(seq_len=1024 if full else 64, global_batch=4),
+        optimizer=api.OptimizerSpec(lr=3e-3, momentum=0.9),
+        sync=api.SyncSpec(mode=sync, s_lower=1, s_upper=4),
+        ps=api.ServerSpec(
+            kind=kind, shards=4 if sharded else 1, workers=2,
+            apply=("fused" if sharded else "packed") if wire == "packed"
+            else "tree",
+            gating="sharded" if wire == "packed" else "global",
+            straggler=1.0, coalesce=coalesce,
+            coalesce_wait_ms=COALESCE_WAIT_MS if coalesce > 1 else None),
+        wire=api.WireSpec(format=wire, compression=compression,
+                          topk_fraction=0.05, delta_pull=wire == "packed"))
+
+
+
+def run_server(torch, api, label: str, sync: str, compression: str):
+    """One full-width run of the server layer; returns its launches."""
+    from repro_torch.obs.trace import TRACE
+    from repro_torch.perfcount import LAUNCHES
+    spec = server_spec(api, full=True, sync=sync, compression=compression)
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    session = api.build_session(spec)
+    session.start()
+    TRACE.enable(source="server")
+    LAUNCHES.reset()
+    t0 = time.monotonic()
+    m = session.run(8)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = LAUNCHES.snapshot()
+    events = TRACE.drain()
+    TRACE.disable()
+    server, workers = session.server, session.workers
+    session.close()
+
+    tag = f"server ({label})"
+    losses = [l for _, _, l in server.metrics.loss_trajectory]
+    passes = sum(w.iterations_done for w in workers)
+    if passes != 8 or len(losses) != 8 or not all(map(math.isfinite, losses)):
+        fail(f"{tag}: {passes} steps, losses {losses}")
+    if m["max_staleness"] > spec.sync.s_upper:
+        fail(f"{tag}: staleness {m['max_staleness']} > s_upper")
+    ext = {(e["worker"], e["clock"]) for e in events
+           if e["name"] == "dssp_decision"
+           and e["args"]["reason"] in ("grant", "credit_spend")}
+    if sync == "dssp" and len(ext) != m["credit_releases"]:
+        fail(f"{tag}: {len(ext)} DSSP extensions != "
+             f"{m['credit_releases']} credit releases")
+    rows = server.plan.wire_layout().shard_rows
+    flushes = [(e["shard"], e["args"]["n"]) for e in events
+               if e["name"] == "coalesce_flush"]
+    live = [j for j, r in enumerate(rows) if r]
+    for j in live:
+        got = sum(n for s, n in flushes if s == j)
+        if got != server.shards[j].version:
+            fail(f"{tag}: shard {j} flushed {got} contributions, version "
+                 f"{server.shards[j].version}")
+    sizes = [n for _, n in flushes]
+    if launches["fused_update_batched"] != sum(1 for n in sizes if n > 1):
+        fail(f"{tag}: {launches['fused_update_batched']} batched launches "
+             f"for flush sizes {sizes}")
+    if launches["fused_update"] != sum(1 for n in sizes if n == 1):
+        fail(f"{tag}: {launches['fused_update']} single launches for "
+             f"flush sizes {sizes}")
+    if 2 not in sizes or (sync == "bsp" and set(sizes) != {2}):
+        fail(f"{tag}: flush sizes {sizes}")
+    comp = f"fused_{compression}_ef"
+    if launches[comp] != m["pushes"] * len(live):
+        fail(f"{tag}: {launches[comp]} {comp} launches for {m['pushes']} "
+             f"pushes x {len(live)} shards")
+    steps = [c for w in workers for c in w.compute_s]
+    warm = [c for w in workers for c in w.compute_s[1:]]
+    rec = {"phase": "server", "run": label, "steps": passes,
+           "losses": losses, "pushes": m["pushes"], "wall_s": wall,
+           "flush_sizes": sizes, "launches": launches,
+           "max_staleness": m["max_staleness"],
+           "credit_releases": m["credit_releases"],
+           "dssp_extensions": len(ext),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    say(rec)
+    say(f"server ({label}): pushes/s {m['pushes'] / wall}")
+    say(f"server ({label}): mean step s {statistics.mean(steps)} "
+        f"(after each worker's first: "
+        f"{statistics.mean(warm) if warm else None})")
+    say(f"server ({label}): wait share {m['wait_fraction']}")
+    say(f"server ({label}): peak memory GB "
+        f"{torch.cuda.max_memory_allocated() / 1e9}")
+    return launches
+
+
+def run_paths(torch, api):
+    """The mono packed server (coalesced) and the tree wire (sharded,
+    global gate, tree apply) at smoke size: one short BSP run each."""
+    for label, spec in (
+            ("mono packed, coalesce 2",
+             server_spec(api, full=False, sync="bsp", compression="none",
+                         kind="mono")),
+            ("tree wire, global gate",
+             server_spec(api, full=False, sync="bsp", compression="none",
+                         coalesce=1, wire="tree"))):
+        with api.build_session(spec) as s:
+            m = s.run(4)
+            losses = [l for _, _, l in s.server.metrics.loss_trajectory]
+        if len(losses) != 4 or not all(map(math.isfinite, losses)):
+            fail(f"paths ({label}): losses {losses}")
+        say({"phase": "paths", "run": label, "losses": losses,
+             "pushes": m["pushes"], "applied_updates": m["applied_updates"],
+             "max_staleness": m["max_staleness"]})
 
 
 KERNEL_GROUPS = (("attention kernel (flash_fwd)", ("flash_fwd",)),
@@ -405,7 +674,7 @@ def profile_step(torch, api):
     under ``torch.profiler``; device time per kernel group and name, and
     the device's idle share of the steps' wall time."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
     # straggler 1.0: the one worker is also the last, which the spec
     # would otherwise slow down by sleeping
     spec = main_path_spec(api, full=True, workers=1, sync="bsp",
@@ -467,6 +736,7 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_compress as fc
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import residual_rmsnorm as rrn
     from repro_torch.kernels import rmsnorm as rn
@@ -493,25 +763,46 @@ def main() -> None:
     table = {"fused_update": check_fused_update(torch, timer, fu, main_rows)}
     table.update(check_norms(torch, timer, rn, rrn))
     table["flash_attention_fwd"] = check_flash(torch, timer, fa)
+    table["fused_update_batched"] = check_fused_update_batched(
+        torch, timer, fu, main_rows)
+    table.update(check_fused_compress(torch, timer, fc, main_rows))
     del timer
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
 
-    # -- parity, train, profile ------------------------------------------
+    # -- parity, train, profile, server, paths ---------------------------
     check_parity(torch, api)
     launches = run_train(torch, api)
     profile_step(torch, api)
+    server_a = run_server(torch, api, "a: dssp, coalesce 2, int8", "dssp",
+                          "int8")
+    server_b = run_server(torch, api, "b: bsp, coalesce 2, topk 0.05", "bsp",
+                          "topk")
+    launches["fused_update_batched"] = (server_a["fused_update_batched"]
+                                        + server_b["fused_update_batched"])
+    launches["fused_int8_ef"] = server_a["fused_int8_ef"]
+    launches["fused_topk_ef"] = server_b["fused_topk_ef"]
+    run_paths(torch, api)
 
     replaces = {
         "fused_update": "src/repro/kernels/fused_update.py:37",
+        "fused_update_batched": "src/repro/kernels/fused_update.py:124",
+        "fused_int8_ef": "src/repro/kernels/fused_compress.py:64",
+        "fused_topk_ef": "src/repro/kernels/fused_compress.py:101",
         "rmsnorm": "src/repro/kernels/rmsnorm.py:20",
         "residual_rmsnorm": "src/repro/kernels/residual_rmsnorm.py:28",
         "flash_attention_fwd": "src/repro/kernels/flash_attention.py:34",
     }
     sources = {
         "fused_update": "fused_update.cu", "rmsnorm": "rmsnorm.cu",
+        "fused_update_batched": "fused_update.cu",
+        "fused_int8_ef": "fused_compress.cu",
+        "fused_topk_ef": "fused_compress.cu",
         "residual_rmsnorm": "residual_rmsnorm.cu",
         "flash_attention_fwd": "flash_attention.cu",
     }
+    unlaunched = [name for name in table if launches[name] <= 0]
+    if unlaunched:
+        fail(f"kernels never launched on their path: {unlaunched}")
     kernels = []
     for name, rec in table.items():
         kernels.append({

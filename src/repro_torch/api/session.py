@@ -1,8 +1,10 @@
 """``build_session(spec) -> TrainingSession`` — the single wiring path.
 
-Counterpart of ``repro/api/session.py`` for the engine this slice ports,
-``ps-threads``: W worker threads pushing the packed wire into an in-heap
-``ShardedParameterServer``.
+Counterpart of ``repro/api/session.py`` for the engine the port has so
+far, ``ps-threads``: W worker threads pushing the packed or the tree
+wire into an in-heap ``ShardedParameterServer`` or monolithic
+``ParameterServer``, with coalesced applies and wire compression as the
+spec asks.
 
     with build_session(spec) as session:      # start() on enter
         session.run(steps)                    # blocks until trained
@@ -24,6 +26,7 @@ from typing import Any, Callable, Dict, Iterator, List
 import torch
 
 from repro_torch.api.spec import CUSTOM_ARCH, RunSpec, SpecError
+from repro_torch.device import resolve_device
 
 _ENGINES: Dict[str, type] = {}
 _SERVER_BUILDERS: Dict[str, Callable] = {}
@@ -45,18 +48,6 @@ def register_server(kind: str):
         _SERVER_BUILDERS[kind] = fn
         return fn
     return deco
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else ``cuda:0``; raises when neither is
-    available rather than falling back to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on the card (cuda:0) and found no CUDA "
-            "device; pass device='cpu' to build_session to run on the CPU")
-    return torch.device("cuda", 0)
 
 
 def build_session(spec, **overrides) -> "TrainingSession":
@@ -169,16 +160,51 @@ def _server_optimizer_factory(spec: RunSpec):
                                    staleness_damping=damping)
 
 
+def _coalesce_kwargs(spec: RunSpec) -> Dict[str, Any]:
+    wait = spec.ps.coalesce_wait_ms
+    return {"coalesce": spec.ps.coalesce,
+            "coalesce_wait": None if wait is None else wait / 1e3}
+
+
+def _compression_plan(spec: RunSpec):
+    """(tree_compressor, wire_compression) — where the configured
+    compression runs: the fused wire compression on the packed wire,
+    the per-tensor tree compressor on the tree wire.  (The reference's
+    third place, frame-level int8 over a process transport, comes with
+    the transports, ROADMAP queue 1 item 6.)"""
+    comp = spec.wire.compression
+    if comp == "none":
+        return None, None
+    if spec.wire.format == "packed":
+        return None, comp
+    return comp, None
+
+
+@register_server("mono")
+def _build_mono(spec: RunSpec, params):
+    from repro_torch.ps.server import ParameterServer
+    policy = spec.sync.policy_factory(spec.ps.workers)()
+    return ParameterServer(
+        params, policy, _server_optimizer_factory(spec)(),
+        spec.ps.workers,
+        apply_mode="packed" if spec.ps.apply == "packed" else "tree",
+        **_coalesce_kwargs(spec))
+
+
 @register_server("sharded")
 def _build_sharded(spec: RunSpec, params):
+    from repro_torch.optim.compression import make_compressor
     from repro_torch.ps.sharded.server import ShardedParameterServer
+    tree_comp, wire_comp = _compression_plan(spec)
     return ShardedParameterServer(
         params, spec.sync.policy_factory(spec.ps.workers),
         _server_optimizer_factory(spec),
         spec.ps.workers, spec.ps.shards,
         gating=spec.ps.gating, apply_mode=spec.ps.apply,
-        wire_compression=spec.wire.compression,
-        coalesce=spec.ps.coalesce)
+        compressor=make_compressor(tree_comp) if tree_comp else None,
+        wire_compression=wire_comp,
+        topk_fraction=spec.wire.topk_fraction,
+        **_coalesce_kwargs(spec))
 
 
 # ===================================================================
@@ -243,7 +269,7 @@ class ThreadedPSSession(TrainingSession):
     def _start(self) -> None:
         self.server = build_server(self.spec, self._ov.get("params"),
                                    self.device)
-        if self.verbose:
+        if self.verbose and self.server.plan is not None:
             print(self.server.plan.describe())
 
     def _run(self, steps: int) -> None:
@@ -257,7 +283,8 @@ class ThreadedPSSession(TrainingSession):
         loss_from_aux = self._ov.get("loss_from_aux", _default_loss_from_aux)
         self.workers = [
             PSWorker(i, self.server, make_step(), batches(i), iters,
-                     speed_factor=speeds[i], delta_pull=spec.wire.delta_pull,
+                     speed_factor=speeds[i], wire_format=spec.wire.format,
+                     delta_pull=spec.wire.delta_pull,
                      loss_from_aux=loss_from_aux)
             for i in range(w)]
         run_cluster(self.server, self.workers,
@@ -270,9 +297,10 @@ class ThreadedPSSession(TrainingSession):
 
     # -- worker construction ------------------------------------------
     def _step_factory(self):
-        """() -> step_fn per worker: unpack the pulled wire into leaf
-        views, loss and backward, pack the grads into the worker's own
-        gradient wire."""
+        """() -> step_fn per worker.  Tree wire: loss and backward on the
+        pulled tree, the gradient tree out.  Packed wire: unpack the
+        pulled wire into leaf views, loss and backward, pack the grads
+        into the worker's own gradient wire."""
         step_fn = self._ov.get("step_fn")
         if step_fn is not None:
             return lambda: step_fn
@@ -281,6 +309,17 @@ class ThreadedPSSession(TrainingSession):
         from repro_torch.wireformat import WIRE_LANES
         cfg, _ = _model_setup(self.spec)
         loss_fn = registry.loss_fn(cfg)
+
+        def grads_of(params, batch):
+            leaves, treedef = tree_util.flatten(params)
+            leaves = [x.detach().requires_grad_() for x in leaves]
+            loss, aux = loss_fn(tree_util.unflatten(treedef, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves)
+            return (tree_util.unflatten(treedef, list(grads)),
+                    {"loss": aux["loss"].detach()})
+
+        if self.spec.wire.format == "tree":
+            return lambda: grads_of
         plan = self.server.plan
         layout = plan.wire_layout()
         device = self.device
@@ -297,14 +336,9 @@ class ThreadedPSSession(TrainingSession):
                                  dtype=layout.dtype, device=device)
 
             def step(wire_p, batch):
-                leaves, treedef = tree_util.flatten(plan.unpack(wire_p))
-                leaves = [x.detach().requires_grad_() for x in leaves]
-                loss, aux = loss_fn(tree_util.unflatten(treedef, leaves),
-                                    batch)
-                grads = torch.autograd.grad(loss, leaves)
-                plan.pack(tree_util.unflatten(treedef, list(grads)),
-                          out=wire_g)
-                return wire_g, {"loss": aux["loss"].detach()}
+                grads, aux = grads_of(plan.unpack(wire_p), batch)
+                plan.pack(grads, out=wire_g)
+                return wire_g, aux
 
             return step
 

@@ -701,35 +701,23 @@ def _later(what: str, item: str) -> str:
 
 def _require_ported(spec: "RunSpec") -> None:
     """Refuse every value whose code path a later slice ports."""
-    ps, wire, tp = spec.ps, spec.wire, spec.transport
+    ps, tp, ft = spec.ps, spec.transport, spec.ft
     _require(spec.model.arch in (CUSTOM_ARCH, "h2o-danube-1.8b"),
              _later(f"model.arch={spec.model.arch!r} (a non-dense or "
                     "not-yet-configured architecture)", "item 10"))
-    _require(ps.kind == "sharded",
-             _later(f"ps.kind={ps.kind!r}", "item 3 (mono)" if
-                    ps.kind == "mono" else "item 11 (the SPMD pipeline)"))
-    _require(ps.apply == "fused" and wire.format == "packed",
-             _later("the tree wire / tree apply", "item 3"))
-    _require(ps.gating == "sharded", _later("ps.gating='global'", "item 3"))
-    _require(ps.coalesce == 1,
-             _later("ps.coalesce > 1 (CoalesceWindow, queue 2 kernel 2)",
-                    "item 3"))
-    _require(wire.compression == "none",
-             _later(f"wire.compression={wire.compression!r}", "item 7"))
+    _require(ps.kind != "none",
+             _later("ps.kind='none'", "item 11 (the SPMD pipeline)"))
     _require(not spec.obs.trace,
              _later("obs.trace (trace collection and export)", "item 8"))
-    ft = spec.ft
     _require(not (ft.snapshots or ft.reshards or ft.faults
                   or ft.reconnect_tries > 0),
-             _later("ft (snapshots, resharding, faults, reconnect)",
-                    "item 8"))
+             _later("ft (snapshots, resharding and reshard epochs, "
+                    "faults, reconnect)", "item 8"))
     _require(spec.serve.replicas == 0,
              _later("serve.replicas > 0", "item 9"))
     _require(tp.kind == "inproc" and not tp.endpoint,
              _later(f"transport.kind={tp.kind!r} / transport.endpoint",
                     "item 6"))
-    _require(wire.compression == "none",
-             _later(f"wire.compression={wire.compression!r}", "item 7"))
 
 
 def _sub_from_dict(sub_cls, section: str, sub: Any):

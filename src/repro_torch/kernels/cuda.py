@@ -44,6 +44,10 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "repro_fused_update": [_P, _P, _P, _P, _P, _LL, _F, _F, _F, _I, _I, _P],
+    "repro_fused_update_batched": [_P, _P, _P, _P, _I, _P, _P, _LL, _F, _F,
+                                   _I, _I, _P],
+    "repro_fused_int8_ef": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "repro_fused_topk_ef": [_P, _P, _P, _P, _LL, _F, _I, _I, _P],
     "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "repro_residual_rmsnorm": [_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -77,3 +77,70 @@ def fused_update_ref(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor, *,
     mf = beta * m.float() + scale * g.float()
     pf = p.float() - lr * mf
     return pf.to(p.dtype), mf.to(m.dtype)
+
+
+def fused_update_batched_ref(p: torch.Tensor, m: torch.Tensor, gs, *,
+                             lr: float, beta: float, scales=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K gradients folded through momentum in enqueue order, each step
+    cast back to the storage dtype exactly as a standalone
+    ``fused_update`` launch stores it: K sequential ``fused_update_ref``
+    calls.  ``gs`` is a stacked ``(K,) + p.shape`` tensor or a sequence
+    of K tensors of ``p``'s shape."""
+    k = len(gs)
+    if scales is None:
+        scales = (1.0,) * k
+    for j in range(k):
+        p, m = fused_update_ref(p, m, gs[j], lr=lr, beta=beta,
+                                scale=scales[j])
+    return p, m
+
+
+def _per_tile(buf: torch.Tensor, rows: int = 8) -> torch.Tensor:
+    """(R, 512) wire buffer -> (R // rows, rows * 512) tile-major view."""
+    r, lanes = buf.shape
+    return buf.reshape(r // rows, rows * lanes)
+
+
+def fused_int8_ef_ref(g: torch.Tensor, e: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(8, 512)-tile symmetric int8 quantise/dequantise with error
+    feedback: ``gf = g + e``; ``scale = max(max|gf|, 1e-12) / 127``;
+    ``q = clip(round(gf / scale), -127, 127)`` (half to even);
+    returns ``(q * scale`` in g's dtype, ``gf - q * scale`` in f32)."""
+    if g.shape[0] == 0:
+        return g, e
+    gf = _per_tile(g.float() + e)
+    amax = gf.abs().amax(dim=1, keepdim=True).clamp(min=1e-12)
+    # A tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # multiply by its reciprocal, which is not the IEEE quotient the
+    # reference (and the kernel) computes.
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(gf / scale), -127.0, 127.0)
+    dq = q * scale
+    return dq.reshape(g.shape).to(g.dtype), (gf - dq).reshape(g.shape)
+
+
+def fused_topk_ef_ref(g: torch.Tensor, e: torch.Tensor, *,
+                      fraction: float = 0.05, iters: int = 24
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile magnitude top-k with error feedback.  The threshold is
+    bisected ``iters`` times on the count curve ``|{|x| >= t}|`` against
+    ``target = float32(fraction * 4096)``; every entry with
+    ``|x| >= lo`` is kept (ties too), the rest is carried in the error."""
+    if g.shape[0] == 0:
+        return g, e
+    gf = _per_tile(g.float() + e)
+    mag = gf.abs()
+    target = torch.tensor(fraction * mag.shape[1], dtype=torch.float32)
+    lo = torch.zeros((mag.shape[0], 1), dtype=torch.float32,
+                     device=g.device)
+    hi = mag.amax(dim=1, keepdim=True) + 1e-12
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        keep = (mag >= mid).float().sum(dim=1, keepdim=True)
+        take = keep >= target.to(g.device)
+        lo = torch.where(take, mid, lo)
+        hi = torch.where(take, hi, mid)
+    kept = torch.where(mag >= lo, gf, torch.zeros((), device=g.device))
+    return kept.reshape(g.shape).to(g.dtype), (gf - kept).reshape(g.shape)

@@ -12,6 +12,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import params as P
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
@@ -29,13 +30,14 @@ def param_defs(cfg: ModelConfig) -> Any:
     return transformer.param_defs(cfg)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device="cpu") -> Any:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Any:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
-    on ``device``."""
-    gen = torch.Generator(device=device)
+    on ``device`` (default ``cuda:0``; raises without CUDA — pass
+    ``device="cpu"`` for the CPU)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return P.init_tree(param_defs(cfg), gen, cfg.dtype, torch.device(device))
+    return P.init_tree(param_defs(cfg), gen, cfg.dtype, dev)
 
 
 def count_params(cfg: ModelConfig) -> int:

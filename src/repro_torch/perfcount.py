@@ -52,11 +52,17 @@ class HotPathCounters(_CounterBase):
     #: bytes a full snapshot would have shipped minus what the delta
     #: shipped
     full_pull_bytes_avoided: int = 0
+    #: kernel launches a coalesced flush of K contributions saved over
+    #: K separate applies (K - 1 per flush)
+    apply_launches_saved: int = 0
 
 
 @dataclasses.dataclass
 class KernelLaunches(_CounterBase):
     fused_update: int = 0
+    fused_update_batched: int = 0
+    fused_int8_ef: int = 0
+    fused_topk_ef: int = 0
     rmsnorm: int = 0
     residual_rmsnorm: int = 0
     flash_attention_fwd: int = 0

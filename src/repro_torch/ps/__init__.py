@@ -1,1 +1,2 @@
-"""Parameter-server runtime: the sharded server and its worker threads."""
+"""Parameter-server runtime: the monolithic and sharded servers, the
+coalescing window and the worker threads."""

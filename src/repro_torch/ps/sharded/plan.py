@@ -102,6 +102,31 @@ class ShardPlan:
                  else leaves[sl.leaf][sl.start:sl.stop]
                  for sl in shard.slices] for shard in self.shards]
 
+    def assemble(self, pieces_per_shard: Sequence[Sequence[torch.Tensor]]
+                 ) -> Tree:
+        """Inverse of ``split``: rebuild the tree from shard pieces (a
+        leaf split across shards is concatenated)."""
+        parts: Dict[int, Dict[int, torch.Tensor]] = {}
+        for shard, pieces in zip(self.shards, pieces_per_shard):
+            if len(pieces) != len(shard.slices):
+                raise ValueError(
+                    f"shard {shard.index}: got {len(pieces)} pieces, "
+                    f"plan has {len(shard.slices)} slices")
+            for sl, piece in zip(shard.slices, pieces):
+                parts.setdefault(sl.leaf, {})[sl.start] = piece
+        leaves = []
+        for i in range(len(self.leaf_shapes)):
+            by_start = parts.get(i)
+            if by_start is None:
+                raise ValueError(f"leaf {i} missing from shard pieces")
+            if len(by_start) == 1:
+                (leaf,) = by_start.values()
+            else:
+                WIRE.leaf_concats += 1
+                leaf = torch.cat([by_start[s] for s in sorted(by_start)])
+            leaves.append(leaf)
+        return tree_util.unflatten(self.treedef, leaves)
+
     def piece_shape(self, sl: LeafSlice) -> Tuple[int, ...]:
         """Tensor shape of one slice as it travels on the wire."""
         shape = self.leaf_shapes[sl.leaf]

@@ -1,61 +1,86 @@
 """Sharded (partitioned) parameter server — per-shard locks and gating.
 
-Counterpart of the core of ``repro/ps/sharded/server.py``.  The weight
-tree is partitioned by a ``ShardPlan`` into S size-balanced shards, and
-every shard owns its own
+Counterpart of ``repro/ps/sharded/server.py``.  The weight tree is
+partitioned by a ``ShardPlan`` into S size-balanced shards, and every
+shard owns its own
 
   * lock (condition variable)      — pushes to distinct shards overlap,
   * version counter                — per-shard applied-update count,
-  * ``ServerOptimizer`` settings   — momentum lives with its slice,
+  * ``ServerOptimizer``            — momentum lives with its slice,
   * ``SyncPolicy`` + ``StalenessTracker`` — per-shard Algorithm-1 gating,
   * ``RunMetrics``                 — per-shard staleness/wait accounting.
 
-Every shard keeps params + momentum resident in the plan's packed wire
-layout (an 8-row-aligned ``(rows, 512)`` region) on the server's
-device.  ``push_packed`` slices the worker's gradient wire into per-shard
-row views; each shard's policy gates the push and its region folds in
-through ONE ``fused_update`` kernel launch, which writes NEW buffers —
-the old ones stay valid for whoever pulled them, so a reference to a
-shard's buffer IS a consistent snapshot.  ``pull_packed`` serves a
-version-keyed concatenated snapshot built outside the shard locks;
+Gating modes
+------------
+``sharded`` (default)  every shard gates independently with its own
+    policy; a push returns when the LAST shard releases the worker.
+``global``  one policy/tracker gates the worker exactly once per push
+    (the monolithic semantics) while the weight store stays partitioned.
+
+Apply modes
+-----------
+``fused`` keeps params + momentum resident in the plan's packed wire
+layout (an 8-row-aligned ``(rows, 512)`` region) on the server's device
+and folds a push through ONE ``fused_update`` launch per shard;
+``tree`` steps the shard's piece list through its ``ServerOptimizer``.
+Every apply writes NEW buffers — the old ones stay valid for whoever
+pulled them, so a reference to a shard's buffer IS a consistent
+snapshot.
+
+Packed wire (the zero-repack hot path): ``push_packed`` slices the
+worker's gradient wire into per-shard row views; ``pull_packed`` serves
+a version-keyed concatenated snapshot built outside the shard locks;
 ``pull_delta`` ships only the shards whose version moved.
 
-Every shard gates independently (``gating='sharded'``).  Not ported yet,
-and refused at construction: the global gate, tree-wire applies, wire
-compression (ROADMAP queue 1, item 7), coalesced applies
-(``coalesce > 1``, queue 1 item 3 with queue 2 kernel 2) and live
-resharding (queue 1, item 8).
+``coalesce=K`` arms a ``CoalesceWindow`` per shard: contributions that
+arrive while a flush is in flight (or within the linger
+``coalesce_wait``) fold through ONE ``fused_update_batched`` launch, in
+enqueue order — bit for bit the uncoalesced applies — while the sync
+policy still sees, decides and releases every worker individually.
+
+Compression: ``wire_compression='int8'/'topk'`` compresses each packed
+shard region through one fused kernel launch with a per-(worker, shard)
+f32 error-feedback buffer on the server's device; ``compressor=`` (a
+tree ``Compressor``) does the same per piece on the tree wire.
+
+Live resharding (``reshard``) and reshard epochs come with ROADMAP queue
+1, item 8.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.api.protocol import DeltaPull, ParameterServerProtocol
-from repro_torch.core.policies import SyncPolicy
+from repro_torch.core.policies import Decision, SyncPolicy
 from repro_torch.core.staleness import StalenessTracker
 from repro_torch.kernels.fused_update import fused_update
 from repro_torch.obs.trace import TRACE
+from repro_torch.optim.compression import Compressor, make_packed_compressor
 from repro_torch.perfcount import WIRE
 from repro_torch.ps.metrics import RunMetrics
-from repro_torch.ps.server import ServerOptimizer
+from repro_torch.ps.server import (DEFAULT_COALESCE_WAIT_S, CoalesceWindow,
+                                   ServerOptimizer)
 from repro_torch.ps.sharded.plan import ShardPlan, build_shard_plan
 from repro_torch.wireformat import WIRE_LANES
 
 Params = Any
+Grads = Any
 
 
 class _ShardState:
     """Everything one shard owns.  All mutation under ``self.cond``."""
 
-    def __init__(self, index: int, packed_p: torch.Tensor,
+    def __init__(self, index: int, plan: ShardPlan,
+                 pieces: List[torch.Tensor], packed_p: Optional[torch.Tensor],
                  policy: SyncPolicy, optimizer: ServerOptimizer,
-                 workers: Sequence[int]):
+                 workers: Sequence[int], apply_mode: str):
         self.index = index
+        self.plan = plan
         self.cond = threading.Condition()
         self.policy = policy
         self.optimizer = optimizer
@@ -63,8 +88,36 @@ class _ShardState:
         self.metrics = RunMetrics(policy=f"{policy.name}/shard{index}",
                                   n_workers=len(list(workers)))
         self.version = 0
-        self._packed_p = packed_p
-        self._packed_m = torch.zeros_like(packed_p)
+        self.apply_mode = apply_mode
+        #: the shard's ``CoalesceWindow`` (fused mode; set by the server)
+        self.window: Optional[CoalesceWindow] = None
+        if apply_mode == "fused":
+            self._packed_p = packed_p
+            self._packed_m = torch.zeros_like(packed_p)
+            # unpacked pieces: a cache rebuilt at most once per version,
+            # outside the shard lock (``_shard_snapshot``)
+            self._pieces: Optional[List[torch.Tensor]] = None
+        else:
+            self._pieces = list(pieces)
+
+    def pieces(self) -> List[torch.Tensor]:
+        if self._pieces is None:  # fused mode, invalidated by an apply
+            self._pieces = self.plan.shard_pieces_from_wire(
+                self._packed_p, self.index)
+        return self._pieces
+
+    def apply(self, grad_pieces: List[torch.Tensor], staleness: int) -> None:
+        """Tree-wire apply: an optimizer step, or pack + fold."""
+        if not grad_pieces:           # empty shard: bookkeeping only
+            self.version += 1
+            return
+        if self.apply_mode == "fused":
+            self.apply_packed(self.plan.pack_shard_pieces(
+                grad_pieces, self.index), staleness)
+        else:
+            self._pieces = self.optimizer.step(self.pieces(), grad_pieces,
+                                               staleness)
+            self.version += 1
 
     def apply_packed(self, wire_g: torch.Tensor, staleness: int) -> None:
         """Fold the shard's (rows, 512) gradient region through one
@@ -77,6 +130,7 @@ class _ShardState:
         self._packed_p, self._packed_m = fused_update(
             self._packed_p, self._packed_m, wire_g, lr=opt.lr,
             beta=opt.momentum, scale=opt.scale(staleness))
+        self._pieces = None
         self.version += 1
 
 
@@ -89,41 +143,69 @@ class ShardedParameterServer(ParameterServerProtocol):
                  split_oversized: bool = True,
                  gating: str = "sharded",
                  apply_mode: str = "fused",
+                 compressor: Optional[Compressor] = None,
                  wire_compression: Optional[str] = None,
+                 topk_fraction: float = 0.05,
                  coalesce: int = 1,
+                 coalesce_wait: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic):
-        if gating != "sharded":
-            raise NotImplementedError(
-                f"gating={gating!r}: only per-shard gating is ported "
-                "(ROADMAP queue 1, item 3)")
-        if apply_mode != "fused":
-            raise NotImplementedError(
-                f"apply_mode={apply_mode!r}: only the packed fused apply is "
-                "ported (ROADMAP queue 1, item 3)")
-        if wire_compression not in (None, "none", ""):
-            raise NotImplementedError(
-                "wire compression comes with ROADMAP queue 1, item 7")
-        if coalesce != 1:
-            raise NotImplementedError(
-                "coalesce > 1 (CoalesceWindow + fused_update_batched) comes "
-                "with ROADMAP queue 1, item 3 and queue 2, kernel 2")
+        if gating not in ("sharded", "global"):
+            raise ValueError(f"unknown gating mode {gating!r}")
+        if apply_mode not in ("tree", "fused"):
+            raise ValueError(f"unknown apply mode {apply_mode!r}")
+        if wire_compression not in (None, "none", "", "int8", "topk"):
+            raise ValueError(
+                f"unknown wire compression {wire_compression!r}")
+        if coalesce < 1:
+            raise ValueError(f"coalesce window must be >= 1, got {coalesce}")
+        if coalesce > 1 and apply_mode != "fused":
+            raise ValueError("coalesce > 1 batches packed applies; it "
+                             "requires apply_mode='fused'")
+        self.coalesce = coalesce
+        self.coalesce_wait = (coalesce_wait if coalesce_wait is not None
+                              else (DEFAULT_COALESCE_WAIT_S
+                                    if coalesce > 1 else 0.0))
         self.plan: ShardPlan = build_shard_plan(
             params, n_shards, split_oversized=split_oversized)
         self.gating = gating
         self.n_shards = n_shards
         self.apply_mode = apply_mode
-        self.coalesce = coalesce
         workers = range(n_workers)
-        wire = self.plan.pack(params)
+        if apply_mode == "fused":
+            wire = self.plan.pack(params)
+            self.device = wire.device
+            regions = [self.plan.shard_wire(wire, j).clone()
+                       for j in range(n_shards)]
+            pieces: List[List[torch.Tensor]] = [[] for _ in regions]
+            del wire
+        else:
+            pieces = self.plan.split(params)
+            regions = [None] * n_shards
+            self.device = next(p for ps in pieces for p in ps).device
         self.shards: List[_ShardState] = [
-            _ShardState(j, self.plan.shard_wire(wire, j).clone(),
-                        policy_factory(), optimizer_factory(), workers)
+            _ShardState(j, self.plan, pieces[j], regions[j],
+                        policy_factory(), optimizer_factory(), workers,
+                        apply_mode)
             for j in range(n_shards)]
-        del wire
+        if apply_mode == "fused":
+            for st in self.shards:
+                st.window = self._make_window(st)
+        if gating == "global":
+            self._gate_policy = policy_factory()
+            self._gate_tracker = StalenessTracker(workers)
+            self._gate_cond = threading.Condition()
         self.metrics = RunMetrics(
             policy=f"{self.shards[0].policy.name} xS{n_shards}[{gating}]",
             n_workers=n_workers)
         self._metrics_lock = threading.Lock()
+        self.compressor = (compressor if compressor is not None
+                           and compressor.name != "none" else None)
+        self._err: Dict[int, List[Any]] = {}   # worker -> per-shard err state
+        # Packed-path fused wire compression: per-(worker, shard) f32
+        # error-feedback buffers in wire layout, on the server's device.
+        self.wire_compression = make_packed_compressor(
+            wire_compression, fraction=topk_fraction)
+        self._wire_err: Dict[int, Dict[int, torch.Tensor]] = {}
         # Version-keyed packed snapshot cache for ``pull_packed``.
         self._snap_lock = threading.Lock()
         self._snap_key: Optional[tuple] = None
@@ -133,6 +215,11 @@ class ShardedParameterServer(ParameterServerProtocol):
         self.stopped = False
 
     # -- pulls ---------------------------------------------------------------
+    def _require_fused(self, what: str) -> None:
+        if self.apply_mode != "fused":
+            raise ValueError(f"{what} requires apply_mode='fused' (tree "
+                             "mode has no resident packed store)")
+
     def _snapshot_refs(self):
         """(per-shard buffers, versions), each pair grabbed under its own
         shard lock — buffers are never mutated, so a reference is a
@@ -144,6 +231,30 @@ class ShardedParameterServer(ParameterServerProtocol):
                 versions.append(st.version)
         return snaps, versions
 
+    def _shard_snapshot(self, st: _ShardState) -> List[torch.Tensor]:
+        """One shard's piece list, unpacking OUTSIDE the shard lock and
+        installing the cache only if the shard has not moved meanwhile."""
+        with st.cond:
+            if st._pieces is not None:
+                return list(st._pieces)
+            packed, version = st._packed_p, st.version
+        pieces = self.plan.shard_pieces_from_wire(packed, st.index)
+        with st.cond:
+            if st.version == version and st._pieces is None:
+                st._pieces = list(pieces)
+        return pieces
+
+    def pull(self, worker: int) -> Params:
+        """The parameter tree, reassembled from per-shard snapshots (each
+        consistent under its own lock; cross-shard skew is bounded by
+        the gating policies)."""
+        t0 = TRACE.now() if TRACE.enabled else 0.0
+        params = self.plan.assemble(
+            [self._shard_snapshot(st) for st in self.shards])
+        if TRACE.enabled:
+            TRACE.span("pull", t0, worker=worker)
+        return params
+
     def pull_packed(self, worker: int = -1) -> torch.Tensor:
         """Full (total_rows, 512) wire snapshot of the parameters.
 
@@ -153,6 +264,7 @@ class ShardedParameterServer(ParameterServerProtocol):
         only if it dominates the cached key (component-wise >=,
         somewhere >), so the cache never moves backwards.
         """
+        self._require_fused("pull_packed")
         t0 = TRACE.now() if TRACE.enabled else 0.0
         snaps, versions = self._snapshot_refs()
         key = tuple(versions)
@@ -175,9 +287,13 @@ class ShardedParameterServer(ParameterServerProtocol):
                        args={"packed": True, "cached": False})
         return wire
 
-    def pull(self, worker: int) -> Params:
-        """The parameter tree: views into a packed snapshot."""
-        return self.plan.unpack(self.pull_packed(worker))
+    def pull_packed_shard(self, shard: int, worker: int = -1) -> torch.Tensor:
+        """One shard's resident (rows, 512) region (a consistent
+        snapshot): the unit per-shard endpoints route on."""
+        self._require_fused("pull_packed_shard")
+        st = self.shards[shard]
+        with st.cond:
+            return st._packed_p
 
     def pull_delta(self, worker: int,
                    versions: Optional[Sequence[int]]) -> DeltaPull:
@@ -188,6 +304,7 @@ class ShardedParameterServer(ParameterServerProtocol):
         fresh vector.  A vector of the wrong arity, or one ahead of the
         server, falls back to a full snapshot (``full=True``).
         """
+        self._require_fused("pull_delta")
         t0 = TRACE.now() if TRACE.enabled else 0.0
         snaps, cur = self._snapshot_refs()
         n_shards = len(snaps)
@@ -215,17 +332,49 @@ class ShardedParameterServer(ParameterServerProtocol):
                          regions=regions, full=mismatch)
 
     # -- pushes --------------------------------------------------------------
+    def push_packed_shard(self, worker: int, shard: int, buf) -> None:
+        """Single-shard packed push: the unit of per-shard endpoint
+        routing.  This shard's policy gates the worker on its own, so
+        ``gating='global'`` (one decision spanning all shards of one
+        logical push) is refused.  Accounting is per shard only."""
+        self._require_fused("push_packed_shard")
+        if self.gating == "global":
+            raise ValueError(
+                "per-shard routed pushes require gating='sharded' (the "
+                "global gate must see one push spanning all shards)")
+        layout = self.plan.wire_layout()
+        if tuple(buf.shape) != (layout.shard_rows[shard], WIRE_LANES):
+            raise ValueError(
+                f"shard {shard}: buffer {tuple(buf.shape)} does not match "
+                f"layout ({layout.shard_rows[shard]}, {WIRE_LANES})")
+        if self.wire_compression is not None:
+            buf = self._compress_packed_one(worker, shard, buf)
+        self._push_shard(self.shards[shard], worker, buf, packed=True)
+
+    def push(self, worker: int, grads: Grads) -> None:
+        """Tree-wire push: split the gradients by the plan and push shard
+        by shard, in the canonical order 0..S-1 (a per-worker rotated
+        order deadlocks blocking policies across two shards' barriers).
+        Blocks until every shard's policy (or the global gate) has
+        released the worker."""
+        pieces_per_shard = self.plan.split(grads)
+        if self.compressor is not None:
+            pieces_per_shard = self._compress(worker, pieces_per_shard)
+        self._push_payloads(worker, pieces_per_shard, packed=False)
+
     def push_packed(self, worker: int, wire, epoch: Optional[int] = None
                     ) -> None:
         """Packed-wire push: the zero-repack hot path.
 
         ``wire`` is the full (total_rows, 512) buffer or a list of
         per-shard regions.  The server only takes row-range VIEWS, each
-        shard folds its region through one ``fused_update`` launch, and
-        nothing keeps a reference to ``wire`` after this call returns
-        (the worker reuses the buffer for its next gradient).  Blocks
-        until every shard's policy has released the worker.
+        shard folds its region through one ``fused_update`` launch (plus
+        one fused-compression launch when ``wire_compression`` is set),
+        and nothing keeps a reference to ``wire`` after this call
+        returns (the worker reuses the buffer for its next gradient).
+        Blocks until the worker is released.
         """
+        self._require_fused("push_packed")
         if epoch not in (None, 0):
             raise NotImplementedError(
                 "reshard epochs come with ROADMAP queue 1, item 8")
@@ -249,23 +398,32 @@ class ShardedParameterServer(ParameterServerProtocol):
                     f"wire buffer {tuple(wire.shape)} does not match layout "
                     f"({layout.total_rows}, {WIRE_LANES})")
             shard_bufs = self.plan.shard_wires(wire)
-        self._push_payloads(worker, shard_bufs)
+        if self.wire_compression is not None:
+            shard_bufs = self._compress_packed(worker, shard_bufs)
+        self._push_payloads(worker, shard_bufs, packed=True)
 
-    def _push_payloads(self, worker: int, payloads: Sequence[Any]) -> None:
-        """Every worker visits shards in the SAME order 0..S-1: with
-        blocking policies a per-worker rotated order deadlocks (a
-        circular wait across two shards' barriers)."""
+    def _push_payloads(self, worker: int, payloads: Sequence[Any],
+                       packed: bool) -> None:
         t_push = TRACE.now() if TRACE.enabled else 0.0
         now = self._clock() - self._t0
+        # Global mode: the gate decides FIRST (monolithic order: decide,
+        # apply, then maybe block), and its decision governs every
+        # shard's apply.
+        gate_dec = gate_stale = None
+        if self.gating == "global":
+            gate_dec, gate_stale = self._gate_decide(worker)
         max_stale, any_applied, any_credit = 0, False, False
         total_wait = 0.0
         for st, payload in zip(self.shards, payloads):
             stale, applied, credit, waited = self._push_shard(
-                st, worker, payload)
+                st, worker, payload, packed, gate_dec, gate_stale)
             max_stale = max(max_stale, stale)
             any_applied = any_applied or applied
             any_credit = any_credit or credit
             total_wait += waited
+        if gate_dec is not None:
+            total_wait += self._gate_wait(worker, gate_dec)
+            max_stale = gate_stale
         with self._metrics_lock:
             self.metrics.record_push(worker, max_stale, applied=any_applied,
                                      credit=any_credit, time=now)
@@ -277,15 +435,33 @@ class ShardedParameterServer(ParameterServerProtocol):
                        args={"staleness": max_stale, "applied": any_applied,
                              "credit": any_credit})
 
-    def _push_shard(self, st: _ShardState, worker: int, payload: Any):
+    def _push_shard(self, st: _ShardState, worker: int, payload: Any,
+                    packed: bool = True,
+                    gate_dec: Optional[Decision] = None,
+                    gate_stale: Optional[int] = None):
         j = st.index
         with st.cond:
             now = self._clock() - self._t0
             rec = st.tracker.record_push(worker, now)
-            dec = st.policy.on_push(st.tracker, worker, now)
+            if gate_dec is None:
+                dec = st.policy.on_push(st.tracker, worker, now)
+                apply_staleness = rec.staleness
+            else:
+                # Global gating: apply iff the gate said so, with the
+                # gate's staleness; the release belongs to the gate.
+                dec = Decision(apply_update=gate_dec.apply_update,
+                               release_now=True,
+                               credit_used=gate_dec.credit_used)
+                apply_staleness = gate_stale
             if dec.apply_update:
                 t_apply = TRACE.now() if TRACE.enabled else 0.0
-                st.apply_packed(payload, rec.staleness)
+                if self.coalesce > 1:
+                    self._apply_coalesced(st, payload, packed,
+                                          apply_staleness)
+                elif packed:
+                    st.apply_packed(payload, apply_staleness)
+                else:
+                    st.apply(payload, apply_staleness)
                 if TRACE.enabled:
                     TRACE.span("apply", t_apply, worker=worker, shard=j,
                                clock=rec.iteration)
@@ -308,6 +484,96 @@ class ShardedParameterServer(ParameterServerProtocol):
                                clock=rec.iteration)
             return rec.staleness, dec.apply_update, dec.credit_used, waited
 
+    # -- coalescing ----------------------------------------------------------
+    def _make_window(self, st: _ShardState) -> CoalesceWindow:
+        """One ``CoalesceWindow`` per shard (the shard's lock domain):
+        ``install`` commits buffers + version together, so a reader
+        snapshotting (buffer, version) under ``st.cond`` never sees one
+        without the other."""
+        def get_pm():
+            return st._packed_p, st._packed_m
+
+        def install(p, m, n: int) -> None:
+            st._packed_p, st._packed_m = p, m
+            st._pieces = None
+            st.version += n
+
+        return CoalesceWindow(self, st.cond, st.optimizer, st.tracker,
+                              get_pm, install, shard=st.index)
+
+    def _apply_coalesced(self, st: _ShardState, payload: Any,
+                         packed: bool, staleness: int) -> None:
+        """Route one contribution through the shard's window.  Called
+        under ``st.cond``."""
+        if not packed:
+            if not payload:              # empty shard: bookkeeping only
+                st.version += 1
+                return
+            payload = self.plan.pack_shard_pieces(payload, st.index)
+        if payload.shape[0] == 0:        # empty shard region
+            st.version += 1
+            return
+        st.window.submit(payload, st.optimizer.scale(staleness))
+
+    # -- global gate ---------------------------------------------------------
+    def _gate_decide(self, worker: int):
+        """Global-gate bookkeeping + decision (no blocking yet)."""
+        with self._gate_cond:
+            now = self._clock() - self._t0
+            rec = self._gate_tracker.record_push(worker, now)
+            dec = self._gate_policy.on_push(self._gate_tracker, worker, now)
+            self._gate_cond.notify_all()
+            return dec, rec.staleness
+
+    def _gate_wait(self, worker: int, dec: Decision) -> float:
+        if dec.release_now:
+            return 0.0
+        t_wait = TRACE.now() if TRACE.enabled else 0.0
+        with self._gate_cond:
+            arrival = self._clock()
+            while (not self.stopped
+                   and not self._gate_policy.may_release(
+                       self._gate_tracker, worker)):
+                self._gate_cond.wait(timeout=0.5)
+            waited = self._clock() - arrival
+        if TRACE.enabled:
+            TRACE.span("gate_wait", t_wait, worker=worker)
+        return waited
+
+    # -- compression ---------------------------------------------------------
+    def _compress(self, worker: int,
+                  pieces_per_shard: List[List[torch.Tensor]]):
+        err = self._err.get(worker)
+        if err is None:
+            err = [self.compressor.init_error(p) for p in pieces_per_shard]
+        out = []
+        for j, pieces in enumerate(pieces_per_shard):
+            compressed, err[j] = self.compressor.apply(pieces, err[j])
+            out.append(compressed)
+        self._err[worker] = err
+        return out
+
+    def _compress_packed(self, worker: int,
+                         shard_bufs: List[torch.Tensor]
+                         ) -> List[torch.Tensor]:
+        """Fused wire compression: ONE kernel launch per non-empty
+        shard, with per-(worker, shard) f32 error buffers."""
+        return [self._compress_packed_one(worker, j, buf)
+                for j, buf in enumerate(shard_bufs)]
+
+    def _compress_packed_one(self, worker: int, shard: int,
+                             buf: torch.Tensor) -> torch.Tensor:
+        if buf.shape[0] == 0:
+            return buf
+        state = self._wire_err.setdefault(worker, {})
+        err = state.get(shard)
+        if err is None:
+            err = torch.zeros(buf.shape, dtype=torch.float32,
+                              device=buf.device)
+        buf, err = self.wire_compression.apply(buf, err)
+        state[shard] = err
+        return buf
+
     # -- accounting ----------------------------------------------------------
     def record_loss(self, step: int, loss: float) -> None:
         with self._metrics_lock:
@@ -321,19 +587,32 @@ class ShardedParameterServer(ParameterServerProtocol):
                 st.tracker.add_worker(worker)
                 st.metrics.n_workers = len(st.tracker.workers)
                 st.cond.notify_all()
+        if self.gating == "global":
+            with self._gate_cond:
+                self._gate_tracker.add_worker(worker)
+                self._gate_cond.notify_all()
         with self._metrics_lock:
             self.metrics.n_workers = len(self.shards[0].tracker.workers)
+        self._err.pop(worker, None)
+        self._wire_err.pop(worker, None)
 
     def remove_worker(self, worker: int) -> None:
         """Departure must not stall ANY shard's barrier: drop the worker
-        from every shard tracker, waking that shard's waiters."""
+        from every shard tracker (and the global gate), waking waiters
+        and lingering flushers; its error-feedback state goes too."""
         for st in self.shards:
             with st.cond:
                 st.tracker.remove_worker(worker)
                 st.metrics.n_workers = len(st.tracker.workers)
                 st.cond.notify_all()
+        if self.gating == "global":
+            with self._gate_cond:
+                self._gate_tracker.remove_worker(worker)
+                self._gate_cond.notify_all()
         with self._metrics_lock:
             self.metrics.n_workers = len(self.shards[0].tracker.workers)
+        self._err.pop(worker, None)
+        self._wire_err.pop(worker, None)
 
     def reshard(self, n_shards: int) -> bool:
         raise NotImplementedError(
@@ -344,6 +623,9 @@ class ShardedParameterServer(ParameterServerProtocol):
         for st in self.shards:
             with st.cond:
                 st.cond.notify_all()
+        if self.gating == "global":
+            with self._gate_cond:
+                self._gate_cond.notify_all()
 
     # -- inspection ----------------------------------------------------------
     @property
@@ -353,3 +635,11 @@ class ShardedParameterServer(ParameterServerProtocol):
 
     def shard_versions(self) -> List[int]:
         return [st.version for st in self.shards]
+
+    def staleness_profile(self) -> Dict[int, Dict[int, int]]:
+        """shard -> worker -> current gap."""
+        out = {}
+        for st in self.shards:
+            with st.cond:
+                out[st.index] = st.tracker.staleness_profile()
+        return out

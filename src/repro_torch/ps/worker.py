@@ -5,16 +5,20 @@ Each worker runs the paper's loop (Alg. 1 worker block):
     pull w_s  →  replace local weights  →  compute grads on a mini-batch
     →  push grads  →  (blocked until the server sends OK)
 
-``step_fn`` is ``(packed params, batch) -> (packed grads, aux)``; batches
-come from a per-worker data shard.  A ``speed_factor > 1`` makes the
-worker proportionally slower by sleeping ``(speed_factor − 1) ×
+``step_fn`` is ``(params, batch) -> (grads, aux)``; batches come from a
+per-worker data shard.  A ``speed_factor > 1`` makes the worker
+proportionally slower by sleeping ``(speed_factor − 1) ×
 measured_compute`` per iteration — the paper's heterogeneous cluster on
 one card.
 
-The worker speaks the packed wire (``pull_packed``/``push_packed``).
-With ``delta_pull=True`` it keeps a resident packed buffer ON THE DEVICE
-plus the per-shard version vector of its last pull, and patches in
-place (``copy_``) only the shard regions that advanced.  (The reference
+``wire_format='packed'`` (the main path) speaks the packed wire
+(``pull_packed``/``push_packed``): params and grads are ``(rows, 512)``
+buffers.  ``wire_format='tree'`` pulls the parameter tree
+(``server.pull``) and pushes the gradient tree (``server.push``).
+With ``delta_pull=True`` (packed only) the worker keeps a resident
+packed buffer ON THE DEVICE plus the per-shard version vector of its
+last pull, and patches in place (``copy_``) only the shard regions that
+advanced.  (The reference
 keeps a host buffer because JAX arrays are immutable; here the buffer is
 simply overwritten, between steps, by the thread that owns it.)
 """
@@ -27,14 +31,16 @@ from typing import Any, Callable, Iterator, Optional
 
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.api.protocol import ParameterServerProtocol
 from repro_torch.obs.trace import TRACE
 
-StepFn = Callable[[Any, Any], Any]  # (wire params, batch) -> (wire grads, aux)
+StepFn = Callable[[Any, Any], Any]  # (params, batch) -> (grads, aux)
 
 
-def wait_for(t: torch.Tensor) -> None:
-    """Block until the work that produced ``t`` is done.
+def wait_for(t: Any) -> None:
+    """Block until the work that produced ``t`` (a tensor or a tree of
+    them) is done.
 
     On CUDA: an event recorded on the current stream, then
     ``event.synchronize()``.  Every worker thread issues onto the same
@@ -42,6 +48,8 @@ def wait_for(t: torch.Tensor) -> None:
     for the OTHER workers' queued work and charge it to this worker's
     step — skewing the measured compute that the straggler emulation
     scales.  On the CPU the work is already done."""
+    if not isinstance(t, torch.Tensor):
+        t = tree_util.leaves(t)[0]
     if t.is_cuda:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(t.device))
@@ -53,9 +61,16 @@ class PSWorker(threading.Thread):
                  step_fn: StepFn, batches: Iterator[Any], n_iterations: int,
                  *, speed_factor: float = 1.0,
                  loss_from_aux: Optional[Callable[[Any], float]] = None,
+                 wire_format: str = "packed",
                  delta_pull: bool = False,
                  name: Optional[str] = None):
         super().__init__(name=name or f"ps-worker-{worker_id}", daemon=True)
+        if wire_format not in ("tree", "packed"):
+            raise ValueError(f"unknown wire format {wire_format!r}")
+        if delta_pull and wire_format != "packed":
+            raise ValueError("delta_pull tracks per-shard versions of "
+                             "the packed snapshot; it requires "
+                             "wire_format='packed'")
         self.worker_id = worker_id
         self.server = server
         self.step_fn = step_fn
@@ -63,6 +78,7 @@ class PSWorker(threading.Thread):
         self.n_iterations = n_iterations
         self.speed_factor = speed_factor
         self.loss_from_aux = loss_from_aux
+        self.wire_format = wire_format
         self.delta_pull = delta_pull
         self.iterations_done = 0
         #: measured seconds of each step (without the straggler sleep)
@@ -76,9 +92,8 @@ class PSWorker(threading.Thread):
         shard).  Returns a drop-in replacement for ``pull_packed``."""
         from repro_torch.wireformat import WIRE_LANES
         layout = self.server.plan.wire_layout()
-        device = self.server.shards[0]._packed_p.device
         resident = torch.zeros((layout.total_rows, WIRE_LANES),
-                               dtype=layout.dtype, device=device)
+                               dtype=layout.dtype, device=self.server.device)
         state = {"versions": (-1,) * self.server.n_shards}
 
         def pull(worker_id: int) -> torch.Tensor:
@@ -96,9 +111,11 @@ class PSWorker(threading.Thread):
         return pull
 
     def run(self) -> None:
+        packed = self.wire_format == "packed"
         pull = (self._delta_puller() if self.delta_pull
-                else self.server.pull_packed)
-        push = self.server.push_packed
+                else self.server.pull_packed if packed
+                else self.server.pull)
+        push = self.server.push_packed if packed else self.server.push
         try:
             for it in range(self.n_iterations):
                 if self.server.stopped:

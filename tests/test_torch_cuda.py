@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_compress as fc
 from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import registry
 from repro_torch.kernels import residual_rmsnorm as rrn
@@ -52,6 +53,81 @@ def test_fused_update_bitwise(gen, dtype, n):
     pr2, mr2 = fu.fused_update_plain(p[1:], m[1:], g[1:], lr=0.01, beta=0.9,
                                      scale=0.25)
     assert torch.equal(po2, pr2) and torch.equal(mo2, mr2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 40])
+@pytest.mark.parametrize("n", [7, 4096, 8 * 512 + 3, 1 << 20])
+def test_fused_update_batched_bitwise(gen, dtype, k, n):
+    p, m = _rand(gen, (n,), dtype), _rand(gen, (n,), dtype)
+    gs = [_rand(gen, (n,), dtype) for _ in range(k)]
+    scales = [1.0 / (1 + j) for j in range(k)]
+    before = LAUNCHES.snapshot()
+    po, mo = fu.fused_update_batched(p, m, gs, lr=0.01, beta=0.9,
+                                     scales=scales)
+    after = LAUNCHES.snapshot()
+    if k == 1:
+        assert after["fused_update"] == before["fused_update"] + 1
+    else:   # one launch per MAX_BATCH contributions
+        assert after["fused_update_batched"] == \
+            before["fused_update_batched"] + -(-k // fu.MAX_BATCH)
+    pr, mr = fu.fused_update_batched_plain(p, m, gs, lr=0.01, beta=0.9,
+                                           scales=scales)
+    assert torch.equal(po, pr) and torch.equal(mo, mr)
+    # K sequential launches of the single kernel give the same bits
+    ps_, ms_ = p, m
+    for g, sc in zip(gs, scales):
+        ps_, ms_ = fu.fused_update(ps_, ms_, g, lr=0.01, beta=0.9, scale=sc)
+    assert torch.equal(po, ps_) and torch.equal(mo, ms_)
+    # a stacked tensor and unaligned views fold the same
+    po2, mo2 = fu.fused_update_batched(p, m, torch.stack(gs), lr=0.01,
+                                       beta=0.9, scales=scales)
+    assert torch.equal(po2, po) and torch.equal(mo2, mo)
+    po3, mo3 = fu.fused_update_batched(p[1:], m[1:], [g[1:] for g in gs],
+                                       lr=0.01, beta=0.9, scales=scales)
+    pr3, mr3 = fu.fused_update_batched_plain(
+        p[1:], m[1:], [g[1:] for g in gs], lr=0.01, beta=0.9, scales=scales)
+    assert torch.equal(po3, pr3) and torch.equal(mo3, mr3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [8, 64, 1000])
+@pytest.mark.parametrize("kind", ["int8", "topk-0.01", "topk-0.05",
+                                  "topk-0.25", "topk-1.0"])
+def test_fused_compress_bitwise(gen, dtype, rows, kind):
+    rows = rows - rows % 8
+    g = _rand(gen, (rows, 512), dtype)
+    e = 0.01 * _rand(gen, (rows, 512), torch.float32)
+    if kind == "int8":
+        fn, plain = fc.fused_int8_ef, fc.fused_int8_ef_plain
+    else:
+        frac = float(kind.split("-")[1])
+        fn = lambda a, b: fc.fused_topk_ef(a, b, fraction=frac)
+        plain = lambda a, b: fc.fused_topk_ef_plain(a, b, fraction=frac)
+    name = "fused_int8_ef" if kind == "int8" else "fused_topk_ef"
+    before = getattr(LAUNCHES, name)
+    dq, er = fn(g, e)
+    assert getattr(LAUNCHES, name) == before + 1
+    dr, err = plain(g, e)
+    assert dq.dtype == g.dtype and er.dtype == torch.float32
+    assert torch.equal(dq, dr) and torch.equal(er, err)
+    # ties and exact zeros: a tile of repeated values and a zero tile
+    g2 = torch.zeros((16, 512), device="cuda", dtype=dtype)
+    g2[:8] = torch.arange(4096, device="cuda").reshape(8, 512).remainder(7)
+    e2 = torch.zeros((16, 512), device="cuda")
+    a, b = fn(g2, e2)
+    c, d = plain(g2, e2)
+    assert torch.equal(a, c) and torch.equal(b, d)
+
+
+def test_fused_compress_refuses_what_it_cannot_launch_on(gen):
+    g = _rand(gen, (8, 512), torch.float32)
+    with pytest.raises(TypeError, match="float32"):
+        fc.fused_int8_ef(g, g.half())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fc.fused_topk_ef(g, g.cpu())
+    z = torch.zeros((0, 512), device="cuda")
+    assert fc.fused_int8_ef(z, z)[0] is z
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -35,6 +35,9 @@ def test_every_repro_torch_module_imports_without_jax_or_repro():
     assert res["bad"] == []
     expected = {"repro_torch.api.session", "repro_torch.ps.worker",
                 "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.fused_compress",
+                "repro_torch.optim.compression", "repro_torch.ps.server",
+                "repro_torch.device",
                 "repro_torch.ps.sharded.server", "repro_torch.models.layers"}
     assert expected <= set(res["modules"])
 

@@ -97,12 +97,20 @@ def test_param_defs_and_names_match_reference():
     assert [(d.shape, d.init, d.fan_in_dims) for d in ours] == \
         [(d.shape, d.init, d.fan_in_dims) for d in theirs]
     assert registry.count_params(cfg) == jregistry.count_params(jcfg)
-    params = registry.init_params(cfg, seed=0)
+    params = registry.init_params(cfg, seed=0, device="cpu")
     assert [tuple(x.shape) for x in tree_util.leaves(params)] == \
         [d.shape for d in ours]
-    again = registry.init_params(cfg, seed=0)
+    again = registry.init_params(cfg, seed=0, device="cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(tree_util.leaves(params), tree_util.leaves(again)))
+
+
+def test_init_params_defaults_to_the_card_and_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: init would run")
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.init_params(cfg, seed=0)
 
 
 def test_full_config_is_the_reference_config():

@@ -188,6 +188,10 @@ def test_gating_still_blocks_per_worker():
 
 
 def test_push_packed_rejects_mismatched_wire_and_unported_modes():
+    """Wrong-shaped wires raise, live resharding stays refused (item 8),
+    and the modes this server once refused — coalescing, wire
+    compression, the global gate and the tree apply — now build and
+    fold a push."""
     params = make_params()
     srv = make_port(params, n_shards=2)
     with pytest.raises(ValueError, match="does not match layout"):
@@ -196,16 +200,31 @@ def test_push_packed_rejects_mismatched_wire_and_unported_modes():
         srv.push_packed(0, [torch.zeros(8, 512)])
     with pytest.raises(NotImplementedError, match="item 8"):
         srv.reshard(3)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        srv.push_packed(0, srv.pull_packed(), epoch=1)
     srv.stop()
     tree = from_numpy_tree(params, "cpu")
-    for kw, item in ((dict(coalesce=2), "item 3"),
-                     (dict(wire_compression="int8"), "item 7"),
-                     (dict(gating="global"), "item 3"),
-                     (dict(apply_mode="tree"), "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            ShardedParameterServer(tree, make_policy_factory("asp"),
-                                   lambda: ServerOptimizer(lr=0.1), 1, 2,
-                                   **kw)
+    grads = from_numpy_tree(grads_like(params, 1), "cpu")
+    for kw in (dict(coalesce=2, coalesce_wait=0.0),
+               dict(wire_compression="int8"),
+               dict(gating="global"),
+               dict(apply_mode="tree")):
+        other = ShardedParameterServer(
+            tree, make_policy_factory("asp"),
+            lambda: ServerOptimizer(lr=0.1), 1, 2, **kw)
+        before = other.plan.pack(other.pull(0)).clone()
+        if kw.get("apply_mode") == "tree":
+            other.push(0, grads)
+        else:
+            other.push_packed(0, other.plan.pack(grads))
+        assert other.shard_versions() == [1, 1], kw
+        after = other.plan.pack(other.pull(0))
+        assert not torch.equal(after, before), kw
+        other.stop()
+    with pytest.raises(ValueError, match="coalesce"):
+        ShardedParameterServer(tree, make_policy_factory("asp"),
+                               lambda: ServerOptimizer(lr=0.1), 1, 2,
+                               apply_mode="tree", coalesce=2)
 
 
 def test_membership_departure_releases_and_join_starts_at_slowest():

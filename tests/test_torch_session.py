@@ -118,9 +118,9 @@ def test_spec_json_round_trips_and_schema_is_the_reference_schema():
 
 @pytest.mark.parametrize("section,field,value,item", [
     ("transport", "kind", "tcp", "item 6"),
-    ("wire", "compression", "int8", "item 7"),
-    ("ps", "coalesce", 2, "item 3"),
-    ("ps", "kind", "mono", "item 3"),
+    ("transport", "endpoint", True, "item 6"),
+    ("ps", "kind", "none", "item 11"),
+    ("ft", "snapshot_every_s", 1.0, "item 8"),
     ("obs", "trace", True, "item 8"),
     ("ft", "reconnect_tries", 2, "item 8"),
     ("serve", "replicas", 1, "item 9"),
@@ -131,9 +131,57 @@ def test_later_slices_raise_spec_errors_naming_their_item(section, field,
     d = _spec(api, workers=2, sync="dssp").to_dict()
     d[section][field] = value
     if (section, field) == ("ps", "kind"):
-        d["ps"].update(shards=1, apply="packed")
+        d["ps"].update(shards=0, apply="tree")
+        d["wire"].update(format="tree", delta_pull=False)
+    if (section, field) == ("ft", "snapshot_every_s"):
+        d["ft"]["dir"] = "ckpt"
     if (section, field) == ("ft", "reconnect_tries"):
         d["transport"]["kind"] = "tcp"
     japi.RunSpec.from_dict(d)              # valid for the reference ...
     with pytest.raises(api.SpecError, match=item):
         api.RunSpec.from_dict(d)           # ... refused, with its item
+
+
+def _lifted(case: str) -> dict:
+    """The main-path spec, moved onto one of the paths this slice ports."""
+    d = _spec(api, workers=2, sync="bsp", steps_lr=5e-2).to_dict()
+    ps, wire = d["ps"], d["wire"]
+    if case.startswith("compression-"):
+        wire["compression"] = case.split("-")[1]
+    elif case == "coalesce":
+        ps.update(coalesce=2, coalesce_wait_ms=5000.0)
+    elif case == "mono-packed":
+        ps.update(kind="mono", shards=1, apply="packed", coalesce=2,
+                  coalesce_wait_ms=5000.0)
+    elif case == "mono-tree":
+        ps.update(kind="mono", shards=1, apply="tree")
+        wire.update(format="tree", delta_pull=False)
+    elif case == "global-gating":
+        ps["gating"] = "global"
+    elif case == "tree-wire":
+        ps["gating"] = "global"
+        wire.update(format="tree", delta_pull=False)
+    elif case == "tree-apply-int8":
+        ps["apply"] = "tree"
+        wire.update(format="tree", delta_pull=False, compression="int8")
+    return d
+
+
+@pytest.mark.parametrize("case", [
+    "compression-int8", "compression-topk", "coalesce", "mono-packed",
+    "mono-tree", "global-gating", "tree-wire", "tree-apply-int8"])
+def test_paths_this_slice_ports_build_and_train(case):
+    """What the port refused before this slice — wire compression,
+    coalescing, the mono server, the global gate and the tree wire —
+    now builds and trains through ``build_session`` on the CPU."""
+    d = _lifted(case)
+    japi.RunSpec.from_dict(d)                # valid for the reference
+    spec = api.RunSpec.from_dict(d)          # and no longer refused
+    with api.build_session(spec, device="cpu", timeout=300.0) as s:
+        m = s.run(4)
+        losses = _losses(s)
+    assert m["pushes"] == 4
+    assert len(losses) == 4 and all(math.isfinite(x) for x in losses)
+    assert m["max_staleness"] <= 1            # BSP
+    n_shards = 1 if spec.ps.kind == "mono" else spec.ps.shards
+    assert m["applied_updates"] == 4 * n_shards
