@@ -10,7 +10,7 @@ after an error:
 
   device   require CUDA; print the card's name and power limit
            (nvidia-smi), the torch and CUDA versions; TF32 off
-  build    compile the seven Hopper kernels (src/repro_torch/kernels/csrc)
+  build    compile the eight Hopper kernels (src/repro_torch/kernels/csrc)
            with nvcc, one process per source, and load the library
   kernels  each kernel against its plain PyTorch version on the card, at
            the main path's shapes and a few others (ragged sizes, f32 and
@@ -25,7 +25,8 @@ after an error:
            staleness within s_upper, DSSP extensions == credit releases,
            and every kernel's launch count equal to what the run implies
   profile  two more steps (1 worker) under torch.profiler: device time
-           per kernel group and the device's idle share of a step
+           per kernel group, and the device's idle share of two untraced
+           steps of the same configuration
   server   the server layer at FULL width: (a) DSSP with coalesced
            applies (ps.coalesce=2) and int8 wire compression, (b) BSP with
            coalesced applies and top-k wire compression, 8 steps of 2
@@ -36,6 +37,19 @@ after an error:
   paths    the monolithic packed server (coalesced) and the tree wire
            (sharded server, global gate, tree apply) at smoke size, one
            short BSP run each
+  jamba parity
+           the Jamba smoke config (Mamba, attention, MoE with 4 experts)
+           trained through ``build_session`` twice on the card, kernels
+           vs plain formulations: the losses must agree
+  hybrid   jamba-v0.1-52b at its published widths, cut to one period
+           group (8 layers: 7 Mamba, 1 attention) and no experts, passed
+           as ``model_config``: 8 DSSP steps of 2 workers through 4
+           shards with delta pulls, checked as the train phase is, with
+           14 ``ssm_scan`` launches per worker step
+  hybrid profile
+           two one-worker steps of that configuration under
+           torch.profiler, with the ``ssm_scan`` kernel and the scan's
+           plain backward as groups of their own
 
 The last two lines of standard output are the JSON kernel table and the
 contract line ``{"ok": true, "device": {...}}``.  This script imports
@@ -44,6 +58,7 @@ nothing of JAX and nothing of the ``repro`` package.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -58,6 +73,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core bf16
               "float32": 67e12}      # f32 outside the tensor cores
+#: exponentials per second on the special function units: 16 results per
+#: clock per SM at compute capability 9.0 (CUDA C++ Programming Guide,
+#: arithmetic instruction throughput), 132 SMs, 1.98 GHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -431,6 +450,86 @@ def check_flash(torch, timer, fa):
     return main
 
 
+def check_ssm_scan(torch, timer, ss):
+    """The selective scan against its sequential plain version: the
+    hybrid path's shape (2, 1024, 8192, ds 16) in f32 with h0 = 0, then
+    bf16 u, a ragged di, ds 8, and l not a multiple of the chunk (nor of
+    the kernel's 16-step run) with a non-zero h0.
+
+    Tolerance: expf against torch's exp and the order of the C . h sum
+    differ by ulps, damped by exp(delta A) < 1: y and h_last within
+    1e-5 of the largest f32 output; y stored in bf16 within that plus
+    one bf16 ulp (the store rounds values that differ by f32 ulps).
+    """
+    g = torch.Generator(device="cuda").manual_seed(6)
+    F = torch.nn.functional
+    cases = [  # (label, b, l, di, ds, u dtype, h0 non-zero, chunk, main)
+        ("main: hybrid path", 2, 1024, 8192, 16, torch.float32, False, 128,
+         True),
+        ("bf16 u", 2, 1024, 8192, 16, torch.bfloat16, False, 128, False),
+        ("ragged di 1000", 2, 1024, 1000, 16, torch.float32, False, 128,
+         False),
+        ("ds 8", 2, 1024, 4096, 8, torch.float32, False, 128, False),
+        ("l 1000, chunk 128, h0 != 0", 3, 1000, 3000, 16, torch.float32,
+         True, 128, False),
+    ]
+    main = None
+    for label, b, l, di, ds, udt, h0nz, chunk, is_main in cases:
+        rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+        u = rnd(b, l, di).to(udt)
+        delta = F.softplus(rnd(b, l, di) - 1.0)
+        a = -torch.exp(0.5 * rnd(di, ds))
+        bmat, cmat = rnd(b, l, ds), rnd(b, l, ds)
+        h0 = rnd(b, di, ds) if h0nz else torch.zeros((b, di, ds),
+                                                     device="cuda")
+        args = (u, delta, a, bmat, cmat, h0)
+        kern = lambda: ss.ssm_scan(*args, chunk=chunk)
+        plain = lambda: ss.ssm_scan_plain(*args)
+        (y, h), (yr, hr) = kern(), plain()
+        torch.cuda.synchronize()
+        if y.dtype != udt or h.dtype != torch.float32:
+            fail(f"ssm_scan {label}: outputs {y.dtype}, {h.dtype}")
+        err_y = (y.float() - yr.float()).abs()
+        err_h = (h - hr).abs()
+        err = max(err_y.max().item(), err_h.max().item())
+        ok = bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+        ok &= err_h.max().item() <= 1e-5 * max(1.0, hr.abs().max().item())
+        tol_y = 1e-5 * max(1.0, yr.float().abs().max().item())
+        if udt == torch.float32:
+            tol = "1e-5 of max |plain|"
+            ok &= err_y.max().item() <= tol_y
+        else:
+            tol = "y: 1e-5 of max |plain| + 1 bf16 ulp; h_last: 1e-5 of max"
+            ulp = torch.maximum(bf16_ulp(torch, y.float()),
+                                bf16_ulp(torch, yr.float()))
+            ok &= bool((err_y <= ulp + tol_y).all())
+        if not ok:
+            fail(f"ssm_scan {label}: max |err| {err} beyond {tol}")
+        n = b * l * di * ds
+        # u read and y written in u's dtype; delta read; B, C, A, h0
+        # read and h_last written in f32
+        nbytes = (u.numel() * 2 * u.element_size()
+                  + delta.numel() * delta.element_size()
+                  + 4 * (bmat.numel() + cmat.numel() + a.numel()
+                         + 2 * h0.numel()))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        # per (b, t, d, s): one exp on the SFUs; dt*A, dt*B, *u, dA*h, +,
+        # h*C, + in f32: 7 operations
+        t_ops = max(n / SFU_EXP_PER_S, 7 * n / PEAK_FLOPS["float32"]) * 1e3
+        rec = dict(kernel="ssm_scan", case=label, shape=[b, l, di, ds],
+                   u_dtype=str(udt)[6:], chunk=chunk, max_abs_err=err,
+                   tolerance=tol, ms=timer(kern), plain_ms=timer(plain),
+                   library_ms=None,   # no one PyTorch call scans
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+        say(rec)
+        if is_main:
+            main = rec
+        del u, delta, a, bmat, cmat, h0, y, h, yr, hr, args
+    return main
+
+
 # ----------------------------------------------------------------- runs
 def main_path_spec(api, *, full: bool, workers: int, sync: str,
                    kernels: str = "auto", straggler: float = 2.0):
@@ -445,31 +544,59 @@ def main_path_spec(api, *, full: bool, workers: int, sync: str,
         wire=api.WireSpec(format="packed", delta_pull=True))
 
 
-def check_parity(torch, api):
-    """Smoke config on the card: kernels vs plain formulations."""
+def hybrid_spec(api, *, smoke: bool, workers: int, sync: str,
+                kernels: str = "auto", straggler: float = 2.0):
+    """jamba-v0.1-52b through the main path's server and wire: seq 1024
+    and 2 sequences per worker step at full width (seq 64 at smoke
+    size)."""
+    return api.RunSpec(
+        model=api.ModelSpec(arch="jamba-v0.1-52b", smoke=smoke,
+                            kernels=kernels),
+        data=api.DataSpec(seq_len=64 if smoke else 1024, global_batch=2),
+        optimizer=api.OptimizerSpec(lr=3e-3, momentum=0.9),
+        sync=api.SyncSpec(mode=sync, s_lower=1, s_upper=4),
+        ps=api.ServerSpec(kind="sharded", shards=4, workers=workers,
+                          apply="fused", straggler=straggler),
+        wire=api.WireSpec(format="packed", delta_pull=True))
+
+
+def hybrid_config():
+    """jamba-v0.1-52b at its published widths, cut to one period group
+    (8 layers: 7 Mamba slots, attention at offset 3) with every FFN the
+    dense SwiGLU (no experts): 2,725,326,848 parameters."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8,
+                               moe=None)
+
+
+def check_parity(torch, api, label: str, spec_of, tol: float = 1e-4):
+    """A smoke config on the card, 1 worker, 4 BSP steps: kernels vs
+    plain formulations.  ``spec_of(kernels)`` gives the run's spec."""
     runs = {}
     for kernels in ("auto", "xla"):
-        spec = main_path_spec(api, full=False, workers=1, sync="bsp",
-                              kernels=kernels, straggler=1.0)
-        with api.build_session(spec) as s:
+        with api.build_session(spec_of(kernels)) as s:
             s.run(4)
             runs[kernels] = [l for _, _, l in s.server.metrics.loss_trajectory]
     diff = max(abs(a - b) for a, b in zip(runs["auto"], runs["xla"]))
-    say({"phase": "parity", "losses_kernels": runs["auto"],
-         "losses_plain": runs["xla"], "max_abs_diff": diff, "tol": 1e-4})
-    if len(runs["auto"]) != 4 or not diff <= 1e-4:
-        fail(f"parity: kernel and plain losses differ by {diff}")
+    say({"phase": "parity", "run": label, "losses_kernels": runs["auto"],
+         "losses_plain": runs["xla"], "max_abs_diff": diff, "tol": tol})
+    if len(runs["auto"]) != 4 or not diff <= tol:
+        fail(f"parity ({label}): kernel and plain losses differ by {diff}")
 
 
-def run_train(torch, api):
+def run_train(torch, api, label: str, spec, per_step, **overrides):
+    """8 DSSP steps of ``spec`` (2 workers, the second slower) through
+    ``build_session``; losses finite, staleness within s_upper, DSSP
+    extensions == credit releases, every kernel's launches exactly what
+    the run implies (``per_step``: launches per worker step; the
+    server's ``fused_update`` once per shard version), peak below the
+    card's 80 GB.  Returns the launches."""
     from repro_torch.obs.trace import TRACE
     from repro_torch.perfcount import LAUNCHES
-    spec = main_path_spec(api, full=True, workers=2, sync="dssp")
     free_device_memory(torch)
     torch.cuda.reset_peak_memory_stats()
-    session = api.build_session(spec)
+    session = api.build_session(spec, **overrides)
     session.start()
-    n_layers = 24
     TRACE.enable(source="server")
     LAUNCHES.reset()
     t0 = time.monotonic()
@@ -486,31 +613,28 @@ def run_train(torch, api):
     losses = [l for _, _, l in server.metrics.loss_trajectory]
     passes = sum(w.iterations_done for w in workers)
     if passes != 8 or len(losses) != 8 or not all(map(math.isfinite, losses)):
-        fail(f"train: {passes} steps, losses {losses}")
+        fail(f"{label}: {passes} steps, losses {losses}")
     if m["max_staleness"] > spec.sync.s_upper:
-        fail(f"train: staleness {m['max_staleness']} > s_upper")
+        fail(f"{label}: staleness {m['max_staleness']} > s_upper")
     ext = {(e["worker"], e["clock"]) for e in events
            if e["name"] == "dssp_decision"
            and e["args"]["reason"] in ("grant", "credit_spend")}
     if len(ext) != m["credit_releases"]:
-        fail(f"train: {len(ext)} DSSP extensions != "
+        fail(f"{label}: {len(ext)} DSSP extensions != "
              f"{m['credit_releases']} credit releases")
     rows = server.plan.wire_layout().shard_rows
-    expected = {
-        "fused_update": sum(st.version for st, r in zip(server.shards, rows)
-                            if r),
-        # remat recomputes every layer's forward in the backward pass
-        "flash_attention_fwd": n_layers * passes * 2,
-        "residual_rmsnorm": n_layers * passes * 2,
-        "rmsnorm": (n_layers * 2 + 1) * passes,   # + the final norm
-        # no coalescing and no compression on this path
-        "fused_update_batched": 0, "fused_int8_ef": 0, "fused_topk_ef": 0,
-    }
+    # no coalescing and no compression on this path
+    expected = {name: per_step.get(name, 0) * passes for name in launches}
+    expected["fused_update"] = sum(st.version for st, r in
+                                   zip(server.shards, rows) if r)
     if launches != expected:
-        fail(f"train: launches {launches} != expected {expected}")
+        fail(f"{label}: launches {launches} != expected {expected}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not peak_gb < 80.0:
+        fail(f"{label}: peak memory {peak_gb} GB")
     steps = [c for w in workers for c in w.compute_s]
     warm = [c for w in workers for c in w.compute_s[1:]]
-    rec = {"phase": "train", "steps": passes, "losses": losses,
+    rec = {"phase": label, "steps": passes, "losses": losses,
            "pushes": m["pushes"], "wall_s": wall,
            "pushes_per_s": m["pushes"] / wall,
            "mean_step_s": statistics.mean(steps),
@@ -518,8 +642,7 @@ def run_train(torch, api):
            "max_staleness": m["max_staleness"],
            "credit_releases": m["credit_releases"],
            "dssp_extensions": len(ext), "launches": launches,
-           "max_memory_allocated_gb":
-               torch.cuda.max_memory_allocated() / 1e9}
+           "max_memory_allocated_gb": peak_gb}
     say(rec)
     return launches
 
@@ -650,7 +773,8 @@ def run_paths(torch, api):
              "max_staleness": m["max_staleness"]})
 
 
-KERNEL_GROUPS = (("attention kernel (flash_fwd)", ("flash_fwd",)),
+KERNEL_GROUPS = (("ssm_scan kernel", ("ssm_scan_kernel",)),
+                 ("attention kernel (flash_fwd)", ("flash_fwd",)),
                  ("norm kernels", ("rmsnorm_kernel",)),
                  ("fused_update kernel", ("fused_update",)),
                  ("f32 matmul (unembed, plain attention backward)",
@@ -658,6 +782,8 @@ KERNEL_GROUPS = (("attention kernel (flash_fwd)", ("flash_fwd",)),
                  ("bf16 matmul", ("gemm", "nvjet", "sm90_", "cutlass",
                                   "xmma")),
                  ("softmax (plain attention backward)", ("softmax",)))
+PLAIN_SCAN_BACKWARD = ("plain ssm_scan backward (recompute and autograd "
+                       "through ssm_scan_ref)")
 
 
 def kernel_group(name: str) -> str:
@@ -668,45 +794,82 @@ def kernel_group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def profile_step(torch, api):
-    """Where a training step's time goes: a fresh one-worker session of
-    the full config (the process is warm from the train phase), two steps
-    under ``torch.profiler``; device time per kernel group and name, and
-    the device's idle share of the steps' wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def _range_kernels(event, out) -> None:
+    """Device kernels launched inside a CPU range, by name (ms summed)."""
+    for k in event.kernels:
+        out[k.name] = out.get(k.name, 0.0) + k.duration / 1e3
+    for child in event.cpu_children:
+        _range_kernels(child, out)
+
+
+def timed_steps(torch, api, spec, steps: int, **overrides) -> float:
+    """Wall ms per step of ``steps`` steps of a fresh session."""
     free_device_memory(torch)
-    # straggler 1.0: the one worker is also the last, which the spec
-    # would otherwise slow down by sleeping
-    spec = main_path_spec(api, full=True, workers=1, sync="bsp",
-                          straggler=1.0)
+    with api.build_session(spec, **overrides) as session:
+        session.start()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        session.run(steps)
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3 / steps
+
+
+def profile_step(torch, api, label: str, spec, **overrides):
+    """Where a training step's time goes: a fresh one-worker session
+    (the process is warm from the phase before), two steps under
+    ``torch.profiler``; device time per kernel group and name, and the
+    device's idle share of the wall time of two untraced steps of
+    another fresh session (tracing every CPU op of the worker threads
+    slows the host), and of the traced steps.  Kernels launched inside
+    the scan's backward range (``registry.SSM_SCAN_BACKWARD``) form a
+    group of their own."""
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
+
+    from repro_torch.kernels.registry import SSM_SCAN_BACKWARD
     steps = 2
-    with api.build_session(spec) as session:
+    untraced_ms = timed_steps(torch, api, spec, steps, **overrides)
+    free_device_memory(torch)
+    # the steps run in the session's worker threads: record their CPU
+    # ops too, so kernels can be traced to the range that launched them
+    threads = _ExperimentalConfig(profile_all_threads=True)
+    with api.build_session(spec, **overrides) as session:
         session.start()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     experimental_config=threads) as prof:
             t0 = time.monotonic()
             session.run(steps)
             torch.cuda.synchronize()
             wall_ms = (time.monotonic() - t0) * 1e3 / steps
-    by_name = {}
+    by_name, scan_bwd = {}, {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            if e.name == SSM_SCAN_BACKWARD:
+                _range_kernels(e, scan_bwd)
+            continue
+        if e.is_user_annotation:   # a range's device span, not a kernel
             continue
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.device_time_total / 1e3 / steps, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
     if busy <= 0:   # the tracer saw no kernels: a measurement, not a fault
-        say({"phase": "profile", "step_wall_ms": wall_ms,
+        say({"phase": "profile", "run": label, "step_wall_ms": untraced_ms,
+             "traced_step_wall_ms": wall_ms,
              "device_busy_ms": "not measured"})
         return
     groups = {}
     for name, (ms, _) in by_name.items():
+        ms -= scan_bwd.get(name, 0.0) / steps
         g = kernel_group(name)
         groups[g] = groups.get(g, 0.0) + ms
+    if scan_bwd:
+        groups[PLAIN_SCAN_BACKWARD] = sum(scan_bwd.values()) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    say({"phase": "profile", "steps": steps, "step_wall_ms": wall_ms,
-         "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+    say({"phase": "profile", "run": label, "steps": steps,
+         "step_wall_ms": untraced_ms, "traced_step_wall_ms": wall_ms,
+         "device_busy_ms": busy, "idle_share": 1.0 - busy / untraced_ms,
+         "traced_idle_share": 1.0 - busy / wall_ms,
          "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
          "top_kernels": [{"name": k[:90], "ms": ms, "calls": n // steps}
                          for k, (ms, n) in top]})
@@ -740,6 +903,7 @@ def main() -> None:
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import residual_rmsnorm as rrn
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.models import registry
     from repro_torch.ps.sharded.plan import build_shard_plan
 
@@ -766,13 +930,27 @@ def main() -> None:
     table["fused_update_batched"] = check_fused_update_batched(
         torch, timer, fu, main_rows)
     table.update(check_fused_compress(torch, timer, fc, main_rows))
+    table["ssm_scan"] = check_ssm_scan(torch, timer, ss)
     del timer
     free_device_memory(torch)
 
     # -- parity, train, profile, server, paths ---------------------------
-    check_parity(torch, api)
-    launches = run_train(torch, api)
-    profile_step(torch, api)
+    n_layers = 24
+    check_parity(torch, api, "h2o-danube smoke", lambda kernels:
+                 main_path_spec(api, full=False, workers=1, sync="bsp",
+                                kernels=kernels, straggler=1.0))
+    # remat recomputes every layer's forward in the backward pass
+    launches = run_train(
+        torch, api, "train",
+        main_path_spec(api, full=True, workers=2, sync="dssp"),
+        {"flash_attention_fwd": n_layers * 2,
+         "residual_rmsnorm": n_layers * 2,
+         "rmsnorm": n_layers * 2 + 1})                # + the final norm
+    # straggler 1.0: the one worker is also the last, which the spec
+    # would otherwise slow down by sleeping
+    profile_step(torch, api, "train",
+                 main_path_spec(api, full=True, workers=1, sync="bsp",
+                                straggler=1.0))
     server_a = run_server(torch, api, "a: dssp, coalesce 2, int8", "dssp",
                           "int8")
     server_b = run_server(torch, api, "b: bsp, coalesce 2, topk 0.05", "bsp",
@@ -783,6 +961,25 @@ def main() -> None:
     launches["fused_topk_ef"] = server_b["fused_topk_ef"]
     run_paths(torch, api)
 
+    # -- jamba parity, hybrid, hybrid profile ----------------------------
+    check_parity(torch, api, "jamba smoke (MoE)", lambda kernels:
+                 hybrid_spec(api, smoke=True, workers=1, sync="bsp",
+                             kernels=kernels, straggler=1.0))
+    cut = hybrid_config()
+    groups = cut.n_layers // cut.attn_period
+    mamba_slots = groups * (cut.attn_period - 1)
+    hybrid = run_train(
+        torch, api, "hybrid",
+        hybrid_spec(api, smoke=False, workers=2, sync="dssp"),
+        {"ssm_scan": mamba_slots * 2, "flash_attention_fwd": groups * 2,
+         "residual_rmsnorm": cut.n_layers * 2,
+         "rmsnorm": cut.n_layers * 2 + 1},
+        model_config=cut)
+    launches["ssm_scan"] = hybrid["ssm_scan"]
+    profile_step(torch, api, "hybrid",
+                 hybrid_spec(api, smoke=False, workers=1, sync="bsp",
+                             straggler=1.0), model_config=cut)
+
     replaces = {
         "fused_update": "src/repro/kernels/fused_update.py:37",
         "fused_update_batched": "src/repro/kernels/fused_update.py:124",
@@ -791,6 +988,7 @@ def main() -> None:
         "rmsnorm": "src/repro/kernels/rmsnorm.py:20",
         "residual_rmsnorm": "src/repro/kernels/residual_rmsnorm.py:28",
         "flash_attention_fwd": "src/repro/kernels/flash_attention.py:34",
+        "ssm_scan": "src/repro/kernels/ssm_scan.py:30",
     }
     sources = {
         "fused_update": "fused_update.cu", "rmsnorm": "rmsnorm.cu",
@@ -799,6 +997,7 @@ def main() -> None:
         "fused_topk_ef": "fused_compress.cu",
         "residual_rmsnorm": "residual_rmsnorm.cu",
         "flash_attention_fwd": "flash_attention.cu",
+        "ssm_scan": "ssm_scan.cu",
     }
     unlaunched = [name for name in table if launches[name] <= 0]
     if unlaunched:

@@ -210,18 +210,24 @@ def _build_sharded(spec: RunSpec, params):
 # ===================================================================
 # shared model plumbing
 # ===================================================================
-def _model_setup(spec: RunSpec):
+def _model_setup(spec: RunSpec, model_config=None):
+    """(ModelConfig, DataConfig) of a run: the spec's registry
+    architecture, or the ``model_config`` override as given (the
+    reference's meaning: the spec's ``model`` section is then not
+    read)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.synthetic import DataConfig
-    if spec.model.arch == CUSTOM_ARCH:
-        raise SpecError(
-            "model.arch='custom' needs build-time overrides (params=, "
-            "step_fn=, batches=); name a registry architecture to run "
-            "the model")
-    cfg = (get_smoke_config(spec.model.arch) if spec.model.smoke
-           else get_config(spec.model.arch))
-    if spec.model.kernels != cfg.kernels:
-        cfg = dataclasses.replace(cfg, kernels=spec.model.kernels)
+    cfg = model_config
+    if cfg is None:
+        if spec.model.arch == CUSTOM_ARCH:
+            raise SpecError(
+                "model.arch='custom' needs build-time overrides (params=, "
+                "step_fn=, batches=, or model_config=); name a registry "
+                "architecture to run the model")
+        cfg = (get_smoke_config(spec.model.arch) if spec.model.smoke
+               else get_config(spec.model.arch))
+        if spec.model.kernels != cfg.kernels:
+            cfg = dataclasses.replace(cfg, kernels=spec.model.kernels)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size,
                           seq_len=spec.data.seq_len,
                           global_batch=spec.data.global_batch,
@@ -229,9 +235,10 @@ def _model_setup(spec: RunSpec):
     return cfg, data_cfg
 
 
-def _registry_params(spec: RunSpec, device: torch.device):
+def _registry_params(spec: RunSpec, device: torch.device,
+                     model_config=None):
     from repro_torch.models import registry
-    cfg, _ = _model_setup(spec)
+    cfg, _ = _model_setup(spec, model_config)
     return registry.init_params(cfg, seed=0, device=device)
 
 
@@ -260,15 +267,18 @@ class ThreadedPSSession(TrainingSession):
 
     OVERRIDES = frozenset({
         "verbose", "device", "params", "step_fn", "batches",
-        "loss_from_aux", "speed_factors", "timeout",
+        "loss_from_aux", "speed_factors", "timeout", "model_config",
     })
 
     server = None
     workers: List = []
 
     def _start(self) -> None:
-        self.server = build_server(self.spec, self._ov.get("params"),
-                                   self.device)
+        params = self._ov.get("params")
+        if params is None:
+            params = _registry_params(self.spec, self.device,
+                                      self._ov.get("model_config"))
+        self.server = build_server(self.spec, params, self.device)
         if self.verbose and self.server.plan is not None:
             print(self.server.plan.describe())
 
@@ -307,16 +317,16 @@ class ThreadedPSSession(TrainingSession):
         from repro_torch import tree as tree_util
         from repro_torch.models import registry
         from repro_torch.wireformat import WIRE_LANES
-        cfg, _ = _model_setup(self.spec)
+        cfg, _ = _model_setup(self.spec, self._ov.get("model_config"))
         loss_fn = registry.loss_fn(cfg)
 
         def grads_of(params, batch):
             leaves, treedef = tree_util.flatten(params)
             leaves = [x.detach().requires_grad_() for x in leaves]
-            loss, aux = loss_fn(tree_util.unflatten(treedef, leaves), batch)
+            loss, _ = loss_fn(tree_util.unflatten(treedef, leaves), batch)
             grads = torch.autograd.grad(loss, leaves)
             return (tree_util.unflatten(treedef, list(grads)),
-                    {"loss": aux["loss"].detach()})
+                    {"loss": loss.detach()})
 
         if self.spec.wire.format == "tree":
             return lambda: grads_of
@@ -349,7 +359,7 @@ class ThreadedPSSession(TrainingSession):
         if batches is not None:
             return batches
         from repro_torch.data.synthetic import batches as data_batches
-        cfg, data_cfg = _model_setup(self.spec)
+        cfg, data_cfg = _model_setup(self.spec, self._ov.get("model_config"))
         device = self.device
 
         def worker_batches(w: int) -> Iterator:

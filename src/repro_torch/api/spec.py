@@ -51,7 +51,7 @@ CUSTOM_ARCH = "custom"
 #: port refuses until their family is ported.
 LATER_ARCHS = ("qwen1.5-110b", "qwen1.5-32b", "mistral-large-123b",
                "qwen3-moe-235b-a22b", "deepseek-moe-16b", "xlstm-125m",
-               "whisper-tiny", "chameleon-34b", "jamba-v0.1-52b")
+               "whisper-tiny", "chameleon-34b")
 
 
 class SpecError(ValueError):
@@ -701,10 +701,11 @@ def _later(what: str, item: str) -> str:
 
 def _require_ported(spec: "RunSpec") -> None:
     """Refuse every value whose code path a later slice ports."""
+    from repro_torch.configs import arch_names  # light import
     ps, tp, ft = spec.ps, spec.transport, spec.ft
-    _require(spec.model.arch in (CUSTOM_ARCH, "h2o-danube-1.8b"),
-             _later(f"model.arch={spec.model.arch!r} (a non-dense or "
-                    "not-yet-configured architecture)", "item 10"))
+    _require(spec.model.arch in [CUSTOM_ARCH] + arch_names(),
+             _later(f"model.arch={spec.model.arch!r} (an architecture "
+                    "of a family not ported yet)", "item 10"))
     _require(ps.kind != "none",
              _later("ps.kind='none'", "item 11 (the SPMD pipeline)"))
     _require(not spec.obs.trace,

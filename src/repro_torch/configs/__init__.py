@@ -1,4 +1,5 @@
-"""Architecture configs the port runs: the dense h2o-danube-1.8b.
+"""Architecture configs the port runs: the dense h2o-danube-1.8b and
+the hybrid jamba-v0.1-52b.
 
 Each module exposes ``CONFIG`` (full-scale) and ``smoke_config()``
 (reduced, same family).  The other architectures of the reference
@@ -12,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 # CLI ids use dashes, as in the reference package
 _ALIASES = {
     "h2o-danube-1.8b": "h2o_danube_1p8b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
 }
 
 

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "repro_residual_rmsnorm": [_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _F, _I, _I, _P],
+    "repro_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _P],
 }
 
 _lock = threading.Lock()

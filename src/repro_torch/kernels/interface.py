@@ -17,12 +17,15 @@ What the strings mean in the port:
                on a CPU tensor the kernel wrapper takes its plain
                version, because no kernel runs there
     "xla"      the plain PyTorch formulation (``KernelType.PLAIN``)
+    "xla_associative"
+               (``ssm_scan`` only) the chunked associative scan in
+               plain PyTorch (``KernelType.PLAIN_ASSOCIATIVE``)
     "auto"     by the tensor's device: the kernel on CUDA, plain on
-               the CPU
+               the CPU (the associative scan for ``ssm_scan``, as in
+               the reference)
 
-``ssm_scan`` stays in the table so that the grammar validates exactly as
-the reference's does; the port runs no SSM yet (ROADMAP queue 1, item
-10).  Importing this module never imports torch.
+The tables are the reference's, so the grammar validates exactly as it
+does there.  Importing this module never imports torch.
 """
 
 from __future__ import annotations

@@ -68,6 +68,36 @@ def residual_rmsnorm_ref(x: torch.Tensor, res: torch.Tensor,
     return sf.to(x.dtype), normed.to(x.dtype)
 
 
+def ssm_scan_ref(u: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
+                 bmat: torch.Tensor, cmat: torch.Tensor, h0: torch.Tensor,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan (Mamba S6) as the literal sequential recurrence
+
+        h_t = exp(delta_t * A) * h_{t-1} + (delta_t * B_t) * u_t
+        y_t = C_t . h_t
+
+    u/delta (b, l, di); a (di, ds); bmat/cmat (b, l, ds); h0 (b, di, ds).
+    Returns (y (b, l, di) in u's dtype, h_last (b, di, ds) f32).  All
+    math in f32, products in the reference's order.
+
+    The inputs are split per timestep with ``unbind`` (as ``lax.scan``
+    slices its xs): its backward stacks the per-step gradients once,
+    where indexing ``x[:, t]`` would scatter each into a full-size zero
+    tensor."""
+    af = a.float()
+    h = h0.float()
+    ys = []
+    for ut, dt, bt, ct in zip(u.float().unbind(1), delta.float().unbind(1),
+                              bmat.float().unbind(1), cmat.float().unbind(1)):
+        abar = torch.exp(dt[..., None] * af[None])       # (b, di, ds)
+        bbar = dt[..., None] * bt[:, None, :] * ut[..., None]
+        h = abar * h + bbar
+        ys.append(torch.einsum("bds,bs->bd", h, ct))
+    if not ys:
+        return u.new_empty(u.shape), h
+    return torch.stack(ys, dim=1).to(u.dtype), h
+
+
 def fused_update_ref(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor, *,
                      lr: float, beta: float, scale: float = 1.0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -2,16 +2,20 @@
 
 Counterpart of ``repro/kernels/registry.py``.  Each public function is
 the single entry point the model calls for its op — ``attention``,
-``rmsnorm``, ``residual_rmsnorm`` — dispatched over ``KernelType`` by the
-validated ``model.kernels`` string (``repro_torch.kernels.interface``):
+``rmsnorm``, ``residual_rmsnorm``, ``ssm_scan`` — dispatched over
+``KernelType`` by the validated ``model.kernels`` string
+(``repro_torch.kernels.interface``):
 
-    variant   what runs
-    --------  -----------------------------------------------------------
-    KERNEL    the Hopper kernel, inside a ``torch.autograd.Function``
-              whose backward is autograd through the matching
-              ``kernels/ref.py`` oracle (as the reference pairs each
-              Pallas forward with a ``jax.custom_vjp`` backward)
-    PLAIN     the ``kernels/ref.py`` formulation with native autograd
+    variant            what runs
+    -----------------  --------------------------------------------------
+    KERNEL             the Hopper kernel, inside a
+                       ``torch.autograd.Function`` whose backward is
+                       autograd through the matching ``kernels/ref.py``
+                       oracle (as the reference pairs each Pallas forward
+                       with a ``jax.custom_vjp`` backward)
+    PLAIN              the ``kernels/ref.py`` formulation with native
+                       autograd
+    PLAIN_ASSOCIATIVE  (``ssm_scan`` only) the chunked associative scan
 
 The backward through the oracle is the only place a plain version runs
 on the card's main path.  There is no attention fallback: the kernel
@@ -28,6 +32,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import residual_rmsnorm as _rrn
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssm_scan as _scan
 from repro_torch.kernels.interface import AUTO, KernelType, resolve
 
 
@@ -128,3 +133,85 @@ def residual_rmsnorm(x: torch.Tensor, res: torch.Tensor, weight: torch.Tensor,
     if resolved("residual_rmsnorm", kernels, x) is KernelType.KERNEL:
         return _ResidualRMSNorm.apply(x, res, weight, eps)
     return _ref.residual_rmsnorm_ref(x, res, weight, eps)
+
+
+# ================================================================ ssm scan
+#: ``torch.profiler.record_function`` range around the scan's backward, so
+#: a trace can attribute the plain recompute's device time to it
+SSM_SCAN_BACKWARD = "ssm_scan_plain_backward"
+
+
+class _SSMScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, delta, a, bmat, cmat, h0, chunk: int):
+        ctx.save_for_backward(u, delta, a, bmat, cmat, h0)
+        return _scan.ssm_scan(u, delta, a, bmat, cmat, h0, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        # The reference has no backward kernel either: its custom_vjp
+        # recomputes through the sequential oracle.
+        with torch.profiler.record_function(SSM_SCAN_BACKWARD):
+            grads = _vjp_through(_ref.ssm_scan_ref, ctx.saved_tensors,
+                                 (dy, dh_last), ctx.needs_input_grad[:6])
+        return grads + (None,)
+
+
+def _doubling_scan(a: torch.Tensor, b: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan along axis 1 of the pairs (a, b) under
+    ``combine((a1, b1), (a2, b2)) = (a2 * a1, a2 * b1 + b2)``, in
+    log2(n) doubling rounds (Hillis-Steele): round k combines every
+    element with the one 2**k before it."""
+    k, n = 1, a.shape[1]
+    while k < n:
+        a, b = (torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1),
+                torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], dim=1))
+        k *= 2
+    return a, b
+
+
+def _ssm_scan_associative(u, delta, a, bmat, cmat, h0, chunk: int):
+    """The reference's chunked associative scan: within a chunk the
+    recurrence composes as (A-product, B-accumulate) pairs; a loop
+    carries the state across chunks, bounding what is materialised to
+    (b, chunk, di, ds).  All math in f32."""
+    uf, df = u.float(), delta.float()
+    abar = torch.exp(df[..., None] * a.float()[None, None])    # (b,l,di,ds)
+    bbar = df[..., None] * bmat.float()[:, :, None, :] * uf[..., None]
+    cf = cmat.float()
+    h = h0.float()
+    ys = []
+    for c0 in range(0, u.shape[1], chunk):
+        acc_a, acc_b = _doubling_scan(abar[:, c0:c0 + chunk],
+                                      bbar[:, c0:c0 + chunk])
+        hs = acc_a * h[:, None] + acc_b
+        ys.append(torch.einsum("bcds,bcs->bcd", hs, cf[:, c0:c0 + chunk]))
+        h = hs[:, -1]
+    if not ys:
+        return u.new_empty(u.shape), h
+    return torch.cat(ys, dim=1).to(u.dtype), h
+
+
+def ssm_scan(u: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
+             bmat: torch.Tensor, cmat: torch.Tensor, h0: torch.Tensor, *,
+             chunk: int = 128, kernels: str = AUTO
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan (Mamba S6): ``h_t = exp(delta_t A) h_{t-1} +
+    delta_t B_t u_t; y_t = C_t . h_t``.
+
+    u/delta (b, l, di); a (di, ds); bmat/cmat (b, l, ds); h0 (b, di, ds)
+    -> (y (b, l, di) in u's dtype, h_last (b, di, ds) f32).  ``chunk``
+    is clamped to l and forced to l when it does not divide, as the
+    reference does.
+    """
+    l = u.shape[1]
+    chunk = min(chunk, l) if chunk > 0 else l
+    if l % chunk:
+        chunk = l
+    kt = resolved("ssm_scan", kernels, u)
+    if kt is KernelType.KERNEL:
+        return _SSMScan.apply(u, delta, a, bmat, cmat, h0, chunk)
+    if kt is KernelType.PLAIN_ASSOCIATIVE:
+        return _ssm_scan_associative(u, delta, a, bmat, cmat, h0, chunk)
+    return _ref.ssm_scan_ref(u, delta, a, bmat, cmat, h0)

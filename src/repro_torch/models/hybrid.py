@@ -1,0 +1,117 @@
+"""Jamba-style hybrid: Mamba/attention 1:7 interleave + MoE every 2nd
+layer — training forward.
+
+Counterpart of the training half of ``repro/models/hybrid.py``: layer
+``i`` is an attention layer iff ``i % attn_period == attn_offset``
+(Jamba: period 8, offset 3); the FFN sublayer is MoE on every
+``moe.every``-th slot of a period (Jamba: 2), dense SwiGLU otherwise,
+and with ``moe=None``.  The parameter tree is the reference's: a
+``"slots"`` tuple of per-slot dicts, each leaf with a leading axis of
+``n_layers / attn_period`` period groups, so the packed wire plan lays
+out the same bytes.  The reference scans over the groups; here a Python
+loop walks them.  ``cfg.remat == "full"`` recomputes each slot in the
+backward pass (``torch.utils.checkpoint``), as the reference's per-slot
+``jax.checkpoint`` does; the reference's outer checkpoint around the
+whole group only bounds what its scan saves, which a loop of per-slot
+checkpoints already does.
+
+The decode half (``init_state``, ``state_specs``, ``forward_decode``)
+comes with serving (ROADMAP queue 1, item 9).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import ParamDef, torch_dtype
+
+
+def _slot_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """Per period-slot: ('attn'|'mamba', 'moe'|'mlp')."""
+    period = cfg.attn_period or 1
+    kinds = []
+    for j in range(period):
+        mixer = "attn" if j == cfg.attn_offset else "mamba"
+        ffn = "moe" if (cfg.moe is not None
+                        and j % cfg.moe.every == cfg.moe.every - 1) else "mlp"
+        kinds.append((mixer, ffn))
+    return kinds
+
+
+def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    period = cfg.attn_period or 1
+    if cfg.n_layers % period:
+        raise ValueError("n_layers must be a multiple of attn_period")
+    groups = cfg.n_layers // period
+    norm = {"scale": ParamDef((groups, cfg.d_model), init="ones")}
+    slots = []
+    for mixer, ffn in _slot_kinds(cfg):
+        slot: Dict[str, Any] = {"mixer_norm": dict(norm),
+                                "ffn_norm": dict(norm)}
+        if mixer == "attn":
+            slot["attn"] = T.attn_defs(cfg, groups)
+        else:
+            slot["mamba"] = ssm.mamba_defs(cfg, groups)
+        if ffn == "moe":
+            slot["moe"] = moe_lib.moe_defs(cfg, groups)
+        else:
+            slot["mlp"] = T.mlp_defs(cfg, groups)
+        slots.append(slot)
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), init="embed",
+                          fan_in_dims=(1,)),
+        "final_norm": {"scale": ParamDef((cfg.d_model,), init="ones")},
+        "slots": tuple(slots),
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((cfg.padded_vocab, cfg.d_model),
+                                   fan_in_dims=(1,))
+    return defs
+
+
+def _slot_body(cfg: ModelConfig, mixer: str, ffn: str, x: torch.Tensor,
+               w: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = L.apply_norm(cfg, x, w["mixer_norm"])
+    if mixer == "attn":
+        # rope is off for jamba (use_rope=False): no cos/sin
+        mix = L.attention_block(cfg, h, w["attn"], None, None)
+    else:
+        mix = ssm.mamba_block(cfg, h, w["mamba"])
+    # fused residual-add + norm via the kernel registry
+    x, h = L.residual_apply_norm(cfg, mix, x, w["ffn_norm"])
+    if ffn == "moe":
+        out, aux = moe_lib.moe_block(cfg, h, w["moe"])
+    else:
+        out = L.mlp_block(cfg, h, w["mlp"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux
+
+
+def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward. tokens (b, l) -> logits (b, l, v), summed aux."""
+    kinds = _slot_kinds(cfg)
+    groups = cfg.n_layers // (cfg.attn_period or 1)
+    x = L.embed(tokens, params["embed"]).to(torch_dtype(cfg.dtype))
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    # per slot: its weights of every group, as views of the stacked leaves
+    per_slot = [T.layer_weights(slot, groups) for slot in params["slots"]]
+    for g in range(groups):
+        for (mixer, ffn), ws in zip(kinds, per_slot):
+            if cfg.remat == "full":
+                x, aux = checkpoint(_slot_body, cfg, mixer, ffn, x, ws[g],
+                                    use_reentrant=False)
+            else:
+                x, aux = _slot_body(cfg, mixer, ffn, x, ws[g])
+            aux_total = aux_total + aux
+    x = L.apply_norm(cfg, x, params["final_norm"])
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.unembed(x, table, cfg.vocab_size), aux_total

@@ -89,7 +89,7 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
     return x + L.mlp_block(cfg, h, w["mlp"])
 
 
-def _layer_weights(layer_params: Any, n: int):
+def layer_weights(layer_params: Any, n: int):
     """Per-layer weight trees: views of the stacked leaves."""
     flat, treedef = tree_util.flatten(layer_params)
     per_leaf = [leaf.unbind(0) for leaf in flat]
@@ -106,7 +106,7 @@ def forward(cfg: ModelConfig, params: Dict[str, Any],
     positions = torch.arange(l, device=tokens.device)
     cos, sin = L.rotary_embedding(positions, cfg.resolved_head_dim,
                                   cfg.rope_theta)
-    for w in _layer_weights(params["layers"], cfg.n_layers):
+    for w in layer_weights(params["layers"], cfg.n_layers):
         if cfg.remat == "full":
             x = checkpoint(_layer, cfg, x, w, cos, sin, use_reentrant=False)
         else:

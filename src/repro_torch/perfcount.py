@@ -66,6 +66,7 @@ class KernelLaunches(_CounterBase):
     rmsnorm: int = 0
     residual_rmsnorm: int = 0
     flash_attention_fwd: int = 0
+    ssm_scan: int = 0
 
 
 #: Process-global counters — reset + snapshot around the region of

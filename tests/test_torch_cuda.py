@@ -20,6 +20,7 @@ from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import registry
 from repro_torch.kernels import residual_rmsnorm as rrn
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssm_scan as ss
 from repro_torch.perfcount import LAUNCHES
 
 pytestmark = pytest.mark.cuda
@@ -190,3 +191,72 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(gen):
         fa.flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError, match="one CUDA device"):
         fu.fused_update(x, x.cpu(), x, lr=0.1)
+
+
+def _ssm_inputs(gen, b, l, di, ds, udtype, h0_nonzero):
+    sp = torch.nn.functional.softplus
+    u = _rand(gen, (b, l, di), torch.float32).to(udtype)
+    delta = sp(_rand(gen, (b, l, di), torch.float32))
+    a = -sp(_rand(gen, (di, ds), torch.float32))
+    bmat = _rand(gen, (b, l, ds), torch.float32)
+    cmat = _rand(gen, (b, l, ds), torch.float32)
+    h0 = _rand(gen, (b, di, ds), torch.float32) if h0_nonzero \
+        else torch.zeros((b, di, ds), device="cuda")
+    return u, delta, a, bmat, cmat, h0
+
+
+@pytest.mark.parametrize("h0_nonzero", [False, True])
+@pytest.mark.parametrize("udtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("b,l,di", [(1, 1, 1), (3, 100, 1000),
+                                    (1, 257, 128), (3, 64, 200)])
+def test_ssm_scan_matches_plain(gen, b, l, di, ds, udtype, h0_nonzero):
+    """Ragged di (not a multiple of the 128-channel block), l not a
+    multiple of the 16-step run, b in {1, 3}.  Tolerance: expf against
+    torch's exp and the order of the C . h sum differ by ulps, damped by
+    exp(delta A) < 1: 1e-5 of the largest f32 output (h_last and y in
+    f32); for y stored in bf16, that plus one bf16 ulp (rtol 2**-7)."""
+    xs = _ssm_inputs(gen, b, l, di, ds, udtype, h0_nonzero)
+    before = LAUNCHES.ssm_scan
+    y, h = ss.ssm_scan(*xs, chunk=7)
+    assert LAUNCHES.ssm_scan == before + 1
+    yr, hr = ss.ssm_scan_plain(*xs)
+    assert y.dtype == udtype and h.dtype == torch.float32
+    scale = max(1.0, float(hr.abs().max()))
+    torch.testing.assert_close(h, hr, rtol=1e-5, atol=1e-5 * scale)
+    if udtype == torch.float32:
+        scale = max(1.0, float(yr.abs().max()))
+        torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5 * scale)
+    else:
+        scale = max(1.0, float(yr.float().abs().max()))
+        torch.testing.assert_close(y.float(), yr.float(), rtol=2.0 ** -7,
+                                   atol=1e-5 * scale)
+
+
+def test_ssm_scan_registry_backward_on_cuda_matches_plain(gen):
+    xs = [t.requires_grad_() for t in
+          _ssm_inputs(gen, 2, 40, 70, 16, torch.float32, True)]
+    grads = []
+    for kernels in ("pallas", "xla"):
+        before = LAUNCHES.ssm_scan
+        out = registry.ssm_scan(*xs, chunk=8, kernels=f"ssm_scan={kernels}")
+        assert LAUNCHES.ssm_scan == before + (kernels == "pallas")
+        loss = sum(o.square().sum() for o in out)
+        grads.append(torch.autograd.grad(loss, xs))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_scan_refuses_what_it_cannot_launch_on(gen):
+    u, delta, a, bmat, cmat, h0 = _ssm_inputs(gen, 1, 8, 16, 16,
+                                              torch.float32, False)
+    with pytest.raises(ValueError, match="d_state 4"):
+        ss.ssm_scan(u, delta, a[:, :4], bmat[..., :4], cmat[..., :4],
+                    h0[..., :4])
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssm_scan(u.transpose(1, 2).contiguous().transpose(1, 2), delta,
+                    a, bmat, cmat, h0)
+    with pytest.raises(TypeError, match="not supported"):
+        ss.ssm_scan(u.half(), delta, a, bmat, cmat, h0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ss.ssm_scan(u, delta.cpu(), a, bmat, cmat, h0)

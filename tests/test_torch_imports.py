@@ -38,7 +38,10 @@ def test_every_repro_torch_module_imports_without_jax_or_repro():
                 "repro_torch.kernels.fused_compress",
                 "repro_torch.optim.compression", "repro_torch.ps.server",
                 "repro_torch.device",
-                "repro_torch.ps.sharded.server", "repro_torch.models.layers"}
+                "repro_torch.ps.sharded.server", "repro_torch.models.layers",
+                "repro_torch.models.ssm", "repro_torch.models.moe",
+                "repro_torch.models.hybrid", "repro_torch.kernels.ssm_scan",
+                "repro_torch.configs.jamba_v01_52b"}
     assert expected <= set(res["modules"])
 
 

@@ -1,0 +1,157 @@
+"""repro_torch's selective scan and Mamba block against the reference's.
+
+Inputs are made with numpy from a seed and handed to both packages.  The
+reference's Pallas ``ssm_scan`` does not run on the installed jax
+(``pallas.load`` is gone), so the port is held against the reference's
+sequential oracle ``ref.ssm_scan_ref`` and its chunked associative
+formulation, as the reference's own parity test would hold its kernel.
+
+Tolerances, and why:
+  f32     |port - reference| <= 1e-6 * max(1, max|reference|) + 1e-5 *
+          |reference|: the two ``exp`` implementations (torch's on the
+          CPU, XLA's) may differ by an ulp and the ``C . h`` sums run in
+          another order; exp(delta * A) < 1 damps what has accumulated,
+          so the error stays at a few ulps of the largest output.
+  bf16    y is stored in bf16 from f32 values that differ by an ulp of
+          f32, which can round to the neighbouring bf16 value: one bf16
+          ulp, rtol 2**-7.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke
+from repro.kernels import ref as jref
+from repro.kernels import registry as jreg
+from repro.models import registry as jregistry
+from repro.models import ssm as jssm
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import registry as treg
+from repro_torch.models import ssm
+from repro_torch.models.params import from_numpy_tree
+
+torch.set_num_threads(2)
+
+SHAPES = [(2, 64, 4, 8), (2, 96, 48, 16)]      # (b, l, di, ds)
+
+
+def _inputs(b, l, di, ds, *, h0_nonzero: bool, seed: int = 0):
+    r = np.random.RandomState(seed)
+    softplus = lambda x: np.log1p(np.exp(x))
+    u = r.randn(b, l, di)
+    delta = softplus(r.randn(b, l, di))
+    a = -softplus(r.randn(di, ds))
+    bmat, cmat = r.randn(b, l, ds), r.randn(b, l, ds)
+    h0 = r.randn(b, di, ds) if h0_nonzero else np.zeros((b, di, ds))
+    return [x.astype(np.float32) for x in (u, delta, a, bmat, cmat, h0)]
+
+
+def _both(xs, dtype: str):
+    """The same inputs for both packages: u, delta, B, C in ``dtype``
+    (rounded once, by JAX), a and h0 in f32."""
+    jx = [jnp.asarray(x).astype(dtype) if i in (0, 1, 3, 4)
+          else jnp.asarray(x) for i, x in enumerate(xs)]
+    tx = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        getattr(torch, dtype) if i in (0, 1, 3, 4) else torch.float32)
+        for i, x in enumerate(jx)]
+    return jx, tx
+
+
+def _close(got: torch.Tensor, want, dtype: str = "float32") -> None:
+    g = got.detach().float().numpy()
+    w = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert g.shape == w.shape
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(g, w, rtol=2.0 ** -7, atol=1e-6)
+    else:
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("h0_nonzero", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sequential_oracle_matches_reference(shape, dtype, h0_nonzero):
+    jx, tx = _both(_inputs(*shape, h0_nonzero=h0_nonzero), dtype)
+    yj, hj = jref.ssm_scan_ref(*jx)
+    yt, ht = tref.ssm_scan_ref(*tx)
+    assert yt.dtype == getattr(torch, dtype) and ht.dtype == torch.float32
+    _close(yt, yj, dtype)
+    _close(ht, hj)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 7])    # 7: forced to l
+@pytest.mark.parametrize("shape", SHAPES)
+def test_associative_variant_matches_reference(shape, chunk):
+    jx, tx = _both(_inputs(*shape, h0_nonzero=True, seed=1), "float32")
+    spec = "ssm_scan=xla_associative"
+    yj, hj = jreg.ssm_scan(*jx, chunk=chunk, kernels=spec)
+    yt, ht = treg.ssm_scan(*tx, chunk=chunk, kernels=spec)
+    _close(yt, yj)
+    _close(ht, hj)
+    # and the port's two plain formulations agree with each other
+    ys, hs = tref.ssm_scan_ref(*tx)
+    np.testing.assert_allclose(yt.numpy(), ys.numpy(), rtol=1e-5,
+                               atol=1e-6 * max(1.0, float(ys.abs().max())))
+    np.testing.assert_allclose(ht.numpy(), hs.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _sq(out):
+    return sum((o.float() ** 2).sum() for o in out)
+
+
+@pytest.mark.parametrize("variant", ["pallas", "xla", "xla_associative"])
+def test_gradients_match_jax_grad_of_the_oracle(variant):
+    """``pallas`` on the CPU runs ``_SSMScan`` (its forward takes the plain
+    version; its backward recomputes through the oracle), the others
+    native autograd; all against ``jax.grad`` of the reference oracle."""
+    xs = _inputs(2, 48, 8, 16, h0_nonzero=True, seed=2)
+    jx, tx = _both(xs, "float32")
+    gj = jax.grad(lambda *a: sum(jnp.sum(jnp.square(o)) for o in
+                                 jref.ssm_scan_ref(*a)),
+                  argnums=(0, 1, 2, 3, 4, 5))(*jx)
+    tx = [t.requires_grad_() for t in tx]
+    out = treg.ssm_scan(*tx, chunk=16, kernels=f"ssm_scan={variant}")
+    gt = torch.autograd.grad(_sq(out), tx)
+    for g, w in zip(gt, gj):
+        scale = max(1.0, float(np.abs(np.asarray(w)).max()))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=2e-6 * scale)
+
+
+def test_chunk_is_clamped_as_the_reference_clamps_it():
+    xs = _inputs(1, 12, 4, 8, h0_nonzero=True, seed=3)
+    _, tx = _both(xs, "float32")
+    want = tref.ssm_scan_ref(*tx)
+    for chunk in (0, 5, 12, 100):       # <= 0 and non-divisors -> l
+        got = treg.ssm_scan(*tx, chunk=chunk,
+                            kernels="ssm_scan=xla_associative")
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("kernels", ["xla", "auto", "pallas"])
+def test_mamba_block_matches_reference(kernels):
+    """The Jamba smoke config's first slot (a Mamba mixer) on the
+    reference's initial weights; the reference with its sequential
+    oracle.  The block's projections and conv add f32 roundings on both
+    sides in the same order: 1e-5."""
+    jcfg = dataclasses.replace(jax_smoke("jamba-v0.1-52b"), kernels="xla")
+    params = jregistry.init_params(jcfg, jax.random.PRNGKey(0))
+    jw = jax.tree_util.tree_map(lambda x: x[0], params["slots"][0]["mamba"])
+    x = np.random.RandomState(4).randn(2, 24, jcfg.d_model) \
+        .astype(np.float32)
+    want = np.asarray(jssm.mamba_block(jcfg, jnp.asarray(x), jw))
+    cfg = dataclasses.replace(get_smoke_config("jamba-v0.1-52b"),
+                              kernels=kernels, mamba_chunk=8)
+    got = ssm.mamba_block(cfg, torch.from_numpy(x), from_numpy_tree(jw, "cpu"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
