@@ -10,13 +10,16 @@ after an error:
 
   device   require CUDA; print the card's name and power limit
            (nvidia-smi), the torch and CUDA versions; TF32 off
-  build    compile the eight Hopper kernels (src/repro_torch/kernels/csrc)
-           with nvcc, one process per source, and load the library
+  build    compile the Hopper kernels of the eight TPU kernels
+           (src/repro_torch/kernels/csrc; attention has a wgmma/TMA kernel
+           for bf16 and a scalar one for f32) with nvcc, one process per
+           source, and load the library
   kernels  each kernel against its plain PyTorch version on the card, at
            the main path's shapes and a few others (ragged sizes, f32 and
            bf16), with its tolerance; median CUDA-event times of the
            kernel, the plain version and one library call where PyTorch
-           has one, and the least time the card could take (bound)
+           has one, and the least time the card could take (bound); for
+           attention's main case also both device times by the profiler
   parity   the smoke config trained through ``build_session`` twice on
            the card, kernels vs plain formulations: the losses must agree
   train    ``repro_torch.api.build_session`` on the FULL h2o-danube-1.8b
@@ -115,6 +118,23 @@ class Timer:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Mean device time of one call of ``fn``: the kernels it launches,
+    summed as ``torch.profiler`` traces them (no host time, no gaps);
+    0.0 if the tracer saw no kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == cuda and not e.is_user_annotation
+               ) / 1e3 / reps
 
 
 def bound(bytes_moved: float, flops: float, dtype: str):
@@ -390,6 +410,12 @@ def check_flash(torch, timer, fa):
          torch.float32, False),
         ("window d=128 MQA", 1, 300, 300, 4, 1, 128, True, 64,
          torch.bfloat16, False),
+        ("d=8 pads the contraction", 2, 300, 300, 4, 1, 8, True, None,
+         torch.bfloat16, False),
+        ("non-causal d=128", 2, 200, 333, 8, 2, 128, False, None,
+         torch.bfloat16, False),
+        ("hybrid path: jamba attention", 2, 1024, 1024, 32, 8, 128, True,
+         None, torch.bfloat16, False),
     ]
     main = None
     for (label, b, lq, lk, hq, hkv, d, causal, window, dt,
@@ -430,10 +456,16 @@ def check_flash(torch, timer, fa):
         ms = timer(kern)
         plain_ms = timer(plain)
         lib_ms = None
+        extra = {}
         if is_main:   # causal with window >= lk: exactly is_causal
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_ms = timer(sdpa)
+            # the event times above include the host's launch path when
+            # it outlasts the L2 flush; the profiler's device times do not
+            extra = {"device_ms": device_ms(torch, kern),
+                     "library_device_ms": device_ms(torch, sdpa)}
         pairs = unmasked_pairs(lq, lk, causal, window)
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         bms, by = bound(nbytes, 4 * b * hq * pairs * d,
@@ -442,7 +474,7 @@ def check_flash(torch, timer, fa):
                    shape=[[b, lq, hq, d], [b, lk, hkv, d]], causal=causal,
                    window=window, max_abs_err=err, tolerance=f"atol={tol}",
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bms, bound_by=by)
+                   bound_ms=bms, bound_by=by, **extra)
         say(rec)
         if is_main:
             main = rec
@@ -996,7 +1028,7 @@ def main() -> None:
         "fused_int8_ef": "fused_compress.cu",
         "fused_topk_ef": "fused_compress.cu",
         "residual_rmsnorm": "residual_rmsnorm.cu",
-        "flash_attention_fwd": "flash_attention.cu",
+        "flash_attention_fwd": "flash_attention_sm90.cu",   # bf16
         "ssm_scan": "ssm_scan.cu",
     }
     unlaunched = [name for name in table if launches[name] <= 0]

@@ -1,4 +1,7 @@
-// Flash attention forward for Hopper: causal / sliding-window / GQA.
+// Flash attention forward for Hopper: causal / sliding-window / GQA.  The
+// entry point of both kernels: f32 takes the scalar kernel below, bf16 the
+// tensor-core kernel of flash_attention_sm90.cu (wgmma, TMA), and nothing
+// else.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (`_flash_kernel`, launched by `flash_attention_fwd`).  q (b, lq, hq, d),
@@ -10,10 +13,11 @@
 // Bound on the H100: operations.  4 * b * hq * d flops per unmasked
 // (query, key) pair against one read of q, k, v and one write of o, so
 // at the model's shapes the least time is the flops over the card's peak.
-// This first version runs the two products on the scalar f32 pipes, not
-// the tensor cores (its time is in PERF.md; wgmma/TMA is later work).
+// This kernel runs the two products on the scalar f32 pipes: f32 inputs
+// need f32 products (the card's tolerance is 2e-5), which neither bf16 nor
+// TF32 tensor cores hold.
 //
-// Design.  One block of 4 warps per (q-tile of 64 queries, q-head,
+// Design (f32 only).  One block of 4 warps per (q-tile of 64 queries, q-head,
 // batch); each warp owns 16 query rows.  The block walks the key tiles of
 // 64 that its query range can see -- whole tiles that the causal or
 // window mask hides are skipped, as `_flash_kernel` skips them -- and
@@ -44,11 +48,11 @@ __host__ constexpr size_t flash_smem_floats(int d) {
 
 // Stage `nrows` rows of width d (row stride `src_stride` elements) into
 // shared memory as f32; rows at or past `valid` are zero-filled.
-template <typename T>
 __device__ __forceinline__ void stage_tile(float* dst, int dst_stride,
-                                           const T* src, int64_t src_stride,
-                                           int valid, int nrows, int d) {
-  constexpr int N = Vec16<T>::N;
+                                           const float* src,
+                                           int64_t src_stride, int valid,
+                                           int nrows, int d) {
+  constexpr int N = Vec16<float>::N;
   const int per_row = d / N;
   for (int idx = threadIdx.x; idx < nrows * per_row; idx += blockDim.x) {
     const int r = idx / per_row;
@@ -65,10 +69,10 @@ __device__ __forceinline__ void stage_tile(float* dst, int dst_stride,
   }
 }
 
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int LQ,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int LQ,
                      int LK, int HQ, int HKV, int D, int causal, int window,
                      float scale) {
   extern __shared__ float4 smem4[];
@@ -89,9 +93,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int64_t q_stride = (int64_t)HQ * D;
   const int64_t kv_stride = (int64_t)HKV * D;
-  const T* qb = q + ((int64_t)bi * LQ + q0) * q_stride + (int64_t)h * D;
-  const T* kb = k + (int64_t)bi * LK * kv_stride + (int64_t)hk * D;
-  const T* vb = v + (int64_t)bi * LK * kv_stride + (int64_t)hk * D;
+  const float* qb = q + ((int64_t)bi * LQ + q0) * q_stride + (int64_t)h * D;
+  const float* kb = k + (int64_t)bi * LK * kv_stride + (int64_t)hk * D;
+  const float* vb = v + (int64_t)bi * LK * kv_stride + (int64_t)hk * D;
 
   stage_tile(Qs, D, qb, q_stride, LQ - q0, kBQ, D);
 
@@ -193,54 +197,58 @@ __global__ void __launch_bounds__(kWarps * 32)
     const float l = fmaxf(warp_sum(l_r[r]), 1e-30f);
     const int qi = row0 + r;
     if (qi >= LQ) continue;
-    T* orow = o + ((int64_t)bi * LQ + qi) * q_stride + (int64_t)h * D;
+    float* orow = o + ((int64_t)bi * LQ + qi) * q_stride + (int64_t)h * D;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = lane + 32 * i;
-      if (c < D) orow[c] = from_f32<T>(acc[r][i] / l);
+      if (c < D) orow[c] = acc[r][i] / l;
     }
   }
 }
 
-template <typename T, int NC>
+template <int NC>
 static cudaError_t launch_flash(const void* q, const void* k, const void* v,
                                 void* o, int B, int LQ, int LK, int HQ,
                                 int HKV, int D, int causal, int window,
                                 float scale, cudaStream_t stream) {
   const size_t smem = flash_smem_floats(D) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((LQ + kBQ - 1) / kBQ, HQ, B);
-  flash_fwd_kernel<T, NC><<<grid, kWarps * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, LQ, LK, HQ, HKV, D, causal,
-      window, scale);
+  flash_fwd_kernel<NC><<<grid, kWarps * 32, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, LQ, LK, HQ,
+      HKV, D, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 static cudaError_t dispatch_flash(const void* q, const void* k, const void* v,
                                   void* o, int B, int LQ, int LK, int HQ,
                                   int HKV, int D, int causal, int window,
                                   float scale, cudaStream_t s) {
   switch ((D + 31) / 32) {
     case 1:
-      return launch_flash<T, 1>(q, k, v, o, B, LQ, LK, HQ, HKV, D, causal,
+      return launch_flash<1>(q, k, v, o, B, LQ, LK, HQ, HKV, D, causal,
                                 window, scale, s);
     case 2:
-      return launch_flash<T, 2>(q, k, v, o, B, LQ, LK, HQ, HKV, D, causal,
+      return launch_flash<2>(q, k, v, o, B, LQ, LK, HQ, HKV, D, causal,
                                 window, scale, s);
     case 3:
-      return launch_flash<T, 3>(q, k, v, o, B, LQ, LK, HQ, HKV, D, causal,
+      return launch_flash<3>(q, k, v, o, B, LQ, LK, HQ, HKV, D, causal,
                                 window, scale, s);
     case 4:
-      return launch_flash<T, 4>(q, k, v, o, B, LQ, LK, HQ, HKV, D, causal,
+      return launch_flash<4>(q, k, v, o, B, LQ, LK, HQ, HKV, D, causal,
                                 window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+cudaError_t flash_fwd_wgmma(const void* q, const void* k, const void* v,
+                            void* o, int b, int lq, int lk, int hq, int hkv,
+                            int d, int causal, int window, float scale,
+                            cudaStream_t s);
 
 // window <= 0 means no sliding window.  Requires d % 8 == 0, d <= 128,
 // hq % hkv == 0 and 16-byte aligned q/k/v (the wrapper checks).
@@ -258,11 +266,11 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case REPRO_F32:
-      return (int)dispatch_flash<float>(q, k, v, o, b, lq, lk, hq, hkv, d,
-                                        causal, window, scale, s);
+      return (int)dispatch_flash(q, k, v, o, b, lq, lk, hq, hkv, d, causal,
+                                 window, scale, s);
     case REPRO_BF16:
-      return (int)dispatch_flash<__nv_bfloat16>(q, k, v, o, b, lq, lk, hq, hkv,
-                                                d, causal, window, scale, s);
+      return (int)flash_fwd_wgmma(q, k, v, o, b, lq, lk, hq, hkv, d, causal,
+                                  window, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -35,6 +35,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
+#: ``dlopen`` (the bf16 attention kernel takes the driver's tensor-map
+#: encoder from libcuda at run time, so nothing links against libcuda)
+LINK_LIBS = ["-ldl"]
+
 #: storage dtype codes (``enum ReproDtype`` in csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -80,7 +84,7 @@ def _sources() -> List[pathlib.Path]:
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -118,7 +122,7 @@ def build() -> pathlib.Path:
         tmp_so = work / out.name
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so)]
-            + [str(obj) for _, obj, _ in procs],
+            + [str(obj) for _, obj, _ in procs] + LINK_LIBS,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")

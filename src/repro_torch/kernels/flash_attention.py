@@ -3,13 +3,17 @@
 Counterpart of ``repro/kernels/flash_attention.py``
 (``flash_attention_fwd``, body ``_flash_kernel``): online-softmax
 attention with GQA, causal and sliding-window masks, queries aligned at
-the end (query i at position lk - lq + i).  The kernel is
-``csrc/flash_attention.cu``; the plain version is
-``ref.flash_attention_ref``.
+the end (query i at position lk - lq + i).  One C entry point
+(``csrc/flash_attention.cu``) launches one of two kernels by dtype:
+bfloat16 runs on the tensor cores (``csrc/flash_attention_sm90.cu``:
+wgmma, K/V by TMA), float32 on the scalar f32 pipes, since its tolerance
+needs f32 products.  The plain version is ``ref.flash_attention_ref``.
 
-Unlike the Pallas kernel, the Hopper kernel masks a ragged last tile
-itself, so every sequence length takes the kernel: there is no block
-size that must divide the lengths and no fallback.
+Unlike the Pallas kernel, the Hopper kernels mask a ragged last tile
+themselves, so every sequence length takes a kernel: there is no block
+size that must divide the lengths and no fallback.  A call the kernel
+cannot take (a view that is not 16-byte aligned, a failed tensor-map
+encode or launch) raises.
 """
 
 from __future__ import annotations
@@ -35,9 +39,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None) -> torch.Tensor:
     """q (b, lq, hq, d); k/v (b, lk, hkv, d) -> (b, lq, hq, d).
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernel:
-    contiguous, one dtype (float32 or bfloat16), hq a multiple of hkv,
-    d a multiple of 8 and at most 128; anything else raises.
+    CPU tensors take the plain version.  CUDA tensors launch the kernel
+    of their dtype: contiguous and 16-byte aligned, one dtype (float32
+    or bfloat16), hq a multiple of hkv, d a multiple of 8 and at most
+    128; anything else raises.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -11,6 +11,8 @@ these sweep small and ragged ones.
 
 from __future__ import annotations
 
+import math
+
 import pytest
 import torch
 
@@ -153,6 +155,14 @@ def test_norms_match_plain(gen, dtype, shape):
     (1, 100, 257, 8, 1, 64, True, 50),
     (2, 63, 130, 6, 3, 128, False, None),
     (1, 200, 200, 4, 4, 32, False, 17),
+    (4, 1024, 1024, 32, 8, 80, True, None),     # the train step's shape
+    (2, 1000, 1500, 32, 8, 80, True, 256),
+    (2, 1024, 1024, 32, 8, 128, True, None),    # the hybrid step's shape
+    # one head dim per layout of the last TMA box, each with more work
+    # items than the card has SMs
+    (4, 600, 600, 16, 4, 40, True, None),
+    (2, 700, 1100, 32, 8, 96, True, 300),
+    (2, 1024, 1024, 24, 8, 112, False, None),
 ])
 def test_flash_matches_plain(gen, dtype, b, lq, lk, hq, hkv, d, causal,
                              window):
@@ -163,6 +173,32 @@ def test_flash_matches_plain(gen, dtype, b, lq, lk, hq, hkv, d, causal,
     ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+def test_flash_bf16_counts_one_launch_per_call(gen):
+    q = _rand(gen, (2, 130, 8, 80), torch.bfloat16)
+    k = _rand(gen, (2, 130, 2, 80), torch.bfloat16)
+    for i in range(3):
+        before = LAUNCHES.flash_attention_fwd
+        fa.flash_attention_fwd(q, k, k, causal=bool(i % 2), window=None)
+        assert LAUNCHES.flash_attention_fwd == before + 1
+
+
+def test_flash_bf16_raises_on_a_misaligned_view(gen):
+    """The tensor-core kernel takes 16-byte aligned tensors; a view that
+    is not raises instead of computing on another path."""
+    shape = (1, 64, 4, 80)
+    n = math.prod(shape)
+    buf = _rand(gen, (n + 1,), torch.bfloat16)
+    q = buf[1:].view(shape)             # contiguous, 2 bytes off
+    k = _rand(gen, shape, torch.bfloat16)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    before = LAUNCHES.flash_attention_fwd
+    with pytest.raises(RuntimeError, match="flash_attention_fwd"):
+        fa.flash_attention_fwd(q, k, k)
+    with pytest.raises(RuntimeError, match="flash_attention_fwd"):
+        fa.flash_attention_fwd(k, q, k)
+    assert LAUNCHES.flash_attention_fwd == before
 
 
 def test_registry_backward_on_cuda_matches_plain(gen):
