@@ -5,6 +5,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+(``--only norms,ssm_scan`` runs only the device, build and those kernel
+checks; ``--src DIR`` runs the repro_torch package under DIR, e.g. an
+earlier commit's, so its kernels are timed in the same call.)
+
 Phases, in order; any failure exits non-zero and no phase carries on
 after an error:
 
@@ -13,13 +17,17 @@ after an error:
   build    compile the Hopper kernels of the eight TPU kernels
            (src/repro_torch/kernels/csrc; attention has a wgmma/TMA kernel
            for bf16 and a scalar one for f32) with nvcc, one process per
-           source, and load the library
+           source, and load the library; print each kernel's registers
+           and spills, and (cuobjdump) the scan kernel's run loop:
+           its instructions per exponential, one per (b, t, d, s)
   kernels  each kernel against its plain PyTorch version on the card, at
            the main path's shapes and a few others (ragged sizes, f32 and
            bf16), with its tolerance; median CUDA-event times of the
            kernel, the plain version and one library call where PyTorch
            has one, and the least time the card could take (bound); for
-           attention's main case also both device times by the profiler
+           attention's bf16 and f32 train shapes, the norms' dense and
+           Jamba shapes and the scan's main case also device times by
+           the profiler (the L2 flushed for the norms and the scan)
   parity   the smoke config trained through ``build_session`` twice on
            the card, kernels vs plain formulations: the losses must agree
   train    ``repro_torch.api.build_session`` on the FULL h2o-danube-1.8b
@@ -80,6 +88,9 @@ PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core bf16
 #: clock per SM at compute capability 9.0 (CUDA C++ Programming Guide,
 #: arithmetic instruction throughput), 132 SMs, 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
+#: instructions issued per second, one a clock per lane: 4 schedulers of
+#: 32 lanes per SM, 132 SMs, 1.98 GHz
+LANE_ISSUE_PER_S = 128 * 132 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -120,21 +131,38 @@ class Timer:
         return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int = 10) -> float:
+def device_ms(torch, fn, reps: int = 10, flush=None) -> float:
     """Mean device time of one call of ``fn``: the kernels it launches,
     summed as ``torch.profiler`` traces them (no host time, no gaps);
-    0.0 if the tracer saw no kernels."""
+    0.0 if the tracer saw no kernels.  With ``flush`` (a buffer larger
+    than the 50 MB L2), the buffer is zeroed before every call, so the
+    call reads from device memory, and the zeroing's own kernels (named
+    by tracing one zeroing alone) are left out of the sum."""
     from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def kernels(prof):
+        return [e for e in prof.events()
+                if e.device_type == cuda and not e.is_user_annotation]
+
+    skip = set()
+    if flush is not None:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush.zero_()
+            torch.cuda.synchronize()
+        skip = {e.name for e in kernels(prof)}
+        if not skip:   # the tracer saw nothing: no measurement
+            return 0.0
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.device_time_total for e in prof.events()
-               if e.device_type == cuda and not e.is_user_annotation
-               ) / 1e3 / reps
+    return sum(e.device_time_total for e in kernels(prof)
+               if e.name not in skip) / 1e3 / reps
 
 
 def bound(bytes_moved: float, flops: float, dtype: str):
@@ -155,6 +183,51 @@ def bf16_ulp(torch, ref):
     """One bf16 ulp at each value of ``ref`` (f32 tensor)."""
     mag = ref.abs().clamp(min=2.0 ** -126)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def sass_counts(library: str, function: str):
+    """Static instruction counts of one kernel of the built library, by
+    ``cuobjdump -sass``: the total, the count of each opcode, and the
+    loop (backward branch) holding the most MUFU.EX2, its instructions
+    and exponentials.  ``function`` is a part of the mangled name; None
+    without cuobjdump."""
+    import re
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    dump = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, timeout=300).stdout
+    insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*)")
+    code, inside = [], False   # (address, opcode, branch target or None)
+    for line in dump.splitlines():
+        if "Function :" in line:
+            if code and inside:
+                break
+            inside = function in line
+            continue
+        m = insn.search(line) if inside else None
+        if m:
+            tgt = re.match(r"\s*0x([0-9a-f]+)", m.group(3))
+            code.append((int(m.group(1), 16), m.group(2),
+                         int(tgt.group(1), 16) if m.group(2) == "BRA"
+                         and tgt else None))
+    if not code:
+        return None
+    ops = {}
+    for _, op, _ in code:
+        ops[op] = ops.get(op, 0) + 1
+    out = {"function": function, "instructions": len(code),
+           "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+    loops = [[c for c in code if tgt <= c[0] <= addr]
+             for addr, _, tgt in code if tgt is not None and tgt < addr]
+    if loops:
+        body = max(loops, key=lambda b: sum(op == "MUFU.EX2"
+                                            for _, op, _ in b))
+        out["loop_instructions"] = len(body)
+        out["loop_ex2"] = sum(op == "MUFU.EX2" for _, op, _ in body)
+    return out
 
 
 # ----------------------------------------------------------------- kernels
@@ -326,7 +399,10 @@ def check_fused_compress(torch, timer, fc, main_rows):
 def check_norms(torch, timer, rn, rrn):
     g = torch.Generator(device="cuda").manual_seed(2)
     main = {}
+    #: the dense step's shape (the table's row) and the Jamba step's
+    timed_device = ((4, 1024, 2560), (2, 1024, 4096))
     for dt, shape in ((torch.bfloat16, (4, 1024, 2560)),
+                      (torch.bfloat16, (2, 1024, 4096)),
                       (torch.float32, (4, 1024, 2560)),
                       (torch.float32, (3, 7, 2561)),
                       (torch.bfloat16, (5, 1000))):
@@ -371,10 +447,19 @@ def check_norms(torch, timer, rn, rrn):
             plain_ms = timer(plain)
             lib_ms = timer(lib_fn) if lib_fn is not None else None
             bms, by = bound(nbytes, 4 * rows * d, str(dt).split(".")[1])
+            extra = {}
+            if dt == torch.bfloat16 and shape in timed_device:
+                # device time with the L2 flushed before each call: the
+                # event times include the wrapper's host path
+                extra["device_ms"] = device_ms(torch, kern, reps=20,
+                                               flush=timer.flush)
+                if lib_fn is not None:
+                    extra["library_device_ms"] = device_ms(
+                        torch, lib_fn, reps=20, flush=timer.flush)
             rec = dict(kernel=name, case=f"{str(dt)[6:]} {list(shape)}",
                        shape=list(shape), max_abs_err=err, tolerance=tol,
                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bms, bound_by=by)
+                       bound_ms=bms, bound_by=by, **extra)
             say(rec)
             if dt == torch.bfloat16 and shape == (4, 1024, 2560):
                 main[name] = rec
@@ -457,7 +542,8 @@ def check_flash(torch, timer, fa):
         plain_ms = timer(plain)
         lib_ms = None
         extra = {}
-        if is_main:   # causal with window >= lk: exactly is_causal
+        if is_main or label == "f32 train shape":
+            # causal with window >= lk: exactly is_causal
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -482,7 +568,7 @@ def check_flash(torch, timer, fa):
     return main
 
 
-def check_ssm_scan(torch, timer, ss):
+def check_ssm_scan(torch, timer, ss, instr_per_state_step=None):
     """The selective scan against its sequential plain version: the
     hybrid path's shape (2, 1024, 8192, ds 16) in f32 with h0 = 0, then
     bf16 u, a ragged di, ds 8, and l not a multiple of the chunk (nor of
@@ -548,13 +634,26 @@ def check_ssm_scan(torch, timer, ss):
         # per (b, t, d, s): one exp on the SFUs; dt*A, dt*B, *u, dA*h, +,
         # h*C, + in f32: 7 operations
         t_ops = max(n / SFU_EXP_PER_S, 7 * n / PEAK_FLOPS["float32"]) * 1e3
+        extra = {}
+        if is_main:
+            # flushed device time (the event time holds the wrapper's
+            # host path), and the issue-slot time of the kernel's run
+            # loop as compiled (the sass phase's instructions per
+            # exponential, one exponential a (b, t, d, s)) at 132 SMs x
+            # 128 lanes x 1.98 GHz
+            extra = {"device_ms": device_ms(torch, kern, reps=10,
+                                            flush=timer.flush),
+                     "instructions_per_state_step": instr_per_state_step,
+                     "issue_slot_ms": instr_per_state_step * n
+                     / LANE_ISSUE_PER_S * 1e3
+                     if instr_per_state_step else "not measured"}
         rec = dict(kernel="ssm_scan", case=label, shape=[b, l, di, ds],
                    u_dtype=str(udt)[6:], chunk=chunk, max_abs_err=err,
                    tolerance=tol, ms=timer(kern), plain_ms=timer(plain),
                    library_ms=None,   # no one PyTorch call scans
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+                   bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, **extra)
         say(rec)
         if is_main:
             main = rec
@@ -805,9 +904,16 @@ def run_paths(torch, api):
              "max_staleness": m["max_staleness"]})
 
 
-KERNEL_GROUPS = (("ssm_scan kernel", ("ssm_scan_kernel",)),
-                 ("attention kernel (flash_fwd)", ("flash_fwd",)),
-                 ("norm kernels", ("rmsnorm_kernel",)),
+#: the port's own kernels, by function name (exactly; the fused norm's
+#: one kernel was named residual_rmsnorm_kernel before its register
+#: path, which ``--src`` runs of earlier commits still launch)
+KERNEL_NAMES = (("ssm_scan kernel", ("ssm_scan_kernel",)),
+                ("rmsnorm kernel", ("rmsnorm_kernel",)),
+                ("residual_rmsnorm kernel", ("residual_rmsnorm_regs",
+                                             "residual_rmsnorm_loop",
+                                             "residual_rmsnorm_kernel")))
+#: everything else, by a part of the name
+KERNEL_GROUPS = (("attention kernel (flash_fwd)", ("flash_fwd",)),
                  ("fused_update kernel", ("fused_update",)),
                  ("f32 matmul (unembed, plain attention backward)",
                   ("f32f32", "sgemm")),
@@ -818,7 +924,17 @@ PLAIN_SCAN_BACKWARD = ("plain ssm_scan backward (recompute and autograd "
                        "through ssm_scan_ref)")
 
 
+def kernel_function(name: str) -> str:
+    """``void ns::f<T, 4>(float const*, ...)`` -> ``f``."""
+    name = name.split("(", 1)[0].split("<", 1)[0].strip()
+    return name.split()[-1].split("::")[-1] if name else name
+
+
 def kernel_group(name: str) -> str:
+    fn = kernel_function(name)
+    for group, names in KERNEL_NAMES:
+        if fn in names:
+            return group
     low = name.lower()
     for group, keys in KERNEL_GROUPS:
         if any(k in low for k in keys):
@@ -907,7 +1023,33 @@ def profile_step(torch, api, label: str, spec, **overrides):
                          for k, (ms, n) in top]})
 
 
-def main() -> None:
+#: kernel checks that ``--only`` can name
+CHECKS = ("fused_update", "norms", "flash", "fused_update_batched",
+          "fused_compress", "ssm_scan")
+
+
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=None,
+                    help="comma-separated kernel checks to run, of "
+                    f"{', '.join(CHECKS)}; then only the device, build "
+                    "and those checks run, and no contract line is printed")
+    ap.add_argument("--src", default="src",
+                    help="directory (relative to this script) holding the "
+                    "repro_torch package to run, e.g. an unpacked earlier "
+                    "commit's src/ to time its kernels beside these")
+    args = ap.parse_args(argv)
+    if args.only is not None:
+        args.only = [c for c in args.only.split(",") if c]
+        unknown = set(args.only) - set(CHECKS)
+        if unknown:
+            ap.error(f"unknown checks {sorted(unknown)}; choose from {CHECKS}")
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     # -- device ----------------------------------------------------------
     import torch
     if not torch.cuda.is_available():
@@ -925,7 +1067,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(ROOT, args.src))
     from repro_torch import api
     from repro_torch import tree as tree_util
     from repro_torch.configs import get_config
@@ -947,6 +1089,17 @@ def main() -> None:
     for line in cuda.build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             say(line.strip())
+    # the scan's main instantiation (f32 u and delta, ds 16, 16-byte
+    # loads): its run loop's instructions per exponential are the issue
+    # slots one (b, t, d, s) takes
+    sass = sass_counts(str(cuda.library_path()),
+                       "ssm_scan_kernelIffLi16ELb1E")
+    scan_instr = None
+    if sass is not None:
+        if sass.get("loop_ex2"):
+            scan_instr = sass["loop_instructions"] / sass["loop_ex2"]
+        say({"phase": "sass", "loop_instructions_per_ex2": scan_instr,
+             **sass})
 
     # -- kernels ---------------------------------------------------------
     timer = Timer(torch)
@@ -956,15 +1109,30 @@ def main() -> None:
         lambda d: torch.empty(d.shape, dtype=torch.bfloat16, device="meta"),
         registry.param_defs(cfg))
     main_rows = build_shard_plan(shapes, 4).wire_layout().shard_rows[0]
-    table = {"fused_update": check_fused_update(torch, timer, fu, main_rows)}
-    table.update(check_norms(torch, timer, rn, rrn))
-    table["flash_attention_fwd"] = check_flash(torch, timer, fa)
-    table["fused_update_batched"] = check_fused_update_batched(
-        torch, timer, fu, main_rows)
-    table.update(check_fused_compress(torch, timer, fc, main_rows))
-    table["ssm_scan"] = check_ssm_scan(torch, timer, ss)
+    checks = {
+        "fused_update": lambda: {"fused_update": check_fused_update(
+            torch, timer, fu, main_rows)},
+        "norms": lambda: check_norms(torch, timer, rn, rrn),
+        "flash": lambda: {"flash_attention_fwd": check_flash(
+            torch, timer, fa)},
+        "fused_update_batched": lambda: {
+            "fused_update_batched": check_fused_update_batched(
+                torch, timer, fu, main_rows)},
+        "fused_compress": lambda: check_fused_compress(
+            torch, timer, fc, main_rows),
+        "ssm_scan": lambda: {"ssm_scan": check_ssm_scan(
+            torch, timer, ss, scan_instr)},
+    }
+    table = {}
+    for name in CHECKS:
+        if args.only is None or name in args.only:
+            table.update(checks[name]())
     del timer
     free_device_memory(torch)
+    if args.only is not None:
+        say({"kernels_only": args.only, "src": args.src,
+             "device": torch.cuda.get_device_name(0)})
+        return
 
     # -- parity, train, profile, server, paths ---------------------------
     n_layers = 24

@@ -6,9 +6,10 @@ Counterpart of ``repro/kernels/ssm_scan.py`` (``ssm_scan``, body
 The kernel is ``csrc/ssm_scan.cu``; the plain version is
 ``ref.ssm_scan_ref``.
 
-The kernel walks time inside each thread, so the reference's ``chunk``
-(its grid's sequential axis) changes nothing in the result; it is
-accepted so the two signatures match.
+The kernel walks time inside each lane (d_state split across the lanes
+of a warp, two states a lane), so the reference's ``chunk`` (its grid's
+sequential axis) changes nothing in the result; it is accepted so the
+two signatures match.
 """
 
 from __future__ import annotations

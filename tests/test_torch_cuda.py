@@ -247,8 +247,8 @@ def _ssm_inputs(gen, b, l, di, ds, udtype, h0_nonzero):
 @pytest.mark.parametrize("b,l,di", [(1, 1, 1), (3, 100, 1000),
                                     (1, 257, 128), (3, 64, 200)])
 def test_ssm_scan_matches_plain(gen, b, l, di, ds, udtype, h0_nonzero):
-    """Ragged di (not a multiple of the 128-channel block), l not a
-    multiple of the 16-step run, b in {1, 3}.  Tolerance: expf against
+    """Ragged di (not a multiple of the 32-channel block), l not a
+    multiple of the 32-step run, b in {1, 3}.  Tolerance: expf against
     torch's exp and the order of the C . h sum differ by ulps, damped by
     exp(delta A) < 1: 1e-5 of the largest f32 output (h_last and y in
     f32); for y stored in bf16, that plus one bf16 ulp (rtol 2**-7)."""
@@ -296,3 +296,111 @@ def test_ssm_scan_refuses_what_it_cannot_launch_on(gen):
         ss.ssm_scan(u.half(), delta, a, bmat, cmat, h0)
     with pytest.raises(ValueError, match="one CUDA device"):
         ss.ssm_scan(u, delta.cpu(), a, bmat, cmat, h0)
+
+
+def _bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of ``ref`` (f32)."""
+    mag = ref.abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _assert_norm_close(got, want, dtype):
+    """f32: rtol = atol = 1e-5; bf16: within one bf16 ulp of either."""
+    a, b = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = torch.maximum(_bf16_ulp(a), _bf16_ulp(b))
+        assert bool(((a - b).abs() <= ulp).all()), (a - b).abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 7, 4096])
+@pytest.mark.parametrize("d", [64, 1000, 2560, 2561, 4096, 8192, 24576])
+def test_residual_rmsnorm_every_path(gen, dtype, rows, d):
+    """Every path of csrc/residual_rmsnorm.cu: the register path at the
+    widths the models use (64, 2560, 4096) and others it takes (1000,
+    8192), d = 2561 (not whole 16-byte vectors: the loop path, one
+    element a lane), d = 24576 (wider than the register path holds: the
+    loop path on vectors), and an aligned buffer viewed one element off
+    (the loop path's scalar form).  One launch a call."""
+    if rows * d > (1 << 26):   # keep each tensor within 256 MB of f32
+        rows = (1 << 26) // d
+    x, r = _rand(gen, (rows, d), dtype), _rand(gen, (rows, d), dtype)
+    w = (1.0 + 0.1 * _rand(gen, (d,), torch.float32)).to(dtype)
+    before = LAUNCHES.residual_rmsnorm
+    s, o = rrn.residual_rmsnorm(x, r, w)
+    assert LAUNCHES.residual_rmsnorm == before + 1
+    sp, op = rrn.residual_rmsnorm_plain(x, r, w)
+    assert torch.equal(s, sp)
+    _assert_norm_close(o, op, dtype)
+    # one element off: contiguous views whose data is not 16-byte aligned
+    n = rows * d
+    bx, br = _rand(gen, (n + 1,), dtype), _rand(gen, (n + 1,), dtype)
+    bw = (1.0 + 0.1 * _rand(gen, (d + 1,), torch.float32)).to(dtype)
+    xv, rv, wv = bx[1:].view(rows, d), br[1:].view(rows, d), bw[1:]
+    assert xv.data_ptr() % 16 and xv.is_contiguous()
+    s, o = rrn.residual_rmsnorm(xv, rv, wv)
+    sp, op = rrn.residual_rmsnorm_plain(xv, rv, wv)
+    assert torch.equal(s, sp)
+    _assert_norm_close(o, op, dtype)
+    assert LAUNCHES.residual_rmsnorm == before + 2
+
+
+def _assert_scan_close(y, h, yr, hr, udtype):
+    """1e-5 of the largest plain output (h_last and an f32 y); a bf16 y
+    within that plus one bf16 ulp."""
+    assert y.dtype == udtype and h.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    tol_h = 1e-5 * max(1.0, float(hr.abs().max()))
+    assert float((h - hr).abs().max()) <= tol_h
+    yf, yrf = y.float(), yr.float()
+    tol_y = 1e-5 * max(1.0, float(yrf.abs().max()))
+    err = (yf - yrf).abs()
+    if udtype == torch.float32:
+        assert float(err.max()) <= tol_y
+    else:
+        ulp = torch.maximum(_bf16_ulp(yf), _bf16_ulp(yrf))
+        assert bool((err <= ulp + tol_y).all()), float(err.max())
+
+
+@pytest.mark.parametrize("udtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("l", [1, 15, 17, 33, 1000])
+@pytest.mark.parametrize("di", [1000, 999])
+def test_ssm_scan_lanes_runs_and_ragged_channels(gen, di, l, b, ds, udtype):
+    """The lane-split scan: di not a multiple of the block's 32 channels,
+    with di = 1000 on the 16-byte load path and di = 999 on the
+    one-element path; l within, across and past the 32-step run; a
+    non-zero h0; one launch a call."""
+    xs = _ssm_inputs(gen, b, l, di, ds, udtype, True)
+    before = LAUNCHES.ssm_scan
+    y, h = ss.ssm_scan(*xs)
+    assert LAUNCHES.ssm_scan == before + 1
+    _assert_scan_close(y, h, *ss.ssm_scan_plain(*xs), udtype)
+
+
+@pytest.mark.parametrize("udtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_long_sequence(gen, udtype):
+    """l = 4096 at di 512, where a drift of the new order of the sum over
+    the states would show first; delta in bf16 as well."""
+    xs = list(_ssm_inputs(gen, 2, 4096, 512, 16, udtype, True))
+    _assert_scan_close(*ss.ssm_scan(*xs), *ss.ssm_scan_plain(*xs), udtype)
+    xs[1] = xs[1].to(torch.bfloat16)
+    _assert_scan_close(*ss.ssm_scan(*xs), *ss.ssm_scan_plain(*xs), udtype)
+
+
+def test_ssm_scan_misaligned_views(gen):
+    """u and delta viewed one element off an aligned buffer take the
+    one-element load path and agree all the same."""
+    b, l, di, ds = 2, 33, 64, 16
+    xs = list(_ssm_inputs(gen, b, l, di, ds, torch.float32, True))
+    n = b * l * di
+    for i in (0, 1):
+        buf = torch.empty(n + 1, device="cuda")
+        buf[1:] = xs[i].reshape(-1)
+        xs[i] = buf[1:].view(b, l, di)
+        assert xs[i].data_ptr() % 16
+    _assert_scan_close(*ss.ssm_scan(*xs), *ss.ssm_scan_plain(*xs),
+                       torch.float32)

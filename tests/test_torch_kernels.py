@@ -86,6 +86,67 @@ def test_residual_rmsnorm_plain_matches_oracle_and_interpret_kernel(
         np.testing.assert_allclose(_np(normed), _np(en), rtol=tol, atol=tol)
 
 
+def _register_path_layout(d: int, itemsize: int):
+    """(W warps a row, NV 16-byte vectors a lane) that
+    csrc/residual_rmsnorm.cu's register path takes for a row of d."""
+    n_vec = d // (16 // itemsize)
+    w = 1
+    while -(-n_vec // (32 * w)) > 10:
+        w *= 2
+    need = -(-n_vec // (32 * w))
+    return w, next(nv for nv in (1, 2, 4, 8, 10) if nv >= need)
+
+
+def _register_path_residual_rmsnorm(x, res, weight, eps=1e-6):
+    """residual_rmsnorm in the register path's order: s = x + res in f32;
+    each lane's sum of squares over its vectors i (v = 32 W i + 32 w + l)
+    and their elements in order, by FMA; a butterfly over the 32 lanes;
+    the W warp sums in order; 1 / sqrt(sum / d + eps); (s * inv) * w."""
+    rows, d = x.shape
+    n = 16 // x.element_size()
+    w_, nv = _register_path_layout(d, x.element_size())
+    s = x.float() + res.float()
+    pad = torch.zeros(rows, nv * 32 * w_ * n)
+    pad[:, :d] = s
+    lanes = pad.view(rows, nv, w_, 32, n).permute(0, 2, 3, 1, 4).reshape(
+        rows, w_, 32, nv * n)
+    ss = torch.zeros(rows, w_, 32)
+    for c in range(nv * n):
+        v = lanes[..., c]
+        ss = (v.double() * v.double() + ss.double()).float()
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        ss = ss + ss[..., idx ^ o]
+    tot = torch.zeros(rows)
+    for j in range(w_):
+        tot = tot + ss[:, j, 0]
+    inv = 1.0 / torch.sqrt(tot / d + eps)
+    out = (s * inv[:, None]) * weight.float()
+    return s.to(x.dtype), out.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [2560, 4096])
+def test_residual_rmsnorm_register_path_order_matches_oracle(dtype, d):
+    """The register path's reduction order (lane partials by FMA, the
+    warp butterfly, the warps in order), emulated here, holds to the
+    reference's oracle run through JAX at the kernel's card tolerance:
+    rtol = atol = 1e-5 in f32, one bf16 ulp in bf16; s bit for bit."""
+    rng = np.random.RandomState(0)
+    jx, tx = _pair(rng.randn(6, d).astype(np.float32), dtype)
+    jr, tr = _pair(rng.randn(6, d).astype(np.float32), dtype)
+    jw, tw = _pair((1.0 + 0.1 * rng.randn(d)).astype(np.float32), dtype)
+    es, en = (_np(v) for v in jref.residual_rmsnorm_ref(jx, jr, jw))
+    s, out = (_np(v) for v in _register_path_residual_rmsnorm(tx, tr, tw))
+    np.testing.assert_array_equal(s, es)
+    if dtype == "float32":
+        np.testing.assert_allclose(out, en, rtol=1e-5, atol=1e-5)
+    else:
+        mag = np.maximum(np.abs(en), 2.0 ** -126)
+        ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+        assert (np.abs(out - en) <= ulp).all()
+
+
 # ----------------------------------------------------------------- attention
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 32),
