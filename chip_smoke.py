@@ -58,9 +58,25 @@ after an error:
            shards with delta pulls, checked as the train phase is, with
            14 ``ssm_scan`` launches per worker step
   hybrid profile
-           two one-worker steps of that configuration under
-           torch.profiler, with the ``ssm_scan`` kernel and the scan's
-           plain backward as groups of their own
+           one one-worker step of that configuration under
+           torch.profiler (the trace of its ≈ 180 k kernels takes
+           minutes to read back), with the ``ssm_scan`` kernel and the
+           scan's plain backward as groups of their own
+  transport
+           spawned worker processes on the card over the frame protocol
+           (``ps-transport``): h2o-danube-1.8b at its published widths
+           cut to 13 of 24 layers, the deepest whose packed pull fits one
+           2 GiB frame, 8 DSSP steps of 2 worker processes (the second 2x
+           slower) over tcp on 127.0.0.1, 4 shards, delta pulls; the
+           train phase's checks, with 4 fused_update launches a push in
+           this process and each worker process's norm and attention
+           launches exactly what its steps imply, and every push applied
+           on every shard in frames of the plan's size; wall time,
+           pushes/s, compute and wire share, frame bytes per push and
+           pull, each process's peak memory and the card's memory.used.
+           Then at smoke size: shmem with 2 workers, tcp with int8
+           frames, and an inproc endpoint driven by one client of this
+           process
 
 The last two lines of standard output are the JSON kernel table and the
 contract line ``{"ok": true, "device": {...}}``.  This script imports
@@ -663,7 +679,8 @@ def check_ssm_scan(torch, timer, ss, instr_per_state_step=None):
 
 # ----------------------------------------------------------------- runs
 def main_path_spec(api, *, full: bool, workers: int, sync: str,
-                   kernels: str = "auto", straggler: float = 2.0):
+                   kernels: str = "auto", straggler: float = 2.0,
+                   transport=None, compression: str = "none"):
     return api.RunSpec(
         model=api.ModelSpec(arch="h2o-danube-1.8b", smoke=not full,
                             kernels=kernels),
@@ -672,7 +689,9 @@ def main_path_spec(api, *, full: bool, workers: int, sync: str,
         sync=api.SyncSpec(mode=sync, s_lower=1, s_upper=4),
         ps=api.ServerSpec(kind="sharded", shards=4, workers=workers,
                           apply="fused", straggler=straggler),
-        wire=api.WireSpec(format="packed", delta_pull=True))
+        wire=api.WireSpec(format="packed", delta_pull=True,
+                          compression=compression),
+        transport=transport or api.TransportSpec())
 
 
 def hybrid_spec(api, *, smoke: bool, workers: int, sync: str,
@@ -715,21 +734,27 @@ def check_parity(torch, api, label: str, spec_of, tol: float = 1e-4):
         fail(f"parity ({label}): kernel and plain losses differ by {diff}")
 
 
-def run_train(torch, api, label: str, spec, per_step, **overrides):
+def run_train(torch, api, label: str, spec, per_step, *, spawned=False,
+              extra=None, **overrides):
     """8 DSSP steps of ``spec`` (2 workers, the second slower) through
     ``build_session``; losses finite, staleness within s_upper, DSSP
     extensions == credit releases, every kernel's launches exactly what
     the run implies (``per_step``: launches per worker step; the
     server's ``fused_update`` once per shard version), peak below the
-    card's 80 GB.  Returns the launches."""
+    card's 80 GB.  ``spawned``: the workers are processes
+    (``ps-transport``), each holding ``per_step`` in its own
+    ``WorkerResult``, and this process launches only the server's
+    kernel.  ``extra(server, workers, m, wall)`` checks further and
+    returns fields for the record.  Returns the launches."""
     from repro_torch.obs.trace import TRACE
-    from repro_torch.perfcount import LAUNCHES
+    from repro_torch.perfcount import LAUNCHES, TRANSPORT
     free_device_memory(torch)
     torch.cuda.reset_peak_memory_stats()
     session = api.build_session(spec, **overrides)
     session.start()
     TRACE.enable(source="server")
     LAUNCHES.reset()
+    TRANSPORT.reset()
     t0 = time.monotonic()
     m = session.run(8)
     torch.cuda.synchronize()
@@ -738,7 +763,7 @@ def run_train(torch, api, label: str, spec, per_step, **overrides):
     events = TRACE.drain()
     TRACE.disable()
     server = session.server
-    workers = session.workers
+    workers = session.results if spawned else session.workers
     session.close()
 
     losses = [l for _, _, l in server.metrics.loss_trajectory]
@@ -755,11 +780,14 @@ def run_train(torch, api, label: str, spec, per_step, **overrides):
              f"{m['credit_releases']} credit releases")
     rows = server.plan.wire_layout().shard_rows
     # no coalescing and no compression on this path
-    expected = {name: per_step.get(name, 0) * passes for name in launches}
+    expected = {name: 0 if spawned else per_step.get(name, 0) * passes
+                for name in launches}
     expected["fused_update"] = sum(st.version for st, r in
                                    zip(server.shards, rows) if r)
     if launches != expected:
         fail(f"{label}: launches {launches} != expected {expected}")
+    if spawned:
+        check_worker_launches(label, workers, per_step)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not peak_gb < 80.0:
         fail(f"{label}: peak memory {peak_gb} GB")
@@ -774,6 +802,8 @@ def run_train(torch, api, label: str, spec, per_step, **overrides):
            "credit_releases": m["credit_releases"],
            "dssp_extensions": len(ext), "launches": launches,
            "max_memory_allocated_gb": peak_gb}
+    if extra is not None:
+        rec.update(extra(server, workers, m, wall))
     say(rec)
     return launches
 
@@ -904,6 +934,182 @@ def run_paths(torch, api):
              "max_staleness": m["max_staleness"]})
 
 
+# ----------------------------------------------------------------- transport
+def transport_config():
+    """h2o-danube-1.8b at its published widths cut to 13 of 24 layers,
+    the deepest cut whose packed bf16 pull (S=4) fits one frame:
+    2,133,999,616 bytes, under the frame protocol's 2 GiB payload limit
+    (14 layers would not fit)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("h2o-danube-1.8b"), n_layers=13)
+
+
+class MemoryUsedSampler:
+    """The card's ``memory.used`` (nvidia-smi, MiB; every process on the
+    card) sampled every half second on a thread; ``peak_mib`` after
+    ``stop``."""
+
+    def __init__(self):
+        import threading
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=30)
+            if out.returncode == 0 and out.stdout.strip():
+                self.samples.append(int(out.stdout.split()[0]))
+            self._stop.wait(0.5)
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join(timeout=30)
+        if not self.samples:
+            fail("transport: nvidia-smi gave no memory.used sample")
+        return max(self.samples)
+
+
+def check_worker_launches(tag, results, per_step):
+    """Each worker process's own launch counts: ``per_step`` per step it
+    took, no other kernel."""
+    for r in results:
+        expected = {name: per_step.get(name, 0) * r.iterations_done
+                    for name in r.launches}
+        if r.launches != expected:
+            fail(f"{tag}: worker {r.worker_id} launches {r.launches} != "
+                 f"expected {expected}")
+
+
+def run_transport(torch, api, per_step):
+    """The full-width run over tcp through spawned worker processes:
+    ``run_train``'s checks, and every push applied on every shard in
+    frames of the plan's size."""
+    from repro_torch.models import registry
+    from repro_torch.perfcount import TRANSPORT
+    from repro_torch.ps.sharded.plan import build_shard_plan
+    from repro_torch.wireformat import MAX_PAYLOAD, WIRE_LANES
+    cut = transport_config()
+    layout = build_shard_plan(registry.abstract_params(cut),
+                              4).wire_layout()
+    frame_bytes = layout.total_rows * WIRE_LANES * layout.dtype.itemsize
+    if not frame_bytes <= MAX_PAYLOAD:
+        fail(f"transport: a {cut.n_layers}-layer pull is {frame_bytes} "
+             f"bytes, over the {MAX_PAYLOAD}-byte frame limit")
+    spec = main_path_spec(api, full=True, workers=2, sync="dssp",
+                          transport=api.TransportSpec(kind="tcp",
+                                                      host="127.0.0.1"))
+    tag = f"transport (tcp, full width, {cut.n_layers} layers)"
+    live = [j for j, r in enumerate(layout.shard_rows) if r]
+
+    def extra(server, results, m, wall):
+        if server.shard_versions() != [m["pushes"] if j in live else 0
+                                       for j in range(4)]:
+            fail(f"{tag}: shard versions {server.shard_versions()} for "
+                 f"{m['pushes']} pushes")
+        if server.version != m["pushes"] * len(live):
+            fail(f"{tag}: version {server.version} != {m['pushes']} "
+                 f"pushes x {len(live)} shards")
+        payload = frame_bytes + 44
+        for r in results:
+            if any(b != payload for b in r.push_bytes):
+                fail(f"{tag}: worker {r.worker_id} push frames "
+                     f"{r.push_bytes}, expected {payload} bytes each")
+        rec = {"run": tag, "frame_payload_bytes": frame_bytes,
+               "wait_fraction": m["wait_fraction"],
+               "worker_launches": [r.launches for r in results],
+               "worker_max_memory_allocated_gb":
+                   [r.peak_memory_bytes / 1e9 for r in results],
+               "memory_used_peak_mib": sampler.stop(),
+               "server_transport": TRANSPORT.snapshot()}
+        for r in results:
+            # the push's time includes the gate's wait, which the server
+            # records per worker
+            wait = server.metrics.wait_time.get(r.worker_id, 0.0)
+            rec[f"worker {r.worker_id}"] = {
+                "compute_s": r.compute_s, "pull_s": r.pull_s,
+                "push_s": r.push_s, "iteration_s": r.iteration_s,
+                "pull_bytes": r.pull_bytes, "push_bytes": r.push_bytes,
+                "gate_wait_s": wait,
+                "mean_compute_s": statistics.mean(r.compute_s),
+                "mean_round_trip_s": statistics.mean(
+                    p + q for p, q in zip(r.pull_s, r.push_s)),
+                "mean_round_trip_s_without_wait": (
+                    sum(r.pull_s) + sum(r.push_s) - wait) / len(r.pull_s),
+                "wire_share": 1.0 - sum(r.compute_s) / sum(r.iteration_s)}
+            say(f"transport: worker {r.worker_id} mean compute s "
+                f"{statistics.mean(r.compute_s)}, wire share "
+                f"{rec[f'worker {r.worker_id}']['wire_share']}, bytes per "
+                f"push {statistics.mean(r.push_bytes)}, per pull "
+                f"{statistics.mean(r.pull_bytes)}, peak GB "
+                f"{r.peak_memory_bytes / 1e9}")
+        say(f"transport: wall s {wall}, pushes/s {m['pushes'] / wall}, "
+            f"server peak GB {torch.cuda.max_memory_allocated() / 1e9}, "
+            f"card memory.used peak MiB {rec['memory_used_peak_mib']}")
+        return rec
+
+    sampler = MemoryUsedSampler()
+    run_train(torch, api, "transport", spec, per_step, spawned=True,
+              extra=extra, model_config=cut, timeout=900.0)
+
+
+def run_transport_paths(torch, api, per_step):
+    """At smoke size: shmem with 2 workers, tcp with int8 frames, and an
+    inproc endpoint driven by one client of this process."""
+    from repro_torch.perfcount import LAUNCHES
+    from repro_torch.transport import connect
+    shm = os.statvfs("/dev/shm")
+    say(f"transport: /dev/shm size bytes {shm.f_frsize * shm.f_blocks}")
+    for label, kind, comp in (("shmem, 2 workers", "shmem", "none"),
+                              ("tcp, int8 frames", "tcp", "int8")):
+        spec = main_path_spec(api, full=False, workers=2, sync="dssp",
+                              transport=api.TransportSpec(kind=kind),
+                              compression=comp)
+        free_device_memory(torch)
+        LAUNCHES.reset()
+        with api.build_session(spec, timeout=600.0) as s:
+            m = s.run(4)
+            results = s.results
+            losses = [l for _, _, l in s.server.metrics.loss_trajectory]
+            live = sum(1 for r in s.server.plan.wire_layout().shard_rows
+                       if r)
+        tag = f"transport ({label})"
+        if len(losses) != 4 or not all(map(math.isfinite, losses)):
+            fail(f"{tag}: losses {losses}")
+        if LAUNCHES.fused_update != live * m["pushes"]:
+            fail(f"{tag}: server launches {LAUNCHES.snapshot()}")
+        check_worker_launches(tag, results, per_step)
+        say({"phase": "transport paths", "run": label, "losses": losses,
+             "pushes": m["pushes"], "applied_updates": m["applied_updates"],
+             "push_bytes": [r.push_bytes for r in results],
+             "worker_launches": [r.launches for r in results]})
+    spec = main_path_spec(api, full=False, workers=1, sync="bsp",
+                          transport=api.TransportSpec(kind="inproc",
+                                                      endpoint=True))
+    with api.build_session(spec, external_workers=True) as s:
+        client = connect(s.address(), 0)
+        rows = client.hello()
+        d = client.pull_delta((-1,) * 4)
+        wire = torch.cat(list(d.regions))
+        if not torch.equal(wire, s.server.pull_packed().cpu()):
+            fail("transport (inproc endpoint): pulled wire differs")
+        grads = torch.full((rows, 512), 1e-3, dtype=wire.dtype)
+        if not client.push_packed(grads, clock=0):
+            fail("transport (inproc endpoint): push answered STOP")
+        version = s.server.version
+        live = sum(1 for r in s.server.plan.wire_layout().shard_rows if r)
+        client.bye()
+    if version != live:
+        fail(f"transport (inproc endpoint): version {version} after one "
+             f"push to {live} shards")
+    say({"phase": "transport paths", "run": "inproc endpoint, external "
+         "client", "rows": rows, "applied_updates": version})
+
+
 #: the port's own kernels, by function name (exactly; the fused norm's
 #: one kernel was named residual_rmsnorm_kernel before its register
 #: path, which ``--src`` runs of earlier commits still launch)
@@ -915,7 +1121,7 @@ KERNEL_NAMES = (("ssm_scan kernel", ("ssm_scan_kernel",)),
 #: everything else, by a part of the name
 KERNEL_GROUPS = (("attention kernel (flash_fwd)", ("flash_fwd",)),
                  ("fused_update kernel", ("fused_update",)),
-                 ("f32 matmul (unembed, plain attention backward)",
+                 ("f32 matmul (unembed backward, plain attention backward)",
                   ("f32f32", "sgemm")),
                  ("bf16 matmul", ("gemm", "nvjet", "sm90_", "cutlass",
                                   "xmma")),
@@ -962,11 +1168,11 @@ def timed_steps(torch, api, spec, steps: int, **overrides) -> float:
         return (time.monotonic() - t0) * 1e3 / steps
 
 
-def profile_step(torch, api, label: str, spec, **overrides):
+def profile_step(torch, api, label: str, spec, steps: int = 2, **overrides):
     """Where a training step's time goes: a fresh one-worker session
-    (the process is warm from the phase before), two steps under
+    (the process is warm from the phase before), ``steps`` steps under
     ``torch.profiler``; device time per kernel group and name, and the
-    device's idle share of the wall time of two untraced steps of
+    device's idle share of the wall time of as many untraced steps of
     another fresh session (tracing every CPU op of the worker threads
     slows the host), and of the traced steps.  Kernels launched inside
     the scan's backward range (``registry.SSM_SCAN_BACKWARD``) form a
@@ -974,7 +1180,6 @@ def profile_step(torch, api, label: str, spec, **overrides):
     from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
     from repro_torch.kernels.registry import SSM_SCAN_BACKWARD
-    steps = 2
     untraced_ms = timed_steps(torch, api, spec, steps, **overrides)
     free_device_memory(torch)
     # the steps run in the session's worker threads: record their CPU
@@ -1070,7 +1275,7 @@ def main(argv=None) -> None:
     sys.path.insert(0, os.path.join(ROOT, args.src))
     from repro_torch import api
     from repro_torch import tree as tree_util
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import cuda
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_compress as fc
@@ -1178,7 +1383,18 @@ def main(argv=None) -> None:
     launches["ssm_scan"] = hybrid["ssm_scan"]
     profile_step(torch, api, "hybrid",
                  hybrid_spec(api, smoke=False, workers=1, sync="bsp",
-                             straggler=1.0), model_config=cut)
+                             straggler=1.0), steps=1, model_config=cut)
+
+    # -- transport, transport paths --------------------------------------
+    layers = transport_config().n_layers
+    run_transport(torch, api, {"flash_attention_fwd": layers * 2,
+                               "residual_rmsnorm": layers * 2,
+                               "rmsnorm": layers * 2 + 1})
+    smoke = get_smoke_config("h2o-danube-1.8b")
+    passes = smoke.n_layers * (2 if smoke.remat == "full" else 1)
+    run_transport_paths(torch, api, {"flash_attention_fwd": passes,
+                                     "residual_rmsnorm": passes,
+                                     "rmsnorm": passes + 1})
 
     replaces = {
         "fused_update": "src/repro/kernels/fused_update.py:37",

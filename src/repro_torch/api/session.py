@@ -1,10 +1,17 @@
 """``build_session(spec) -> TrainingSession`` — the single wiring path.
 
-Counterpart of ``repro/api/session.py`` for the engine the port has so
-far, ``ps-threads``: W worker threads pushing the packed or the tree
-wire into an in-heap ``ShardedParameterServer`` or monolithic
-``ParameterServer``, with coalesced applies and wire compression as the
-spec asks.
+Counterpart of ``repro/api/session.py`` for the engines the port has so
+far:
+
+  * ``ps-threads``: W worker threads pushing the packed or the tree
+    wire into an in-heap ``ShardedParameterServer`` or monolithic
+    ``ParameterServer``, with coalesced applies and wire compression as
+    the spec asks;
+  * ``ps-transport``: W spawned worker processes pushing packed frames
+    over tcp or shared memory (``repro_torch.transport``) into a
+    ``PSServerEndpoint`` over the same servers; or, with
+    ``external_workers=True``, an endpoint the caller's own clients
+    drive (``session.address()``), over inproc too.
 
     with build_session(spec) as session:      # start() on enter
         session.run(steps)                    # blocks until trained
@@ -15,7 +22,8 @@ Device rule: the session runs on ``cuda:0``.  ``device=`` is a
 build-time override like ``params=`` and ``step_fn=`` (not a ``RunSpec``
 field, so the schema stays the reference's); tests pass
 ``device="cpu"``.  With no ``device=`` and no CUDA, ``build_session``
-raises — it never carries on on the CPU.
+raises — it never carries on on the CPU.  Spawned workers run on the
+session's device too (``WorkerTask.device``).
 """
 
 from __future__ import annotations
@@ -167,13 +175,14 @@ def _coalesce_kwargs(spec: RunSpec) -> Dict[str, Any]:
 
 
 def _compression_plan(spec: RunSpec):
-    """(tree_compressor, wire_compression) — where the configured
-    compression runs: the fused wire compression on the packed wire,
-    the per-tensor tree compressor on the tree wire.  (The reference's
-    third place, frame-level int8 over a process transport, comes with
-    the transports, ROADMAP queue 1 item 6.)"""
+    """(tree_compressor, wire_compression) — where the server runs the
+    configured compression: the fused wire compression on the packed
+    wire, the per-tensor tree compressor on the tree wire; nowhere when
+    int8 rides the frames of a process transport
+    (``WorkerTask.from_spec``), which are dequantized on receipt."""
     comp = spec.wire.compression
-    if comp == "none":
+    if comp == "none" or (spec.transport.kind != "inproc"
+                          and comp == "int8"):
         return None, None
     if spec.wire.format == "packed":
         return None, comp
@@ -256,6 +265,59 @@ def _default_loss_from_aux(aux) -> float:
     return float(aux["loss"])
 
 
+def _grads_fn(cfg):
+    """``(params, batch) -> (grads, {"loss": loss})``: the model's loss
+    and its backward on a parameter tree."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import registry
+    loss_fn = registry.loss_fn(cfg)
+
+    def grads_of(params, batch):
+        leaves, treedef = tree_util.flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        loss, _ = loss_fn(tree_util.unflatten(treedef, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return (tree_util.unflatten(treedef, list(grads)),
+                {"loss": loss.detach()})
+
+    return grads_of
+
+
+def packed_step(cfg, plan, device: torch.device):
+    """One worker's packed-wire step ``(wire_p, batch) -> (wire_g,
+    aux)``: unpack the pulled wire into leaf views, loss and backward,
+    pack the grads into the worker's own gradient wire.
+
+    The gradient wire is allocated once and reused every iteration (the
+    counterpart of the reference's donated buffer).  Safe: a push folds
+    it in (in-heap: the server's kernel is queued on the same stream, so
+    it reads the region before anything this worker queues later writes
+    it; over a transport: the codec copies it to the host) and keeps no
+    reference once the push returns."""
+    from repro_torch.wireformat import WIRE_LANES
+    grads_of = _grads_fn(cfg)
+    layout = plan.wire_layout()
+    wire_g = torch.zeros((layout.total_rows, WIRE_LANES),
+                         dtype=layout.dtype, device=device)
+
+    def step(wire_p, batch):
+        grads, aux = grads_of(plan.unpack(wire_p), batch)
+        plan.pack(grads, out=wire_g)
+        return wire_g, aux
+
+    return step
+
+
+def worker_batches(cfg, data_cfg, w: int, device: torch.device) -> Iterator:
+    """Worker ``w``'s data stream (seed ``data_cfg.seed + 1 + w``, as in
+    the reference), as token tensors on ``device``."""
+    from repro_torch.data.synthetic import batches as data_batches
+    wcfg = dataclasses.replace(data_cfg, seed=data_cfg.seed + 1 + w)
+    for b in data_batches(cfg, wcfg):
+        yield {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
+               for k, v in b.items()}
+
+
 # ===================================================================
 # engine: threaded parameter server
 # ===================================================================
@@ -308,68 +370,23 @@ class ThreadedPSSession(TrainingSession):
     # -- worker construction ------------------------------------------
     def _step_factory(self):
         """() -> step_fn per worker.  Tree wire: loss and backward on the
-        pulled tree, the gradient tree out.  Packed wire: unpack the
-        pulled wire into leaf views, loss and backward, pack the grads
-        into the worker's own gradient wire."""
+        pulled tree, the gradient tree out.  Packed wire: see
+        ``packed_step``."""
         step_fn = self._ov.get("step_fn")
         if step_fn is not None:
             return lambda: step_fn
-        from repro_torch import tree as tree_util
-        from repro_torch.models import registry
-        from repro_torch.wireformat import WIRE_LANES
         cfg, _ = _model_setup(self.spec, self._ov.get("model_config"))
-        loss_fn = registry.loss_fn(cfg)
-
-        def grads_of(params, batch):
-            leaves, treedef = tree_util.flatten(params)
-            leaves = [x.detach().requires_grad_() for x in leaves]
-            loss, _ = loss_fn(tree_util.unflatten(treedef, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves)
-            return (tree_util.unflatten(treedef, list(grads)),
-                    {"loss": loss.detach()})
-
         if self.spec.wire.format == "tree":
+            grads_of = _grads_fn(cfg)
             return lambda: grads_of
-        plan = self.server.plan
-        layout = plan.wire_layout()
-        device = self.device
-
-        def make_step():
-            # One gradient wire per worker, reused every iteration (the
-            # counterpart of the reference's donated buffer).  Safe: the
-            # server folds each region in synchronously inside
-            # push_packed — its kernel is queued on the same stream, so
-            # it reads the region before anything this worker queues
-            # later writes it — and keeps no reference once push_packed
-            # returns.
-            wire_g = torch.zeros((layout.total_rows, WIRE_LANES),
-                                 dtype=layout.dtype, device=device)
-
-            def step(wire_p, batch):
-                grads, aux = grads_of(plan.unpack(wire_p), batch)
-                plan.pack(grads, out=wire_g)
-                return wire_g, aux
-
-            return step
-
-        return make_step
+        return lambda: packed_step(cfg, self.server.plan, self.device)
 
     def _batches_factory(self):
         batches = self._ov.get("batches")
         if batches is not None:
             return batches
-        from repro_torch.data.synthetic import batches as data_batches
         cfg, data_cfg = _model_setup(self.spec, self._ov.get("model_config"))
-        device = self.device
-
-        def worker_batches(w: int) -> Iterator:
-            wcfg = dataclasses.replace(data_cfg, seed=data_cfg.seed + 1 + w)
-            for b in data_batches(cfg, wcfg):
-                yield {k: torch.from_numpy(v).to(device=device,
-                                                 dtype=torch.long)
-                       for k, v in b.items()}
-
-        return worker_batches
+        return lambda w: worker_batches(cfg, data_cfg, w, self.device)
 
     # -- reporting ----------------------------------------------------
     def metrics(self) -> Dict[str, Any]:
@@ -378,6 +395,118 @@ class ThreadedPSSession(TrainingSession):
     def _close(self) -> None:
         if self.server is not None:
             self.server.shutdown()
+
+
+# ===================================================================
+# engine: process-isolated transport workers
+# ===================================================================
+@register_engine("ps-transport")
+class TransportPSSession(TrainingSession):
+    """Spawned worker processes pushing packed frames over a real wire
+    (tcp / shmem) into a ``PSServerEndpoint``; or an endpoint for the
+    caller's own clients (``external_workers=True``, also over the
+    in-process loopback)."""
+
+    OVERRIDES = frozenset({
+        "verbose", "device", "params", "external_workers",
+        "speed_factors", "timeout", "model_config",
+    })
+
+    server = None
+    endpoint = None
+    transport = None
+    #: ``WorkerResult`` per spawned worker, after ``run``
+    results = None
+
+    def _start(self) -> None:
+        from repro_torch.transport import PSServerEndpoint, make_transport
+        spec = self.spec
+        params = self._ov.get("params")
+        if params is None:
+            params = _registry_params(spec, self.device,
+                                      self._ov.get("model_config"))
+        self.server = build_server(spec, params, self.device)
+        self.endpoint = PSServerEndpoint(self.server)
+        self.transport = make_transport(
+            spec.transport.kind, n_workers=spec.ps.workers,
+            host=spec.transport.host, port=spec.transport.port)
+        self.transport.serve(self.endpoint)
+
+    def address(self):
+        """The picklable transport address clients ``connect`` to."""
+        self.start()
+        return self.transport.address()
+
+    def reshard(self, n_shards: int) -> bool:
+        raise SpecError(
+            "live resharding is not ported to repro_torch yet (ROADMAP "
+            "queue 1, item 8); run it on the reference package")
+
+    def _run(self, steps: int) -> None:
+        if self._ov.get("external_workers"):
+            raise SpecError("this session was built with "
+                            "external_workers=True — connect your own "
+                            "clients to session.address()")
+        if self.spec.transport.kind == "inproc":
+            raise SpecError(
+                "transport.endpoint=True over inproc is the in-process "
+                "serialization baseline for external clients — spawned "
+                "workers cannot reach an in-process address; use "
+                "external_workers=True or transport.kind='tcp'/'shmem'")
+        if (self.spec.model.arch == CUSTOM_ARCH
+                and self._ov.get("model_config") is None):
+            raise SpecError(
+                "transport workers rebuild the model from its config — "
+                "model.arch='custom' cannot cross the spawn boundary "
+                "(pass a registry arch or model_config=, or drive the "
+                "endpoint with external_workers=True)")
+        from repro_torch.launch.proc_pool import (ProcessWorkerPool,
+                                                  WorkerTask,
+                                                  raise_on_failure)
+        spec = self.spec
+        w = spec.ps.workers
+        if self.device.type == "cuda":
+            # Build the kernel library once, here, so the workers load it
+            # instead of each compiling it.
+            from repro_torch.kernels import cuda
+            cuda.library()
+        task = WorkerTask.from_spec(
+            spec, max(1, steps // w), device=str(self.device),
+            model_config=self._ov.get("model_config"))
+        pool = ProcessWorkerPool(
+            self.transport.address(), task, w,
+            slowdowns=_speed_factors(spec, self._ov.get("speed_factors")))
+        pool.start()
+        try:
+            self.results = pool.join(
+                timeout=self._ov.get("timeout", 1200.0),
+                endpoint=self.endpoint)
+        finally:
+            # Training is over either way: release gated workers and
+            # tear the wire down before surfacing failures.
+            self.close()
+            pool.terminate()
+        raise_on_failure(self.results)
+        if self.verbose:
+            m = self.server.metrics
+            done = sum(r.iterations_done for r in self.results)
+            print(f"workers={w} ({spec.transport.kind}) "
+                  f"iterations={done} pushes={m.total_pushes} "
+                  f"applied_updates={self.server.version} "
+                  f"max_stale={m.max_staleness}")
+
+    def metrics(self) -> Dict[str, Any]:
+        out = _ps_metrics(self.engine, self.server)
+        if self.results is not None:
+            out["iterations_done"] = sum(r.iterations_done
+                                         for r in self.results)
+        return out
+
+    def _close(self) -> None:
+        if self.server is not None:
+            self.server.shutdown()
+        if self.transport is not None:
+            self.transport.shutdown()
 
 
 def _ps_metrics(engine: str, server) -> Dict[str, Any]:

@@ -702,7 +702,7 @@ def _later(what: str, item: str) -> str:
 def _require_ported(spec: "RunSpec") -> None:
     """Refuse every value whose code path a later slice ports."""
     from repro_torch.configs import arch_names  # light import
-    ps, tp, ft = spec.ps, spec.transport, spec.ft
+    ps, ft = spec.ps, spec.ft
     _require(spec.model.arch in [CUSTOM_ARCH] + arch_names(),
              _later(f"model.arch={spec.model.arch!r} (an architecture "
                     "of a family not ported yet)", "item 10"))
@@ -716,9 +716,6 @@ def _require_ported(spec: "RunSpec") -> None:
                     "faults, reconnect)", "item 8"))
     _require(spec.serve.replicas == 0,
              _later("serve.replicas > 0", "item 9"))
-    _require(tp.kind == "inproc" and not tp.endpoint,
-             _later(f"transport.kind={tp.kind!r} / transport.endpoint",
-                    "item 6"))
 
 
 def _sub_from_dict(sub_cls, section: str, sub: Any):

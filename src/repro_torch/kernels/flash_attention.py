@@ -11,33 +11,63 @@ needs f32 products.  The plain version is ``ref.flash_attention_ref``.
 
 Unlike the Pallas kernel, the Hopper kernels mask a ragged last tile
 themselves, so every sequence length takes a kernel: there is no block
-size that must divide the lengths and no fallback.  A call the kernel
-cannot take (a view that is not 16-byte aligned, a failed tensor-map
-encode or launch) raises.
+size that must divide the lengths.  This wrapper raises for a call the
+kernel cannot take (a view that is not 16-byte aligned, a head dim that
+is not a multiple of 8 or is above 128, a failed tensor-map encode or
+launch); ``kernel_operands`` makes the inputs of the first two kinds
+into ones it takes, which is what the registry's ``attention`` does
+before each launch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import cuda
 from repro_torch.kernels.ref import \
     flash_attention_ref as flash_attention_plain
 from repro_torch.perfcount import LAUNCHES
 
-__all__ = ["flash_attention_fwd", "flash_attention_plain"]
+__all__ = ["flash_attention_fwd", "flash_attention_plain",
+           "kernel_operands"]
 
 #: head dims the kernel takes: a multiple of 8 up to this
 MAX_HEAD_DIM = 128
 
 
+def _operand(t: torch.Tensor, d_pad: int) -> torch.Tensor:
+    if t.shape[-1] != d_pad:
+        return F.pad(t, (0, d_pad - t.shape[-1]))
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v as the kernel reads them: a head dim up to
+    ``MAX_HEAD_DIM`` zero-padded to a multiple of 8, which leaves QK^T
+    unchanged (call the kernel with the true ``head_dim`` and drop the
+    padded output columns); each a contiguous tensor at a 16-byte-aligned
+    address, as a fresh allocation is.  Inputs that are so already come
+    back as they are, and so do inputs whose head dims differ, for
+    ``flash_attention_fwd`` to refuse."""
+    d = q.shape[-1]
+    if not d == k.shape[-1] == v.shape[-1]:
+        return q, k, v
+    d_pad = -(-d // 8) * 8 if d <= MAX_HEAD_DIM else d
+    return _operand(q, d_pad), _operand(k, d_pad), _operand(v, d_pad)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """q (b, lq, hq, d); k/v (b, lk, hkv, d) -> (b, lq, hq, d).
+                        *, causal: bool = True, window: Optional[int] = None,
+                        head_dim: Optional[int] = None) -> torch.Tensor:
+    """q (b, lq, hq, d); k/v (b, lk, hkv, d) -> (b, lq, hq, d); scores
+    scaled by 1/sqrt(``head_dim``), d unless given.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     of their dtype: contiguous and 16-byte aligned, one dtype (float32
@@ -45,7 +75,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     128; anything else raises.
     """
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     head_dim=head_dim)
     dev = cuda.require_cuda("flash_attention_fwd", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)}, k "
@@ -75,7 +106,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cuda.check(lib.repro_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, lk,
         hq, hkv, d, int(causal), 0 if window is None else int(window),
-        1.0 / math.sqrt(d), code, dev.index, cuda.stream(dev)),
+        1.0 / math.sqrt(head_dim or d), code, dev.index, cuda.stream(dev)),
         "flash_attention_fwd")
     LAUNCHES.flash_attention_fwd += 1
     return out

@@ -23,11 +23,13 @@ NEG_INF = -1e30  # the reference's mask value (finite: fully-masked rows stay de
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        window: Optional[int] = None,
+                        head_dim: Optional[int] = None) -> torch.Tensor:
     """q (b, lq, hq, d); k/v (b, lk, hkv, d); GQA broadcast; f32 softmax.
 
     Positions are aligned at the END: query i sits at absolute position
-    lk - lq + i.
+    lk - lq + i.  Scores are scaled by 1/sqrt(``head_dim``), d unless
+    given (the true head dim of zero-padded inputs).
     """
     b, lq, hq, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
@@ -36,7 +38,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
     scores = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) \
-        / math.sqrt(d)
+        / math.sqrt(head_dim or d)
     qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
     kpos = torch.arange(lk, device=q.device)[None, :]
     mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)

@@ -18,8 +18,12 @@ the single entry point the model calls for its op — ``attention``,
     PLAIN_ASSOCIATIVE  (``ssm_scan`` only) the chunked associative scan
 
 The backward through the oracle is the only place a plain version runs
-on the card's main path.  There is no attention fallback: the kernel
-masks ragged tiles, so every sequence length takes it.
+on the card's main path.  Attention hands the kernel its inputs as
+``flash_attention.kernel_operands`` makes them: a strided or misaligned
+view copied, a head dim that is not a multiple of 8 zero-padded, so
+those launch the kernel too; the kernel masks ragged tiles itself, so
+every sequence length takes it.  What no kernel takes (a head dim above
+128, float16) raises.
 """
 
 from __future__ import annotations
@@ -61,7 +65,11 @@ class _Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return _fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        d = q.shape[-1]
+        out = _fa.flash_attention_fwd(*_fa.kernel_operands(q, k, v),
+                                      causal=causal, window=window,
+                                      head_dim=d)
+        return out if out.shape[-1] == d else out[..., :d].contiguous()
 
     @staticmethod
     def backward(ctx, dout):

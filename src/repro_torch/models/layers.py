@@ -146,14 +146,44 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
+class _Bf16Unembed(torch.autograd.Function):
+    """bf16 x @ table^T on the tensor cores, accumulated and written in
+    f32 (``aten::mm.dtype``).  The backward keeps the f32 products that
+    autograd of ``x.float() @ table.float().t()`` computes: the
+    cotangent is f32, and the reference rounds nothing there either."""
+
+    @staticmethod
+    def forward(ctx, x, table):
+        ctx.save_for_backward(x, table)
+        x2 = x.reshape(-1, x.shape[-1])
+        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        return out.view(*x.shape[:-1], table.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        g2 = g.reshape(-1, table.shape[0])
+        gx = gt = None
+        if ctx.needs_input_grad[0]:
+            gx = (g2 @ table.float()).to(x.dtype).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            x2 = x.reshape(-1, x.shape[-1]).float()
+            gt = (x2.t() @ g2).t().to(table.dtype)
+        return gx, gt
+
+
 def unembed(x: torch.Tensor, table: torch.Tensor,
             vocab_size: Optional[int] = None) -> torch.Tensor:
     """x (b, l, d) @ table^T (v_padded, d) -> f32 logits (b, l, v_padded).
 
     Products of the storage dtype are exact in f32 and summed in f32, as
-    the reference's ``preferred_element_type=float32``; padded columns
-    are masked to -1e30."""
-    logits = x.float() @ table.float().t()
+    the reference's ``preferred_element_type=float32``: on CUDA in bf16,
+    one tensor-core product that accumulates and writes in f32; elsewhere
+    an f32 product.  Padded columns are masked to -1e30."""
+    if x.is_cuda and x.dtype == table.dtype == torch.bfloat16:
+        logits = _Bf16Unembed.apply(x, table)
+    else:
+        logits = x.float() @ table.float().t()
     v_padded = table.shape[0]
     if vocab_size is not None and vocab_size < v_padded:
         col = torch.arange(v_padded, device=x.device)

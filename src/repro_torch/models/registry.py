@@ -63,6 +63,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Any:
     return P.init_tree(param_defs(cfg), gen, cfg.dtype, dev)
 
 
+def abstract_params(cfg: ModelConfig) -> Any:
+    """The parameter tree's shapes and dtypes as ``meta`` tensors: what
+    a shard plan needs, with no memory behind it."""
+    from repro_torch import tree as tree_util
+    return tree_util.tree_map(
+        lambda d: torch.empty(d.shape, device="meta",
+                              dtype=P.torch_dtype(d.dtype or cfg.dtype)),
+        param_defs(cfg))
+
+
 def count_params(cfg: ModelConfig) -> int:
     return P.count(param_defs(cfg))
 

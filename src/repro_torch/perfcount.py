@@ -1,9 +1,11 @@
-"""Hot-path event counters: the packed wire and the kernel launches.
+"""Hot-path event counters: the packed wire, the frames and the kernel
+launches.
 
 ``WIRE`` counts pytree <-> wire crossings and version-delta pull bytes,
 as in the reference package; the packed-wire contract ("a packed push
 does no per-leaf work on the server") is asserted on these counts, not
-on timings.
+on timings.  ``TRANSPORT`` counts frames and their bytes at the codec
+(``repro_torch.wireformat``), as in the reference package.
 
 ``LAUNCHES`` counts hand-written kernel launches, one field per kernel.
 A kernel wrapper bumps its field exactly where it launches its kernel on
@@ -11,6 +13,9 @@ the card, and nowhere else: a call that takes the plain version (a CPU
 tensor) leaves it untouched.  A run that resets the counts, drives the
 main path and reads them back shows which kernels the path really went
 through (``chip_smoke.py`` does exactly that).
+
+Counters are per process: a spawned worker process has its own, and
+reports them in its ``WorkerResult``.
 
 Counters are plain ints bumped under the GIL — cheap enough to stay on
 permanently; multi-threaded runs read them after joining the threads.
@@ -69,12 +74,27 @@ class KernelLaunches(_CounterBase):
     ssm_scan: int = 0
 
 
+@dataclasses.dataclass
+class TransportCounters(_CounterBase):
+    """Frames and bytes at the codec's encode/decode boundary, so every
+    backend (tcp, shmem, the in-memory loopback) is counted the same
+    way; ``header_rejects`` counts frames refused by header validation."""
+
+    frames_tx: int = 0
+    frames_rx: int = 0
+    bytes_tx: int = 0
+    bytes_rx: int = 0
+    header_rejects: int = 0
+
+
 #: Process-global counters — reset + snapshot around the region of
 #: interest.
 WIRE = HotPathCounters()
 LAUNCHES = KernelLaunches()
+TRANSPORT = TransportCounters()
 
 
 def snapshot_all() -> Dict[str, Dict[str, int]]:
     """One combined view of every process-global counter group."""
-    return {"wire": WIRE.snapshot(), "launches": LAUNCHES.snapshot()}
+    return {"wire": WIRE.snapshot(), "transport": TRANSPORT.snapshot(),
+            "launches": LAUNCHES.snapshot()}

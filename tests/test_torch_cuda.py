@@ -404,3 +404,82 @@ def test_ssm_scan_misaligned_views(gen):
         assert xs[i].data_ptr() % 16
     _assert_scan_close(*ss.ssm_scan(*xs), *ss.ssm_scan_plain(*xs),
                        torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["head_dim_12", "misaligned_q",
+                                  "misaligned_v", "strided_k"])
+def test_registry_attention_launches_the_kernel_on_padded_and_copied_inputs(
+        gen, dtype, case):
+    """Inputs the kernel reads only padded (head dim 12) or copied (a
+    view 2 or 4 bytes off a 16-byte boundary, a strided view) launch it
+    through the registry, once, and match the plain version within the
+    kernel's tolerance."""
+    d = 12 if case == "head_dim_12" else 80
+    shape_q, shape_kv = (2, 70, 4, d), (2, 70, 2, d)
+    q = _rand(gen, shape_q, dtype)
+    k = _rand(gen, shape_kv, dtype)
+    v = _rand(gen, shape_kv, dtype)
+    if case.startswith("misaligned"):
+        shape = shape_q if case == "misaligned_q" else shape_kv
+        buf = _rand(gen, (math.prod(shape) + 1,), dtype)
+        view = buf[1:].view(shape)       # contiguous, not 16-byte aligned
+        assert view.data_ptr() % 16
+        if case == "misaligned_q":
+            q = view
+        else:
+            v = view
+    elif case == "strided_k":
+        k = k.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not k.is_contiguous()
+    before = LAUNCHES.flash_attention_fwd
+    out = registry.attention(q, k, v, causal=True, window=33)
+    assert LAUNCHES.flash_attention_fwd == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    ref = fa.flash_attention_plain(q, k, v, causal=True, window=33)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("case", ["head_dim_136", "float16"])
+def test_registry_attention_raises_where_no_kernel_takes(gen, case):
+    """A head dim above 128 or float16 has no kernel: the registry
+    raises on the card, and nothing launches."""
+    d, dtype = (136, torch.float32) if case == "head_dim_136" \
+        else (80, torch.float16)
+    q = _rand(gen, (1, 32, 4, d), dtype)
+    k = _rand(gen, (1, 32, 2, d), dtype)
+    before = LAUNCHES.flash_attention_fwd
+    with pytest.raises((ValueError, TypeError), match="flash_attention_fwd"):
+        registry.attention(q, k, k)
+    assert LAUNCHES.flash_attention_fwd == before
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 256, 1000), (4, 1024, 2560,
+                                                        32000)])
+def test_bf16_unembed_matches_the_f32_product(gen, shape):
+    """The bf16 unembed on the tensor cores (``aten::mm.dtype``, f32
+    accumulation and output) sums the same exact products as the f32
+    product in another order: each logit within 1e-5 of the sum of its
+    products' magnitudes.  Its backward is the f32 product's, bit for
+    bit."""
+    from repro_torch.models import layers
+    b, l, d, v = shape
+    x = _rand(gen, (b, l, d), torch.bfloat16).requires_grad_()
+    table = (_rand(gen, (v, d), torch.bfloat16) * 0.05).requires_grad_()
+    logits = layers.unembed(x, table, vocab_size=v - 7)
+    with torch.no_grad():
+        ref = x.float() @ table.float().t()
+        mags = x.float().abs() @ table.float().abs().t()
+    assert logits.dtype == torch.float32
+    live = slice(0, v - 7)
+    err = (logits[..., live] - ref[..., live]).abs()
+    assert bool((err <= 1e-5 * mags[..., live]).all()), float(err.max())
+    assert bool((logits[..., v - 7:] == layers.NEG_INF).all())
+    g = _rand(gen, logits.shape, torch.float32)
+    gx, gt = torch.autograd.grad(logits, (x, table), g)
+    ref_logits = x.float() @ table.float().t()
+    ref_logits = ref_logits.masked_fill(
+        torch.arange(v, device="cuda") >= v - 7, layers.NEG_INF)
+    rx, rt = torch.autograd.grad(ref_logits, (x, table), g)
+    assert torch.equal(gx, rx) and torch.equal(gt, rt)

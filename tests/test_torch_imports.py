@@ -1,5 +1,5 @@
-"""Import isolation: repro_torch and chip_smoke.py never import JAX or the
-reference package."""
+"""Import isolation: repro_torch and chip_smoke.py never import JAX, the
+reference package or ``ml_dtypes``."""
 
 from __future__ import annotations
 
@@ -20,8 +20,8 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
     names.append(m.name)
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "jaxlib", "repro") or
-             k.startswith(("jax.", "jaxlib.", "repro.")))
+             if k in ("jax", "jaxlib", "repro", "ml_dtypes") or
+             k.startswith(("jax.", "jaxlib.", "repro.", "ml_dtypes.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -41,7 +41,15 @@ def test_every_repro_torch_module_imports_without_jax_or_repro():
                 "repro_torch.ps.sharded.server", "repro_torch.models.layers",
                 "repro_torch.models.ssm", "repro_torch.models.moe",
                 "repro_torch.models.hybrid", "repro_torch.kernels.ssm_scan",
-                "repro_torch.configs.jamba_v01_52b"}
+                "repro_torch.configs.jamba_v01_52b",
+                "repro_torch.wireformat", "repro_torch.ft.backoff",
+                "repro_torch.transport", "repro_torch.transport.base",
+                "repro_torch.transport.inproc", "repro_torch.transport.tcp",
+                "repro_torch.transport.shmem",
+                "repro_torch.transport.endpoint",
+                "repro_torch.launch.proc_pool", "repro_torch.ps.simulator",
+                "repro_torch.ps.sharded.simulator",
+                "repro_torch.api.__main__"}
     assert expected <= set(res["modules"])
 
 
@@ -56,7 +64,7 @@ def _imports(path: pathlib.Path):
 
 def _is_reference(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "repro")
+    return root in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():

@@ -328,3 +328,136 @@ def test_wrappers_raise_on_a_tensor_they_cannot_launch_on():
     q = torch.empty(1, 8, 2, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, q, q)
+
+
+def _qkv(d=16, hq=4, hkv=2, dtype=torch.float32, l=24):
+    g = torch.Generator().manual_seed(d * 100 + hq)
+    q = torch.randn(2, l, hq, d, generator=g).to(dtype)
+    k = torch.randn(2, l, hkv, d, generator=g).to(dtype)
+    v = torch.randn(2, l, hkv, d, generator=g).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case,kept", [
+    ("d16", True), ("d80_bf16", True), ("d128", True),
+    ("d12", False), ("d136", True), ("f16", True), ("f64", True),
+    ("hq3_hkv2", True), ("mixed_dtypes", True), ("misaligned", False),
+    ("transposed", False), ("d_mismatch", True)])
+def test_attention_kernel_operands(case, kept):
+    """What the registry hands the attention kernel: inputs it reads as
+    they are come back as the same tensors; a head dim that is not a
+    multiple of 8 comes back zero-padded to one, a misaligned or strided
+    view as a contiguous, 16-byte-aligned copy of the same values.  What
+    no kernel takes (d above 128, other dtypes, hq not a multiple of
+    hkv, head dims that differ) comes back as it is, for the wrapper to
+    refuse."""
+    q, k, v = _qkv()
+    if case == "d80_bf16":
+        q, k, v = _qkv(d=80, dtype=torch.bfloat16)
+    elif case == "d128":
+        q, k, v = _qkv(d=128)
+    elif case == "d12":
+        q, k, v = _qkv(d=12)
+    elif case == "d136":
+        q, k, v = _qkv(d=136)
+    elif case in ("f16", "f64"):
+        q, k, v = _qkv(dtype=torch.float16 if case == "f16"
+                       else torch.float64)
+    elif case == "hq3_hkv2":
+        q, k, v = _qkv(hq=3)
+    elif case == "mixed_dtypes":
+        k = k.to(torch.bfloat16)
+    elif case == "misaligned":
+        q = torch.cat([torch.zeros(1), q.reshape(-1)])[1:].view(q.shape)
+        assert q.is_contiguous() and q.data_ptr() % 16
+    elif case == "transposed":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "d_mismatch":
+        k, v = _qkv(d=24)[1:]
+    ops = fa.kernel_operands(q, k, v)
+    if kept:
+        assert all(a is b for a, b in zip(ops, (q, k, v)))
+        return
+    d = q.shape[-1]
+    d_pad = -(-d // 8) * 8
+    for a, b in zip(ops, (q, k, v)):
+        assert a.shape == b.shape[:-1] + (d_pad,) and a.dtype == b.dtype
+        assert a.is_contiguous() and a.data_ptr() % 16 == 0
+        assert torch.equal(a[..., :d], b)
+        assert not a[..., d:].any()
+
+
+@pytest.mark.parametrize("d", [12, 16])
+def test_registry_attention_pads_the_head_dim_and_matches_the_oracle(d):
+    """``kernels='pallas'`` at a head dim the kernel reads only padded
+    (12) and one it reads as it is (16): the kernel variant's output and
+    gradients equal the reference's oracle, scaled by the true head
+    dim.  Nothing raises."""
+    q, k, v = _qkv(d=d)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = registry.attention(q, k, v, causal=True, window=9,
+                             kernels="pallas")
+    assert out.shape == q.shape
+    jq, jk, jv = (jnp.asarray(t.detach().numpy()) for t in (q, k, v))
+    ref, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(
+        a, b, c, causal=True, window=9), jq, jk, jv)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=0, atol=2e-5)
+    g = np.random.default_rng(d).standard_normal(out.shape).astype(
+        np.float32)
+    grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(g))
+    for a, b in zip(grads, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-4)
+
+
+_FAKE_NVCC = r'''#!/usr/bin/env python3
+"""Stands in for nvcc: objects name their source; the link writes 1 MiB
+in 16 slow chunks, so a reader racing the build could see a torn file."""
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+with open(out, "wb") as f:
+    if "-c" in args:
+        f.write(args[args.index("-c") + 1].encode())
+    else:
+        for _ in range(16):
+            f.write(b"x" * 65536)
+            f.flush()
+            time.sleep(0.01)
+'''
+
+
+def test_concurrent_builds_never_leave_a_torn_library(tmp_path, monkeypatch):
+    """Two builds of the same source hash at once (the session and a
+    worker process, or two workers) each link into a private directory
+    and rename the result into place: a reader sees no library or a
+    whole one, never a part, and no work directory is left behind."""
+    import threading
+
+    from repro_torch.kernels import cuda
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "kernels")
+    out = cuda.library_path()
+    sizes, done = set(), threading.Event()
+
+    def watch():
+        while not done.is_set():
+            if out.exists():
+                sizes.add(out.stat().st_size)
+
+    watcher = threading.Thread(target=watch)
+    watcher.start()
+    builds = [threading.Thread(target=cuda.build) for _ in range(2)]
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join(timeout=120)
+    done.set()
+    watcher.join(timeout=10)
+    assert out.exists() and out.stat().st_size == 16 * 65536
+    assert sizes <= {16 * 65536}
+    assert [p.name for p in (tmp_path / "kernels").iterdir()] == [out.name]

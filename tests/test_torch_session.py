@@ -117,8 +117,8 @@ def test_spec_json_round_trips_and_schema_is_the_reference_schema():
 
 
 @pytest.mark.parametrize("section,field,value,item", [
-    ("transport", "kind", "tcp", "item 6"),
-    ("transport", "endpoint", True, "item 6"),
+    ("ft", "reshard_shards", 6, "item 8"),
+    ("ft", "fault_kill_worker", 1, "item 8"),
     ("ps", "kind", "none", "item 11"),
     ("ft", "snapshot_every_s", 1.0, "item 8"),
     ("obs", "trace", True, "item 8"),
@@ -135,8 +135,12 @@ def test_later_slices_raise_spec_errors_naming_their_item(section, field,
         d["wire"].update(format="tree", delta_pull=False)
     if (section, field) == ("ft", "snapshot_every_s"):
         d["ft"]["dir"] = "ckpt"
-    if (section, field) == ("ft", "reconnect_tries"):
+    if section == "ft" and field != "snapshot_every_s":
         d["transport"]["kind"] = "tcp"
+    if (section, field) == ("ft", "reshard_shards"):
+        d["ft"]["reshard_round"] = 4
+    if (section, field) == ("ft", "fault_kill_worker"):
+        d["ft"]["fault_kill_worker_round"] = 2
     japi.RunSpec.from_dict(d)              # valid for the reference ...
     with pytest.raises(api.SpecError, match=item):
         api.RunSpec.from_dict(d)           # ... refused, with its item
