@@ -77,6 +77,29 @@ after an error:
            Then at smoke size: shmem with 2 workers, tcp with int8
            frames, and an inproc endpoint driven by one client of this
            process
+  ft       the transport configuration served by a restartable
+           ``ServerProcess`` on ``cuda:0`` (``repro_torch.ft``), traced:
+           snapshots every 20 s (keep 2, under build/ft/, which git
+           ignores, after a check of the free disk), a live reshard 4 -> 6 at push round
+           4, and a SIGKILL by the server's own watchdog at round 10;
+           the restart restores the 6-shard snapshot into a server the
+           spec builds with 4 shards and both workers reconnect and
+           finish.  Checked: finite losses continuing the restored
+           trajectory, every shard version accounted for, no release
+           past s_upper, DSSP extensions == credit releases (exactly in
+           the restarted incarnation), parked == replayed, each worker's
+           launches per computed step, and the merged trace (both
+           incarnations' spills, the workers' spills and MSG_TRACE
+           frames): a compute_step per computed step, snapshot_shard
+           spans for every shard of every snapshot, a reshard_shard span
+           per old shard, failover and reconnect spans, read back from
+           its Chrome export by ``summarize``.  Printed: wall time,
+           pushes/s, the restart's time to serve, the largest pauses
+           beside the reference's 0.5 s bound, snapshot bytes and write
+           seconds, each incarnation's peak memory, memory.used.  Then at
+           smoke size: a worker killed while gated over shmem and
+           respawned, push frames dropped over tcp with reconnects, and
+           a server killed inside its reshard that resumes untorn
 
 The last two lines of standard output are the JSON kernel table and the
 contract line ``{"ok": true, "device": {...}}``.  This script imports
@@ -1110,6 +1133,426 @@ def run_transport_paths(torch, api, per_step):
          "client", "rows": rows, "applied_updates": version})
 
 
+# ----------------------------------------------------------------------- ft
+#: the reference's recovery bound for a per-shard pause (its chaos test's
+#: assertion on ``snapshot_shard`` spans): printed beside the pauses
+PAUSE_BOUND_S = 0.5
+#: room the full-width phase needs under ``build/ft/``: two kept
+#: snapshots and one in flight, of p and m (≈ 4.27 GB each)
+FT_DISK_BYTES = 13 * 10**9
+#: where the ft phases write their snapshots and spills (git ignores
+#: build/), each run in a directory of its own, removed at its end
+FT_WORK_DIR = os.path.join(ROOT, "build", "ft")
+
+
+def ft_spec(api, *, full: bool, ft_dir: str, kind: str = "tcp", **ft):
+    """The transport phase's spec with tracing (a metrics sample every
+    half second) and the given ``ft`` fields."""
+    spec = main_path_spec(api, full=full, workers=2, sync="dssp",
+                          transport=api.TransportSpec(kind=kind,
+                                                      host="127.0.0.1"))
+    return spec.replace(obs=api.ObsSpec(trace=True, sample_every=0.5),
+                        ft=api.FtSpec(dir=ft_dir, **ft))
+
+
+def _within(events, span, name):
+    """The ``name`` events of ``span``'s process inside its interval."""
+    end = span["ts"] + span["dur"]
+    return [e for e in events if e["name"] == name
+            and e["src"] == span["src"] and span["ts"] <= e["ts"] <= end]
+
+
+def check_trace_spans(tag, events, results):
+    """The merged trace's ft spans: one ``compute_step`` per step each
+    worker computed (its clocks 0..n-1), ``snapshot_shard`` spans for
+    every shard of every snapshot, one ``reshard_shard`` span per old
+    shard of every reshard, and reconnect spans of both workers."""
+    for r in results:
+        steps = [e for e in events if e["name"] == "compute_step"
+                 and e["src"] == f"w{r.worker_id}"]
+        if (len(steps) != len(r.compute_s)
+                or {e["clock"] for e in steps}
+                != set(range(r.iterations_done))):
+            fail(f"{tag}: worker {r.worker_id} traced "
+                 f"{sorted(e['clock'] for e in steps)} for "
+                 f"{len(r.compute_s)} computed steps")
+        if not any(e["name"] == "reconnect" and e["src"] == f"w{r.worker_id}"
+                   for e in events):
+            fail(f"{tag}: worker {r.worker_id} has no reconnect span")
+    for span in (e for e in events if e["name"] == "snapshot"):
+        shards = sorted(e["shard"] for e in
+                        _within(events, span, "snapshot_shard"))
+        if shards != list(range(span["args"]["shards"])):
+            fail(f"{tag}: snapshot {span['args']} of {span['src']} has "
+                 f"shard spans {shards}")
+    for span in (e for e in events if e["name"] == "reshard"):
+        shards = sorted(e["shard"] for e in
+                        _within(events, span, "reshard_shard"))
+        if shards != list(range(span["args"]["from"])):
+            fail(f"{tag}: reshard {span['args']} of {span['src']} has "
+                 f"shard spans {shards}")
+
+
+class FailFast:
+    """``ProcessWorkerPool.join``'s endpoint for a server in another
+    process: a worker that dies ends the phase at once (its seat in a
+    restored server would gate the other worker until the deadline)."""
+
+    def __init__(self, tag: str):
+        self.tag = tag
+
+    def on_disconnect(self, worker: int) -> None:
+        fail(f"{self.tag}: worker process {worker} died (its traceback "
+             "is above)")
+
+
+def snapshot_extras(ft_dir: str, step: int):
+    """One snapshot's extras, read while its server may still write
+    others (a ``CheckpointManager`` here would remove their ``.tmp_``
+    directories)."""
+    with open(os.path.join(ft_dir, f"step_{step:09d}",
+                           "manifest.json")) as fh:
+        return json.load(fh)["extras"]
+
+
+def _last_sample(events, src):
+    samples = [e for e in events if e["name"] == "metrics_snapshot"
+               and e["src"] == src]
+    if not samples:
+        fail(f"ft: no metrics sample from {src}")
+    return max(samples, key=lambda e: e["ts"])
+
+
+def run_ft(torch, api, per_step, *, device: str = "cuda:0"):
+    """The transport configuration through a restartable server process:
+    snapshots every 20 s (keep 2), a live reshard 4 -> 6 at push round 4,
+    and a SIGKILL by the server's own watchdog at round 10, after which
+    the restart restores the 6-shard snapshot into a server the spec
+    builds with 4 shards.  Both workers reconnect and finish."""
+    import shutil
+    out = FT_WORK_DIR
+    os.makedirs(out, exist_ok=True)
+    free = shutil.disk_usage(out).free
+    if free < FT_DISK_BYTES:
+        fail(f"ft: {free} bytes free under {out}, the phase needs "
+             f"{FT_DISK_BYTES} for its snapshots")
+    work = os.path.join(out, f"ft-{os.getpid()}")
+    spill = os.path.join(work, "spill")
+    cut = transport_config()
+    spec = ft_spec(api, full=True, ft_dir=os.path.join(work, "ckpt"),
+                   snapshot_every_s=20.0, keep=2, reconnect_tries=40,
+                   reconnect_base_s=0.5, reconnect_max_s=5.0,
+                   reshard_shards=6, reshard_round=4,
+                   fault_kill_server_round=10)
+    tag = f"ft (tcp, full width, {cut.n_layers} layers)"
+    try:
+        _run_ft(torch, api, per_step, spec, cut, spill, tag, work, device)
+    finally:
+        # gigabytes: never left behind, on success or failure
+        shutil.rmtree(spec.ft.dir, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def _run_ft(torch, api, per_step, spec, cut, spill, tag, work, device):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.ft import ServerProcess
+    from repro_torch.launch.proc_pool import (ProcessWorkerPool, WorkerTask,
+                                              raise_on_failure)
+    from repro_torch.obs import (TraceCollector, read_trace, summarize,
+                                 write_chrome_trace)
+    sampler = MemoryUsedSampler()
+    sp = ServerProcess(spec, trace_spill=spill, device=device,
+                       model_config=cut, start_timeout=600.0)
+    pool = None
+    try:
+        t0 = time.monotonic()
+        addr = sp.start()
+        pool = ProcessWorkerPool(addr, WorkerTask.from_spec(
+            spec, 8, device=device, model_config=cut, trace_spill=spill,
+            trace_flush_every=2), 2, slowdowns=[1.0, 2.0])
+        pool.start()
+        if not sp.wait_dead(600.0):
+            fail(f"{tag}: the server's watchdog never fired")
+        t_kill = time.monotonic() - t0
+        if sp.restart() != addr:
+            fail(f"{tag}: the restart moved the address")
+        if sp.resumed_step is None:
+            fail(f"{tag}: the restart found no snapshot")
+        # read now: later snapshots of this incarnation GC it (keep 2)
+        restored = snapshot_extras(spec.ft.dir, sp.resumed_step)
+        results = pool.join(timeout=600.0, endpoint=FailFast(tag))
+        wall = time.monotonic() - t0
+        raise_on_failure(results)
+        sp.stop(timeout=300.0)
+        memory_used = sampler.stop()
+        mgr = CheckpointManager(spec.ft.dir, keep=spec.ft.keep)
+        final = mgr.peek_extras(mgr.latest_step())
+        snapshot_bytes = sum(
+            os.path.getsize(os.path.join(root, f))
+            for root, _, files in os.walk(mgr._step_dir(mgr.latest_step()))
+            for f in files)
+        collector = TraceCollector()
+        collector.ingest_spill_dir(spill)
+        events = collector.timeline()
+        chrome = os.path.join(work, "trace.json")
+        write_chrome_trace(events, chrome)
+        summary = summarize(read_trace(chrome))
+    finally:
+        if pool is not None:
+            pool.terminate()
+        sp.stop(timeout=60.0)
+        sp.kill()
+
+    # -- the run ----------------------------------------------------------
+    if [r.iterations_done for r in results] != [8, 8]:
+        fail(f"{tag}: iterations {[r.iterations_done for r in results]}")
+    check_worker_launches(tag, [dataclasses.replace(
+        r, iterations_done=len(r.compute_s)) for r in results], per_step)
+    fm, rm = final["metrics"], restored["metrics"]
+    losses = [l for _, _, l in fm["loss_trajectory"]]
+    versions_seen = [v for _, v, _ in fm["loss_trajectory"]]
+    if (fm["loss_trajectory"][:len(rm["loss_trajectory"])]
+            != rm["loss_trajectory"]
+            or len(losses) <= len(rm["loss_trajectory"])
+            or not all(map(math.isfinite, losses))
+            or versions_seen != sorted(versions_seen)):
+        fail(f"{tag}: loss trajectory {fm['loss_trajectory']} does not "
+             f"continue the restored {rm['loss_trajectory']}")
+    if restored["n_shards"] != 6 or final["n_shards"] != 6:
+        fail(f"{tag}: restored {restored['n_shards']} shards, final "
+             f"{final['n_shards']}: no cross-arity restore")
+    inc1_pushes = fm["applied_updates"] - rm["applied_updates"]
+    if sum(final["versions"]) - sum(restored["versions"]) != 6 * inc1_pushes:
+        fail(f"{tag}: versions {restored['versions']} -> "
+             f"{final['versions']} for {inc1_pushes} pushes on 6 shards")
+    # -- the merged trace -------------------------------------------------
+    srcs = {e["src"] for e in events}
+    if not {"server0", "server1", "w0", "w1"} <= srcs:
+        fail(f"{tag}: trace sources {sorted(srcs)}")
+    frames = set()
+    for i in (0, 1):
+        path = os.path.join(spill, f"frames-server{i}.jsonl")
+        if os.path.exists(path):
+            with open(path) as fh:
+                frames |= {json.loads(line)["src"] for line in fh
+                           if line.strip()}
+    if frames != {"w0", "w1"}:
+        fail(f"{tag}: MSG_TRACE frames reached the server from {frames}")
+    check_trace_spans(tag, events, results)
+    failover = [e for e in events if e["name"] == "failover"]
+    if (len(failover) != 1 or failover[0]["src"] != "server1"
+            or failover[0]["args"]["step"] != sp.resumed_step
+            or len(failover[0]["args"]["versions"]) != 6):
+        fail(f"{tag}: failover spans {failover}")
+    reshards = [(e["src"], e["args"]["from"], e["args"]["to"])
+                for e in events if e["name"] == "reshard"]
+    if sorted(reshards) != [("server0", 4, 6), ("server1", 4, 6)]:
+        fail(f"{tag}: reshards {reshards}")
+    s_upper = spec.sync.s_upper
+    stale = [e["args"]["staleness"] for e in events if e["name"] == "push"]
+    if (not stale or max(stale) > s_upper
+            or fm["staleness_hist"] and max(map(int, fm["staleness_hist"]))
+            > s_upper):
+        fail(f"{tag}: a release past s_upper {s_upper}: {stale}")
+    ext = {src: {(e["worker"], e["clock"]) for e in events
+                 if e["name"] == "dssp_decision" and e["src"] == src
+                 and e["args"]["reason"] in ("grant", "credit_spend")}
+           for src in ("server0", "server1")}
+    if (len(ext["server1"]) != fm["credit_releases"] - rm["credit_releases"]
+            or len(ext["server0"]) < rm["credit_releases"]):
+        fail(f"{tag}: DSSP extensions {len(ext['server0'])} + "
+             f"{len(ext['server1'])} against credit releases "
+             f"{rm['credit_releases']} restored, {fm['credit_releases']} "
+             "final")
+    last = {src: _last_sample(events, src) for src in ("server0", "server1")}
+    reshard0 = [e for e in events if e["name"] == "reshard"
+                and e["src"] == "server0"][0]
+    if last["server0"]["ts"] < reshard0["ts"] + reshard0["dur"]:
+        fail(f"{tag}: no sample of server0 after its reshard")
+    wire = [last[src]["args"]["perfcount"]["wire"] for src in last]
+    parked = sum(w["reshard_parked"] for w in wire)
+    replayed = sum(w["reshard_replayed"] for w in wire)
+    if parked != replayed:
+        fail(f"{tag}: {parked} contributions parked, {replayed} replayed")
+    launches1 = last["server1"]["args"]["perfcount"]["launches"]
+    # (a rehearsal on the CPU runs the plain version: no launches)
+    if device != "cpu" and launches1["fused_update"] != 6 * inc1_pushes:
+        fail(f"{tag}: server1 fused_update launches "
+             f"{launches1['fused_update']} for {inc1_pushes} pushes")
+    if summary["events"] != len(events):
+        fail(f"{tag}: the Chrome export read back {summary['events']} of "
+             f"{len(events)} events")
+
+    def durs(name):
+        return [e["dur"] for e in events if e["name"] == name]
+
+    writes = [e for e in events if e["name"] == "snapshot_write"]
+    rec = {
+        "phase": "ft", "run": tag, "wall_s": wall,
+        "pushes_per_s": 16 / wall, "kill_at_s": t_kill,
+        "restart_to_serve_s": sp.start_s[1], "first_start_s": sp.start_s[0],
+        "restore_s": failover[0]["dur"],
+        "resumed_step": sp.resumed_step,
+        "restored_versions": restored["versions"],
+        "final_versions": final["versions"],
+        "losses": losses,
+        "reconnects": [r.reconnects for r in results],
+        "layout_rebuilds": [r.rebuilds for r in results],
+        "computed_steps": [len(r.compute_s) for r in results],
+        "max_snapshot_shard_pause_s": max(durs("snapshot_shard")),
+        "max_reshard_shard_pause_s": max(durs("reshard_shard")),
+        "reshard_s": durs("reshard"),
+        "pause_bound_s": PAUSE_BOUND_S,
+        "snapshots": [(e["src"], e["args"]["step"], e["args"]["bytes"],
+                       e["dur"]) for e in writes],
+        "final_snapshot_bytes_on_disk": snapshot_bytes,
+        "reshard_parked": parked, "reshard_replayed": replayed,
+        "dssp_extensions": [len(ext["server0"]), len(ext["server1"])],
+        "credit_releases": [rm["credit_releases"], fm["credit_releases"]],
+        "server_max_memory_allocated_gb": {
+            src: last[src]["args"].get("max_memory_allocated", 0) / 1e9
+            for src in last},
+        "worker_max_memory_allocated_gb":
+            [r.peak_memory_bytes / 1e9 for r in results],
+        "memory_used_peak_mib": memory_used,
+        "trace_events": len(events),
+        "summary": {k: v for k, v in summary.items() if k != "dssp"},
+        "dssp_decisions": summary["dssp"]["decisions"]}
+    say(rec)
+    say(f"ft: wall s {wall}, pushes/s {16 / wall}, restart to serve s "
+        f"{sp.start_s[1]} (restore {failover[0]['dur']}), largest pauses "
+        f"s: snapshot_shard {rec['max_snapshot_shard_pause_s']}, "
+        f"reshard_shard {rec['max_reshard_shard_pause_s']} (reference "
+        f"bound {PAUSE_BOUND_S}, not enforced), snapshot writes "
+        f"(bytes, s) {[(w['args']['bytes'], w['dur']) for w in writes]}, "
+        f"server peak GB {rec['server_max_memory_allocated_gb']}, card "
+        f"memory.used peak MiB {memory_used}")
+
+
+def run_ft_paths(torch, api, per_step, *, device: str = "cuda:0"):
+    """At smoke size: a worker killed while gated over shmem, push frames
+    dropped over tcp, and a server killed inside a live reshard."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.ft import FaultPlan, ServerProcess
+    from repro_torch.launch.proc_pool import (ProcessWorkerPool, WorkerTask,
+                                              raise_on_failure)
+    from repro_torch.wireformat import MSG_PUSH
+    # (a) shmem: worker 1 SIGKILLs itself at iteration 2 while worker 0
+    # waits on it at the BSP barrier; its seat is freed and the respawn
+    # takes it back exactly once (a second seat would hang the barrier)
+    tag = "ft (shmem, a worker killed while gated)"
+    spec = main_path_spec(api, full=False, workers=2, sync="bsp",
+                          transport=api.TransportSpec(kind="shmem"))
+    free_device_memory(torch)
+    with api.build_session(spec, external_workers=True) as s:
+        task = dataclasses.replace(
+            WorkerTask.from_spec(spec, 4, device=device),
+            fault_plan=FaultPlan(kill_worker=1,
+                                 kill_worker_round=2).to_dict())
+        pool = ProcessWorkerPool(s.address(), task, 2)
+        pool.start()
+        try:
+            results = pool.join(timeout=600.0, endpoint=s.endpoint,
+                                respawn=1)
+        finally:
+            pool.terminate()
+        raise_on_failure(results)
+        seats = [list(st.tracker.workers) for st in s.server.shards]
+        pushes = dict(s.server.metrics.pushes)
+    if (pool.respawned != [1] or [r.iterations_done for r in results]
+            != [4, 4] or any(seats) or pushes[0] != 4 or pushes[1] < 4):
+        fail(f"{tag}: respawned {pool.respawned}, iterations "
+             f"{[r.iterations_done for r in results]}, seats {seats}, "
+             f"pushes {pushes}")
+    check_worker_launches(tag, results, per_step)
+    say({"phase": "ft paths", "run": tag, "respawned": pool.respawned,
+         "pushes": pushes})
+    # (b) tcp: a quarter of the push frames dropped before they leave the
+    # worker; each drop is a dead connection to the worker, which
+    # reconnects and sends its iteration again
+    tag = "ft (tcp, push frames dropped)"
+    spec = main_path_spec(api, full=False, workers=2, sync="dssp",
+                          transport=api.TransportSpec(kind="tcp",
+                                                      host="127.0.0.1"))
+    spec = spec.replace(ft=api.FtSpec(
+        reconnect_tries=10, reconnect_base_s=0.05, reconnect_max_s=0.5,
+        fault_drop_kind=MSG_PUSH, fault_drop_prob=0.25, fault_seed=3))
+    free_device_memory(torch)
+    with api.build_session(spec, timeout=600.0) as s:
+        m = s.run(16)
+        results = s.results
+        losses = [l for _, _, l in s.server.metrics.loss_trajectory]
+    reconnects = [r.reconnects for r in results]
+    if ([r.iterations_done for r in results] != [8, 8] or m["pushes"] != 16
+            or not sum(reconnects) or not all(map(math.isfinite, losses))):
+        fail(f"{tag}: iterations {[r.iterations_done for r in results]}, "
+             f"pushes {m['pushes']}, reconnects {reconnects}, losses "
+             f"{losses}")
+    check_worker_launches(tag, [dataclasses.replace(
+        r, iterations_done=len(r.compute_s)) for r in results], per_step)
+    say({"phase": "ft paths", "run": tag, "reconnects": reconnects,
+         "computed_steps": [len(r.compute_s) for r in results]})
+    # (c) the server SIGKILLed inside its live reshard 4 -> 6: the restart
+    # resumes from a pre-migration snapshot, its trigger finishes the
+    # move, and no snapshot on disk mixes two plans
+    tag = "ft (tcp, server killed mid-reshard)"
+    os.makedirs(FT_WORK_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="ft-mid-", dir=FT_WORK_DIR)
+    spec = ft_spec(api, full=False, ft_dir=os.path.join(work, "ckpt"),
+                   snapshot_every_s=0.05, keep=3, reconnect_tries=40,
+                   reconnect_base_s=0.2, reconnect_max_s=2.0,
+                   reshard_shards=6, reshard_round=8,
+                   fault_kill_mid_reshard=True, fault_delay_kind=MSG_PUSH,
+                   fault_delay_ms=40.0)
+    sp = ServerProcess(spec, device=device, start_timeout=600.0)
+    pool = None
+    try:
+        addr = sp.start()
+        pool = ProcessWorkerPool(addr, WorkerTask.from_spec(
+            spec, 12, device=device), 2)
+        pool.start()
+        if not sp.wait_dead(600.0):
+            fail(f"{tag}: the mid-migration kill never fired")
+        if sp.restart() != addr:
+            fail(f"{tag}: the restart moved the address")
+        if sp.resumed_step is None:
+            fail(f"{tag}: the restart found no snapshot")
+        resumed = snapshot_extras(spec.ft.dir, sp.resumed_step)
+        results = pool.join(timeout=600.0, endpoint=FailFast(tag))
+        raise_on_failure(results)
+        sp.stop(timeout=120.0)
+        mgr = CheckpointManager(spec.ft.dir, keep=spec.ft.keep)
+        plans = [(e["n_shards"], e["reshard_epoch"], len(e["versions"]),
+                  len(e["shards"])) for e in map(mgr.peek_extras,
+                                                 mgr.steps())]
+        final = mgr.peek_extras(mgr.latest_step())
+    finally:
+        if pool is not None:
+            pool.terminate()
+        sp.stop(timeout=60.0)
+        sp.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    losses = [l for _, _, l in final["metrics"]["loss_trajectory"]]
+    torn = [p for p in plans if not (p[0] == p[2] == p[3] and (
+        (p[0] == 4 and p[1] == 0) or (p[0] == 6 and p[1] >= 1)))]
+    if ([r.iterations_done for r in results] != [12, 12] or torn
+            or resumed["n_shards"] != 4 or final["n_shards"] != 6
+            or not all(map(math.isfinite, losses))
+            or not all(r.rebuilds for r in results)):
+        fail(f"{tag}: iterations {[r.iterations_done for r in results]}, "
+             f"resumed {sp.resumed_step} at {resumed['n_shards']} shards, "
+             "snapshots (shards, epoch, versions, shard states) "
+             f"{plans}, final {final['n_shards']} shards, rebuilds "
+             f"{[r.rebuilds for r in results]}")
+    check_worker_launches(tag, [dataclasses.replace(
+        r, iterations_done=len(r.compute_s)) for r in results], per_step)
+    say({"phase": "ft paths", "run": tag, "resumed_step": sp.resumed_step,
+         "snapshots": plans, "restart_to_serve_s": sp.start_s[1]})
+
+
 #: the port's own kernels, by function name (exactly; the fused norm's
 #: one kernel was named residual_rmsnorm_kernel before its register
 #: path, which ``--src`` runs of earlier commits still launch)
@@ -1395,6 +1838,14 @@ def main(argv=None) -> None:
     run_transport_paths(torch, api, {"flash_attention_fwd": passes,
                                      "residual_rmsnorm": passes,
                                      "rmsnorm": passes + 1})
+
+    # -- ft, ft paths ----------------------------------------------------
+    run_ft(torch, api, {"flash_attention_fwd": layers * 2,
+                        "residual_rmsnorm": layers * 2,
+                        "rmsnorm": layers * 2 + 1})
+    run_ft_paths(torch, api, {"flash_attention_fwd": passes,
+                              "residual_rmsnorm": passes,
+                              "rmsnorm": passes + 1})
 
     replaces = {
         "fused_update": "src/repro/kernels/fused_update.py:37",

@@ -13,6 +13,14 @@ far:
     ``external_workers=True``, an endpoint the caller's own clients
     drive (``session.address()``), over inproc too.
 
+Both engines arm ``spec.obs`` (the server-side recorder, a metrics
+sampler, worker ``MSG_TRACE`` flushes and spills merged into one trace,
+exported on close) and ``spec.ft`` (snapshots, resume-before-serve, a
+final snapshot on close; on ``ps-transport`` also the live-reshard
+trigger); ``reshard`` migrates a running transport session's server by
+hand.  The restartable out-of-process server is
+``repro_torch.ft.ServerProcess``.
+
     with build_session(spec) as session:      # start() on enter
         session.run(steps)                    # blocks until trained
         print(session.metrics())
@@ -156,6 +164,170 @@ class TrainingSession:
 
 
 # ===================================================================
+# observability and fault-tolerance rigs
+# ===================================================================
+class _ObsRig:
+    """Per-session lifecycle for ``spec.obs``: enables the server-side
+    recorder, runs the metrics sampler, merges worker flushes and spills
+    into one ``TraceCollector``, exports on finish."""
+
+    def __init__(self, obs):
+        from repro_torch.obs import TraceCollector
+        self.obs = obs
+        self.collector = TraceCollector()
+        self.sampler = None
+        self.spill_dir = None
+        self.summary = None
+        #: the merged timeline, after ``finish``
+        self.events = None
+        self._done = False
+
+    def start(self, metrics_fn=None) -> None:
+        from repro_torch.obs.trace import TRACE
+        TRACE.enable(source="server")
+        if self.obs.sample_every > 0 and metrics_fn is not None:
+            from repro_torch.obs import MetricsSampler
+            self.sampler = MetricsSampler(TRACE, metrics_fn,
+                                          self.obs.sample_every)
+            self.sampler.start()
+
+    def make_spill_dir(self) -> str:
+        """Temp dir spawned workers spill their rings into (recovered on
+        finish, so a killed worker's events still reach the trace)."""
+        import tempfile
+        if self.spill_dir is None:
+            self.spill_dir = tempfile.mkdtemp(prefix="repro-torch-spill-")
+        return self.spill_dir
+
+    def finish(self) -> None:
+        """Stop sampling, drain and merge every source, export,
+        summarize.  Idempotent."""
+        if self._done:
+            return
+        self._done = True
+        import shutil
+
+        from repro_torch.obs import summarize, write_chrome_trace, write_jsonl
+        from repro_torch.obs.trace import TRACE
+        if self.sampler is not None:
+            self.sampler.stop()
+        self.collector.ingest_local(TRACE, source="server")
+        TRACE.disable()
+        if self.spill_dir is not None:
+            self.collector.ingest_spill_dir(self.spill_dir)
+            shutil.rmtree(self.spill_dir, ignore_errors=True)
+        self.events = self.collector.timeline()
+        path = self.obs.trace_path
+        if path:
+            if path.endswith(".jsonl"):
+                write_jsonl(self.events, path)
+            else:
+                write_chrome_trace(self.events, path)
+        self.summary = summarize(self.events)
+
+
+class _FtRig:
+    """Per-session lifecycle for ``spec.ft`` on the PS engines: the
+    checkpoint manager, the optional resume-before-serve, and the
+    periodic ``ServerSnapshotter``; one final snapshot on close."""
+
+    def __init__(self, ft, server):
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.ft.snapshot import ServerSnapshotter, restore_latest
+        self.manager = CheckpointManager(ft.dir, keep=ft.keep)
+        # Resume BEFORE anything serves: endpoint pull caches are keyed
+        # by version, and a restore moves versions backwards.
+        self.resumed_step = (restore_latest(server, self.manager)
+                             if ft.resume else None)
+        self.snapshotter = (
+            ServerSnapshotter(server, self.manager,
+                              ft.snapshot_every_s).start()
+            if ft.snapshot_every_s > 0 else None)
+        self._done = False
+
+    def finish(self) -> None:
+        """Final snapshot + writer flush; surfaces any async-save
+        failure the snapshotter thread parked.  Idempotent."""
+        if self._done:
+            return
+        self._done = True
+        if self.snapshotter is not None:
+            self.snapshotter.stop(final_save=True)
+        self.manager.wait()
+
+    def metrics(self) -> Dict[str, Any]:
+        return {
+            "resumed_step": self.resumed_step,
+            "snapshots": (self.snapshotter.snapshots
+                          if self.snapshotter else 0),
+            "latest_step": self.manager.latest_step(),
+        }
+
+
+def _obs_snapshot_fn(server):
+    """Sampler callable for the PS engines: counters + the policy's
+    current effective staleness bound (the DSSP threshold timeline)."""
+    from repro_torch.perfcount import snapshot_all
+
+    def snap() -> Dict[str, Any]:
+        m = server.metrics
+        out = {
+            "pushes": m.total_pushes,
+            "applied": m.applied_updates,
+            "version": server.version,
+            "total_wait": round(m.total_wait, 6),
+            "max_staleness": m.max_staleness,
+            "credit_releases": m.credit_releases,
+            "perfcount": snapshot_all(),
+        }
+        shards = getattr(server, "shards", None)
+        pol, trk = ((shards[0].policy, shards[0].tracker) if shards
+                    else (getattr(server, "policy", None),
+                          getattr(server, "tracker", None)))
+        if pol is not None:
+            bound = pol.effective_staleness_bound(trk)
+            out["effective_threshold"] = (None if bound == float("inf")
+                                          else float(bound))
+        return out
+
+    return snap
+
+
+def reshard_due(server, ft, last):
+    """``(due, versions)``: is the spec's live-reshard trigger due —
+    the manual push round (``ft.reshard_round``) reached, or one shard's
+    applied-update growth since ``last`` (its version vector) above
+    ``ft.reshard_hot_factor`` x the uniform share (the hot-shard
+    policy)?  Shared by the session's watcher and the server process."""
+    if ft.reshard_round >= 0 \
+            and server.metrics.total_pushes >= ft.reshard_round:
+        return True, last
+    if ft.reshard_hot_factor > 0.0:
+        cur = server.shard_versions()
+        if len(cur) == len(last):
+            deltas = [c - b for c, b in zip(cur, last)]
+            total = sum(deltas)
+            if total > 0 and max(deltas) > \
+                    ft.reshard_hot_factor * (total / len(deltas)):
+                return True, cur
+        return False, cur
+    return False, last
+
+
+def _reshard_watch(server, ft, stop) -> None:
+    """Background one-shot live-reshard trigger for the in-parent
+    sessions (``repro_torch.ft.server_proc`` runs its own)."""
+    import time
+    last = server.shard_versions()
+    while not stop.is_set() and not server.stopped:
+        time.sleep(0.02)
+        due, last = reshard_due(server, ft, last)
+        if due:
+            server.reshard(ft.reshard_shards)
+            return
+
+
+# ===================================================================
 # server builders
 # ===================================================================
 def _server_optimizer_factory(spec: RunSpec):
@@ -283,10 +455,14 @@ def _grads_fn(cfg):
     return grads_of
 
 
-def packed_step(cfg, plan, device: torch.device):
+def packed_step(cfg, plan, device: torch.device, current_plan=None):
     """One worker's packed-wire step ``(wire_p, batch) -> (wire_g,
     aux)``: unpack the pulled wire into leaf views, loss and backward,
     pack the grads into the worker's own gradient wire.
+
+    ``current_plan`` (in-heap workers: ``lambda: server.plan``) follows
+    a live reshard: a pulled wire of another row count rebinds the step
+    to the server's current plan and a gradient wire of its layout.
 
     The gradient wire is allocated once and reused every iteration (the
     counterpart of the reference's donated buffer).  Safe: a push folds
@@ -296,11 +472,21 @@ def packed_step(cfg, plan, device: torch.device):
     reference once the push returns."""
     from repro_torch.wireformat import WIRE_LANES
     grads_of = _grads_fn(cfg)
-    layout = plan.wire_layout()
-    wire_g = torch.zeros((layout.total_rows, WIRE_LANES),
-                         dtype=layout.dtype, device=device)
+    bound = {}
+
+    def bind(p) -> None:
+        layout = p.wire_layout()
+        bound["plan"] = p
+        bound["wire_g"] = torch.zeros((layout.total_rows, WIRE_LANES),
+                                      dtype=layout.dtype, device=device)
+
+    bind(plan)
 
     def step(wire_p, batch):
+        if (wire_p.shape[0] != bound["wire_g"].shape[0]
+                and current_plan is not None):
+            bind(current_plan())
+        plan, wire_g = bound["plan"], bound["wire_g"]
         grads, aux = grads_of(plan.unpack(wire_p), batch)
         plan.pack(grads, out=wire_g)
         return wire_g, aux
@@ -334,6 +520,8 @@ class ThreadedPSSession(TrainingSession):
 
     server = None
     workers: List = []
+    obs_rig = None
+    ft_rig = None
 
     def _start(self) -> None:
         params = self._ov.get("params")
@@ -341,6 +529,11 @@ class ThreadedPSSession(TrainingSession):
             params = _registry_params(self.spec, self.device,
                                       self._ov.get("model_config"))
         self.server = build_server(self.spec, params, self.device)
+        if self.spec.ft.snapshots:
+            self.ft_rig = _FtRig(self.spec.ft, self.server)
+        if self.spec.obs.trace:
+            self.obs_rig = _ObsRig(self.spec.obs)
+            self.obs_rig.start(_obs_snapshot_fn(self.server))
         if self.verbose and self.server.plan is not None:
             print(self.server.plan.describe())
 
@@ -361,6 +554,8 @@ class ThreadedPSSession(TrainingSession):
             for i in range(w)]
         run_cluster(self.server, self.workers,
                     timeout=self._ov.get("timeout", 1200.0))
+        if self.obs_rig is not None:
+            self.obs_rig.finish()
         if self.verbose:
             m = self.server.metrics
             print(f"pushes={m.total_pushes} applied_updates="
@@ -379,7 +574,8 @@ class ThreadedPSSession(TrainingSession):
         if self.spec.wire.format == "tree":
             grads_of = _grads_fn(cfg)
             return lambda: grads_of
-        return lambda: packed_step(cfg, self.server.plan, self.device)
+        return lambda: packed_step(cfg, self.server.plan, self.device,
+                                   current_plan=lambda: self.server.plan)
 
     def _batches_factory(self):
         batches = self._ov.get("batches")
@@ -390,11 +586,18 @@ class ThreadedPSSession(TrainingSession):
 
     # -- reporting ----------------------------------------------------
     def metrics(self) -> Dict[str, Any]:
-        return _ps_metrics(self.engine, self.server)
+        out = _ps_metrics(self.engine, self.server, self.obs_rig)
+        if self.ft_rig is not None:
+            out["ft"] = self.ft_rig.metrics()
+        return out
 
     def _close(self) -> None:
+        if self.ft_rig is not None:
+            self.ft_rig.finish()
         if self.server is not None:
             self.server.shutdown()
+        if self.obs_rig is not None:
+            self.obs_rig.finish()
 
 
 # ===================================================================
@@ -417,6 +620,8 @@ class TransportPSSession(TrainingSession):
     transport = None
     #: ``WorkerResult`` per spawned worker, after ``run``
     results = None
+    obs_rig = None
+    ft_rig = None
 
     def _start(self) -> None:
         from repro_torch.transport import PSServerEndpoint, make_transport
@@ -426,7 +631,15 @@ class TransportPSSession(TrainingSession):
             params = _registry_params(spec, self.device,
                                       self._ov.get("model_config"))
         self.server = build_server(spec, params, self.device)
-        self.endpoint = PSServerEndpoint(self.server)
+        if spec.ft.snapshots:
+            self.ft_rig = _FtRig(spec.ft, self.server)
+        if spec.obs.trace:
+            self.obs_rig = _ObsRig(spec.obs)
+        self.endpoint = PSServerEndpoint(
+            self.server,
+            collector=self.obs_rig.collector if self.obs_rig else None)
+        if self.obs_rig is not None:
+            self.obs_rig.start(_obs_snapshot_fn(self.server))
         self.transport = make_transport(
             spec.transport.kind, n_workers=spec.ps.workers,
             host=spec.transport.host, port=spec.transport.port)
@@ -438,9 +651,19 @@ class TransportPSSession(TrainingSession):
         return self.transport.address()
 
     def reshard(self, n_shards: int) -> bool:
-        raise SpecError(
-            "live resharding is not ported to repro_torch yet (ROADMAP "
-            "queue 1, item 8); run it on the reference package")
+        """Manual live-reshard trigger: migrate the running server's
+        packed store to ``n_shards`` partitions WITHOUT stopping
+        training (``repro_torch.ft.reshard``).  Workers resync through
+        the version-delta full-pull fallback on their next pull.
+        Returns False when the server is already at that arity."""
+        self.start()
+        if not hasattr(self.server, "reshard"):
+            raise SpecError(
+                "live resharding migrates the sharded server's packed "
+                "stores — this spec builds "
+                f"ps.kind={self.spec.ps.kind!r}; set ps.kind='sharded' "
+                "with ps.apply='fused'")
+        return bool(self.server.reshard(int(n_shards)))
 
     def _run(self, steps: int) -> None:
         if self._ov.get("external_workers"):
@@ -472,11 +695,14 @@ class TransportPSSession(TrainingSession):
             cuda.library()
         task = WorkerTask.from_spec(
             spec, max(1, steps // w), device=str(self.device),
-            model_config=self._ov.get("model_config"))
+            model_config=self._ov.get("model_config"),
+            trace_spill=(self.obs_rig.make_spill_dir()
+                         if self.obs_rig else ""))
         pool = ProcessWorkerPool(
             self.transport.address(), task, w,
             slowdowns=_speed_factors(spec, self._ov.get("speed_factors")))
         pool.start()
+        trigger_stop = _start_reshard_watch(self.server, spec.ft)
         try:
             self.results = pool.join(
                 timeout=self._ov.get("timeout", 1200.0),
@@ -484,6 +710,8 @@ class TransportPSSession(TrainingSession):
         finally:
             # Training is over either way: release gated workers and
             # tear the wire down before surfacing failures.
+            if trigger_stop is not None:
+                trigger_stop.set()
             self.close()
             pool.terminate()
         raise_on_failure(self.results)
@@ -496,26 +724,47 @@ class TransportPSSession(TrainingSession):
                   f"max_stale={m.max_staleness}")
 
     def metrics(self) -> Dict[str, Any]:
-        out = _ps_metrics(self.engine, self.server)
+        out = _ps_metrics(self.engine, self.server, self.obs_rig)
         if self.results is not None:
             out["iterations_done"] = sum(r.iterations_done
                                          for r in self.results)
+        if self.ft_rig is not None:
+            out["ft"] = self.ft_rig.metrics()
         return out
 
     def _close(self) -> None:
+        if self.ft_rig is not None:
+            self.ft_rig.finish()
         if self.server is not None:
             self.server.shutdown()
         if self.transport is not None:
             self.transport.shutdown()
+        # After the transport is down: every in-flight TRACE frame has
+        # either reached the collector or is in the spill files the rig
+        # recovers now.
+        if self.obs_rig is not None:
+            self.obs_rig.finish()
 
 
-def _ps_metrics(engine: str, server) -> Dict[str, Any]:
+def _start_reshard_watch(server, ft):
+    """Arm ``_reshard_watch`` on a thread when the spec asks for a live
+    reshard; returns its stop event (None when unarmed)."""
+    if not ft.reshards:
+        return None
+    import threading
+    stop = threading.Event()
+    threading.Thread(target=_reshard_watch, args=(server, ft, stop),
+                     name="reshard-trigger", daemon=True).start()
+    return stop
+
+
+def _ps_metrics(engine: str, server, obs_rig=None) -> Dict[str, Any]:
     if server is None:
         return {"engine": engine}
     from repro_torch.perfcount import snapshot_all
     m = server.metrics
     losses = [loss for _, _, loss in m.loss_trajectory]
-    return {
+    out = {
         "engine": engine,
         "pushes": m.total_pushes,
         "applied_updates": server.version,
@@ -527,3 +776,6 @@ def _ps_metrics(engine: str, server) -> Dict[str, Any]:
         "final_loss": losses[-1] if losses else None,
         "perfcount": snapshot_all(),
     }
+    if obs_rig is not None and obs_rig.summary is not None:
+        out["obs"] = obs_rig.summary
+    return out

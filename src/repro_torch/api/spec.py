@@ -398,6 +398,20 @@ class FtSpec:
                      "a live migration — arm one with ft.reshard_round "
                      ">= 0 and ft.reshard_shards >= 1")
 
+    def fault_plan(self):
+        """The picklable ``repro_torch.ft.FaultPlan`` these fields describe."""
+        from repro_torch.ft.faults import FaultPlan
+        return FaultPlan(
+            kill_server_round=self.fault_kill_server_round,
+            kill_worker=self.fault_kill_worker,
+            kill_worker_round=self.fault_kill_worker_round,
+            drop_kind=self.fault_drop_kind,
+            drop_prob=self.fault_drop_prob,
+            delay_kind=self.fault_delay_kind,
+            delay_ms=self.fault_delay_ms,
+            kill_mid_reshard=self.fault_kill_mid_reshard,
+            seed=self.fault_seed)
+
     @property
     def snapshots(self) -> bool:
         return self.snapshot_every_s > 0 or self.resume
@@ -702,18 +716,12 @@ def _later(what: str, item: str) -> str:
 def _require_ported(spec: "RunSpec") -> None:
     """Refuse every value whose code path a later slice ports."""
     from repro_torch.configs import arch_names  # light import
-    ps, ft = spec.ps, spec.ft
+    ps = spec.ps
     _require(spec.model.arch in [CUSTOM_ARCH] + arch_names(),
              _later(f"model.arch={spec.model.arch!r} (an architecture "
                     "of a family not ported yet)", "item 10"))
     _require(ps.kind != "none",
              _later("ps.kind='none'", "item 11 (the SPMD pipeline)"))
-    _require(not spec.obs.trace,
-             _later("obs.trace (trace collection and export)", "item 8"))
-    _require(not (ft.snapshots or ft.reshards or ft.faults
-                  or ft.reconnect_tries > 0),
-             _later("ft (snapshots, resharding and reshard epochs, "
-                    "faults, reconnect)", "item 8"))
     _require(spec.serve.replicas == 0,
              _later("serve.replicas > 0", "item 9"))
 

@@ -1,0 +1,5 @@
+"""Checkpointing: atomic, async, keep-K, restart."""
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -72,9 +72,14 @@ EVENT_NAMES = (
     "snapshot",          # span: one whole server checkpoint (repro_torch.ft)
     "snapshot_shard",    # span: one shard's state grab UNDER its lock —
                          #       the only pause a snapshot imposes
+    "snapshot_write",    # span: one snapshot's serialization to disk
+                         #       (the checkpoint writer thread)
     "reconnect",         # span: a client's backoff reconnect loop
     "failover",          # span: server restart-and-resume from a snapshot
     "fault",             # instant: one injected FaultPlan event
+    "reshard",           # span: one whole live reshard (repro_torch.ft)
+    "reshard_shard",     # span: one old shard's retire-and-copy UNDER
+                         #       its lock — a reshard's only pause
     "replica_refresh",   # span: a serving replica's delta-pull refresh
     "decode_batch",      # span: one continuously-batched decode call
     "staleness_block",   # span: admission blocked on the serve-side

@@ -60,6 +60,14 @@ class HotPathCounters(_CounterBase):
     #: kernel launches a coalesced flush of K contributions saved over
     #: K separate applies (K - 1 per flush)
     apply_launches_saved: int = 0
+    #: live reshard (``repro_torch.ft.reshard``): contributions parked
+    #: against a mid-migration shard, contributions replayed onto the
+    #: new shards after the swap, and whole pushes translated from a
+    #: stale epoch's layout; nothing is lost once
+    #: ``reshard_parked == reshard_replayed`` after a migration settles
+    reshard_parked: int = 0
+    reshard_replayed: int = 0
+    reshard_translated: int = 0
 
 
 @dataclasses.dataclass

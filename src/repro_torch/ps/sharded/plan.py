@@ -284,6 +284,23 @@ class ShardPlan:
             return torch.zeros((rows, WIRE_LANES), dtype=layout.dtype)
         return pack_flat(pieces, layout.dtype, rows=rows)
 
+    def rebuild(self, n_shards: int, *,
+                 split_oversized: bool = True) -> "ShardPlan":
+        """The SAME tree re-planned at a new arity — metadata only.
+
+        ``build_shard_plan`` reads nothing but ``.shape``/``.dtype``, so
+        the tree is rebuilt from ``meta`` tensors: a live reshard
+        re-plans without materializing parameters.  The per-shard size
+        target depends on ``n_shards``, so the new plan may slice leaves
+        differently — the migration map, not slice identity, relates the
+        two layouts.
+        """
+        dtypes = self.leaf_dtypes or (torch.float32,) * len(self.leaf_shapes)
+        metas = [torch.empty(s, dtype=d, device="meta")
+                 for s, d in zip(self.leaf_shapes, dtypes)]
+        return build_shard_plan(tree_util.unflatten(self.treedef, metas),
+                                n_shards, split_oversized=split_oversized)
+
     # -- introspection -------------------------------------------------------
     @property
     def total_size(self) -> int:

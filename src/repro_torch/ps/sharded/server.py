@@ -43,8 +43,20 @@ shard region through one fused kernel launch with a per-(worker, shard)
 f32 error-feedback buffer on the server's device; ``compressor=`` (a
 tree ``Compressor``) does the same per piece on the tree wire.
 
-Live resharding (``reshard``) and reshard epochs come with ROADMAP queue
-1, item 8.
+Live reshard (S -> S')
+----------------------
+``reshard(n_shards)`` migrates the packed parameter+momentum regions
+into a new plan WITHOUT stopping training (migration map in
+``repro_torch.ft.reshard``).  Old shards are retired one at a time under
+their own locks (the only per-shard pause, traced as
+``reshard_shard``); pushes that land on a retired shard PARK their
+packed region and are replayed through the migration map after the
+atomic ``(plan, shards, n_shards)`` swap — applied exactly once,
+accounted in ``WIRE.reshard_parked``/``reshard_replayed``.  Each swap
+bumps ``reshard_epoch``; stale-epoch pushes (clients that packed
+against the old layout) are translated through the retained migration
+maps, and delta pulls carry the epoch so clients fall back to a full
+pull and rebuild.
 """
 
 from __future__ import annotations
@@ -78,7 +90,8 @@ class _ShardState:
     def __init__(self, index: int, plan: ShardPlan,
                  pieces: List[torch.Tensor], packed_p: Optional[torch.Tensor],
                  policy: SyncPolicy, optimizer: ServerOptimizer,
-                 workers: Sequence[int], apply_mode: str):
+                 workers: Sequence[int], apply_mode: str, *,
+                 packed_m: Optional[torch.Tensor] = None, version: int = 0):
         self.index = index
         self.plan = plan
         self.cond = threading.Condition()
@@ -87,13 +100,21 @@ class _ShardState:
         self.tracker = StalenessTracker(workers)
         self.metrics = RunMetrics(policy=f"{policy.name}/shard{index}",
                                   n_workers=len(list(workers)))
-        self.version = 0
+        self.version = int(version)
         self.apply_mode = apply_mode
         #: the shard's ``CoalesceWindow`` (fused mode; set by the server)
         self.window: Optional[CoalesceWindow] = None
+        #: live-reshard state (``ShardedParameterServer.reshard``): a
+        #: retired shard parks incoming applies for replay; an abandoned
+        #: shard releases its barrier waiters (its peers now push to the
+        #: new shards)
+        self.retired = False
+        self.abandoned = False
+        self.parked: List[Any] = []   # (packed region, staleness) pairs
         if apply_mode == "fused":
             self._packed_p = packed_p
-            self._packed_m = torch.zeros_like(packed_p)
+            self._packed_m = (torch.zeros_like(packed_p) if packed_m is None
+                              else packed_m)
             # unpacked pieces: a cache rebuilt at most once per version,
             # outside the shard lock (``_shard_snapshot``)
             self._pieces: Optional[List[torch.Tensor]] = None
@@ -170,6 +191,22 @@ class ShardedParameterServer(ParameterServerProtocol):
         self.gating = gating
         self.n_shards = n_shards
         self.apply_mode = apply_mode
+        self._split_oversized = split_oversized
+        # Kept so a live reshard can mint policies and optimizer state
+        # for the new shard set.
+        self._policy_factory = policy_factory
+        self._optimizer_factory = optimizer_factory
+        # Live-reshard state: the epoch counts completed migrations and
+        # rides HELLO/SUB/DELTA replies; ``_reshard_cond`` makes
+        # ``(plan, shards, n_shards, epoch)`` reads/swaps atomic and
+        # tracks in-flight pushes per epoch, so parked regions are
+        # replayed only once nothing can still append to them.
+        self.reshard_epoch = 0
+        self._reshard_lock = threading.Lock()     # one migration at a time
+        self._reshard_cond = threading.Condition()
+        self._inflight: Dict[int, int] = {}       # epoch -> active pushes
+        self._retired_plans: Dict[int, ShardPlan] = {}
+        self._migrations: Dict[int, Any] = {}     # epoch e -> map e -> e+1
         workers = range(n_workers)
         if apply_mode == "fused":
             wire = self.plan.pack(params)
@@ -220,16 +257,39 @@ class ShardedParameterServer(ParameterServerProtocol):
             raise ValueError(f"{what} requires apply_mode='fused' (tree "
                              "mode has no resident packed store)")
 
+    def _plan_state(self):
+        """Mutually consistent ``(plan, shards, epoch)``: a live reshard
+        swaps all three under ``_reshard_cond``."""
+        with self._reshard_cond:
+            return self.plan, self.shards, self.reshard_epoch
+
+    def _plan_for_epoch(self, epoch: Optional[int]):
+        """``(plan, epoch)`` a push was packed against: ``None`` or the
+        current epoch -> the live plan; an older epoch -> the retired
+        plan kept for translation; an epoch the server never issued
+        raises (the client must re-pull, a retryable condition)."""
+        with self._reshard_cond:
+            cur = self.reshard_epoch
+            if epoch is None or int(epoch) == cur:
+                return self.plan, cur
+            plan = self._retired_plans.get(int(epoch))
+        if plan is None:
+            raise ValueError(
+                f"unknown reshard epoch {epoch} (server at {cur}); "
+                "re-pull to resync")
+        return plan, int(epoch)
+
     def _snapshot_refs(self):
-        """(per-shard buffers, versions), each pair grabbed under its own
-        shard lock — buffers are never mutated, so a reference is a
-        consistent snapshot."""
+        """(plan, per-shard buffers, versions, epoch), each (buffer,
+        version) pair grabbed under its own shard lock — buffers are
+        never mutated, so a reference is a consistent snapshot."""
+        plan, shards, epoch = self._plan_state()
         snaps, versions = [], []
-        for st in self.shards:
+        for st in shards:
             with st.cond:
                 snaps.append(st._packed_p)
                 versions.append(st.version)
-        return snaps, versions
+        return plan, snaps, versions, epoch
 
     def _shard_snapshot(self, st: _ShardState) -> List[torch.Tensor]:
         """One shard's piece list, unpacking OUTSIDE the shard lock and
@@ -238,7 +298,7 @@ class ShardedParameterServer(ParameterServerProtocol):
             if st._pieces is not None:
                 return list(st._pieces)
             packed, version = st._packed_p, st.version
-        pieces = self.plan.shard_pieces_from_wire(packed, st.index)
+        pieces = st.plan.shard_pieces_from_wire(packed, st.index)
         with st.cond:
             if st.version == version and st._pieces is None:
                 st._pieces = list(pieces)
@@ -249,8 +309,8 @@ class ShardedParameterServer(ParameterServerProtocol):
         consistent under its own lock; cross-shard skew is bounded by
         the gating policies)."""
         t0 = TRACE.now() if TRACE.enabled else 0.0
-        params = self.plan.assemble(
-            [self._shard_snapshot(st) for st in self.shards])
+        plan, shards, _ = self._plan_state()
+        params = plan.assemble([self._shard_snapshot(st) for st in shards])
         if TRACE.enabled:
             TRACE.span("pull", t0, worker=worker)
         return params
@@ -259,15 +319,16 @@ class ShardedParameterServer(ParameterServerProtocol):
         """Full (total_rows, 512) wire snapshot of the parameters.
 
         The concatenation happens OUTSIDE every shard lock and is cached
-        keyed by the shard-version vector, so pulls between applies are a
-        dictionary hit.  A slower concurrent pull installs its result
-        only if it dominates the cached key (component-wise >=,
-        somewhere >), so the cache never moves backwards.
+        keyed by the reshard epoch and the shard-version vector, so pulls
+        between applies are a dictionary hit.  A slower concurrent pull
+        installs its result only if it is of a newer epoch or dominates
+        the cached key (component-wise >=, somewhere >), so the cache
+        never moves backwards.
         """
         self._require_fused("pull_packed")
         t0 = TRACE.now() if TRACE.enabled else 0.0
-        snaps, versions = self._snapshot_refs()
-        key = tuple(versions)
+        _, snaps, versions, epoch = self._snapshot_refs()
+        key = (epoch,) + tuple(versions)
         with self._snap_lock:
             if self._snap_key == key:
                 if TRACE.enabled:
@@ -278,9 +339,10 @@ class ShardedParameterServer(ParameterServerProtocol):
         wire = bufs[0] if len(bufs) == 1 else torch.cat(bufs)
         with self._snap_lock:
             cached = self._snap_key
-            if cached is None or (
-                    all(n >= c for n, c in zip(key, cached))
-                    and any(n > c for n, c in zip(key, cached))):
+            if cached is None or key[0] > cached[0] or (
+                    key[0] == cached[0]
+                    and all(n >= c for n, c in zip(key[1:], cached[1:]))
+                    and any(n > c for n, c in zip(key[1:], cached[1:]))):
                 self._snap_key, self._snap_wire = key, wire
         if TRACE.enabled:
             TRACE.span("pull", t0, worker=worker,
@@ -291,7 +353,8 @@ class ShardedParameterServer(ParameterServerProtocol):
         """One shard's resident (rows, 512) region (a consistent
         snapshot): the unit per-shard endpoints route on."""
         self._require_fused("pull_packed_shard")
-        st = self.shards[shard]
+        _, shards, _ = self._plan_state()
+        st = shards[shard]
         with st.cond:
             return st._packed_p
 
@@ -302,13 +365,16 @@ class ShardedParameterServer(ParameterServerProtocol):
         ``versions`` is the vector the worker saw on its last pull; the
         reply carries the regions of shards whose version moved plus the
         fresh vector.  A vector of the wrong arity, or one ahead of the
-        server, falls back to a full snapshot (``full=True``).
+        server, falls back to a full snapshot (``full=True``) — which is
+        also what a client sees after a live reshard: its vector is of
+        the old arity, and the full reply (carrying the new epoch) is
+        its resync.
         """
         self._require_fused("pull_delta")
         t0 = TRACE.now() if TRACE.enabled else 0.0
-        snaps, cur = self._snapshot_refs()
+        plan, snaps, cur, epoch = self._snapshot_refs()
         n_shards = len(snaps)
-        layout = self.plan.wire_layout()
+        layout = plan.wire_layout()
         itemsize = torch.empty((), dtype=layout.dtype).element_size()
         full_bytes = layout.total_rows * WIRE_LANES * itemsize
         mismatch = (versions is None or len(versions) != n_shards
@@ -329,7 +395,7 @@ class ShardedParameterServer(ParameterServerProtocol):
                        args={"shards": len(changed), "bytes": delta_bytes,
                              "full": mismatch})
         return DeltaPull(versions=tuple(cur), shards=tuple(changed),
-                         regions=regions, full=mismatch)
+                         regions=regions, full=mismatch, epoch=epoch)
 
     # -- pushes --------------------------------------------------------------
     def push_packed_shard(self, worker: int, shard: int, buf) -> None:
@@ -342,14 +408,21 @@ class ShardedParameterServer(ParameterServerProtocol):
             raise ValueError(
                 "per-shard routed pushes require gating='sharded' (the "
                 "global gate must see one push spanning all shards)")
-        layout = self.plan.wire_layout()
-        if tuple(buf.shape) != (layout.shard_rows[shard], WIRE_LANES):
-            raise ValueError(
-                f"shard {shard}: buffer {tuple(buf.shape)} does not match "
-                f"layout ({layout.shard_rows[shard]}, {WIRE_LANES})")
-        if self.wire_compression is not None:
-            buf = self._compress_packed_one(worker, shard, buf)
-        self._push_shard(self.shards[shard], worker, buf, packed=True)
+        with self._reshard_cond:
+            plan, shards, epoch = self.plan, self.shards, self.reshard_epoch
+            self._inflight[epoch] = self._inflight.get(epoch, 0) + 1
+        try:
+            layout = plan.wire_layout()
+            if tuple(buf.shape) != (layout.shard_rows[shard], WIRE_LANES):
+                raise ValueError(
+                    f"shard {shard}: buffer {tuple(buf.shape)} does not "
+                    f"match layout ({layout.shard_rows[shard]}, "
+                    f"{WIRE_LANES})")
+            if self.wire_compression is not None:
+                buf = self._compress_packed_one(worker, shard, buf)
+            self._push_shard(shards[shard], worker, buf, packed=True)
+        finally:
+            self._end_push(epoch)
 
     def push(self, worker: int, grads: Grads) -> None:
         """Tree-wire push: split the gradients by the plan and push shard
@@ -357,10 +430,12 @@ class ShardedParameterServer(ParameterServerProtocol):
         order deadlocks blocking policies across two shards' barriers).
         Blocks until every shard's policy (or the global gate) has
         released the worker."""
-        pieces_per_shard = self.plan.split(grads)
+        plan, _, epoch = self._plan_state()
+        pieces_per_shard = plan.split(grads)
         if self.compressor is not None:
             pieces_per_shard = self._compress(worker, pieces_per_shard)
-        self._push_payloads(worker, pieces_per_shard, packed=False)
+        self._push_payloads(worker, pieces_per_shard, packed=False,
+                            epoch=epoch)
 
     def push_packed(self, worker: int, wire, epoch: Optional[int] = None
                     ) -> None:
@@ -373,17 +448,24 @@ class ShardedParameterServer(ParameterServerProtocol):
         and nothing keeps a reference to ``wire`` after this call
         returns (the worker reuses the buffer for its next gradient).
         Blocks until the worker is released.
+
+        ``epoch`` is the reshard epoch the pusher packed against
+        (transports carry it on the frame).  A stale epoch is validated
+        against the RETIRED plan and translated through the migration
+        maps, so nothing a lagging client sent is lost.  ``None`` means
+        "the layout this buffer matches" — inferred from its row count
+        for in-heap callers that hold a plan rather than an epoch.
         """
         self._require_fused("push_packed")
-        if epoch not in (None, 0):
-            raise NotImplementedError(
-                "reshard epochs come with ROADMAP queue 1, item 8")
-        layout = self.plan.wire_layout()
+        if epoch is None and not isinstance(wire, (list, tuple)):
+            epoch = self._infer_epoch(int(wire.shape[0]))
+        plan, epoch = self._plan_for_epoch(epoch)
+        layout = plan.wire_layout()
         if isinstance(wire, (list, tuple)):
             shard_bufs = list(wire)
-            if len(shard_bufs) != self.n_shards:
+            if len(shard_bufs) != plan.n_shards:
                 raise ValueError(f"got {len(shard_bufs)} shard buffers, "
-                                 f"plan has {self.n_shards} shards")
+                                 f"plan has {plan.n_shards} shards")
             for j, buf in enumerate(shard_bufs):
                 if tuple(buf.shape) != (layout.shard_rows[j], WIRE_LANES):
                     raise ValueError(
@@ -397,43 +479,104 @@ class ShardedParameterServer(ParameterServerProtocol):
                 raise ValueError(
                     f"wire buffer {tuple(wire.shape)} does not match layout "
                     f"({layout.total_rows}, {WIRE_LANES})")
-            shard_bufs = self.plan.shard_wires(wire)
-        if self.wire_compression is not None:
+            shard_bufs = plan.shard_wires(wire)
+        # Stale-epoch pushes skip wire compression: the per-(worker,
+        # shard) error-feedback buffers were reset at the swap and are
+        # shaped for the NEW plan.
+        if self.wire_compression is not None and epoch == self.reshard_epoch:
             shard_bufs = self._compress_packed(worker, shard_bufs)
-        self._push_payloads(worker, shard_bufs, packed=True)
+        self._push_payloads(worker, shard_bufs, packed=True, epoch=epoch)
+
+    def _infer_epoch(self, rows: int) -> Optional[int]:
+        """The epoch whose full-buffer row count is ``rows`` — newest
+        first, so in-heap callers still holding an old plan keep working
+        across a reshard."""
+        with self._reshard_cond:
+            if self.plan.wire_layout().total_rows == rows:
+                return self.reshard_epoch
+            for e in sorted(self._retired_plans, reverse=True):
+                if self._retired_plans[e].wire_layout().total_rows == rows:
+                    return e
+            return self.reshard_epoch   # let validation raise with detail
+
+    def _end_push(self, epoch: int) -> None:
+        with self._reshard_cond:
+            self._inflight[epoch] -= 1
+            self._reshard_cond.notify_all()
 
     def _push_payloads(self, worker: int, payloads: Sequence[Any],
-                       packed: bool) -> None:
+                       packed: bool, epoch: Optional[int] = None) -> None:
         t_push = TRACE.now() if TRACE.enabled else 0.0
-        now = self._clock() - self._t0
-        # Global mode: the gate decides FIRST (monolithic order: decide,
-        # apply, then maybe block), and its decision governs every
-        # shard's apply.
-        gate_dec = gate_stale = None
-        if self.gating == "global":
-            gate_dec, gate_stale = self._gate_decide(worker)
-        max_stale, any_applied, any_credit = 0, False, False
-        total_wait = 0.0
-        for st, payload in zip(self.shards, payloads):
-            stale, applied, credit, waited = self._push_shard(
-                st, worker, payload, packed, gate_dec, gate_stale)
-            max_stale = max(max_stale, stale)
-            any_applied = any_applied or applied
-            any_credit = any_credit or credit
-            total_wait += waited
-        if gate_dec is not None:
-            total_wait += self._gate_wait(worker, gate_dec)
-            max_stale = gate_stale
-        with self._metrics_lock:
-            self.metrics.record_push(worker, max_stale, applied=any_applied,
-                                     credit=any_credit, time=now)
-            if total_wait > 0:
-                self.metrics.record_wait(worker, total_wait)
-            clock = self.metrics.pushes.get(worker, -1)
-        if TRACE.enabled:
-            TRACE.span("push", t_push, worker=worker, clock=clock,
-                       args={"staleness": max_stale, "applied": any_applied,
-                             "credit": any_credit})
+        # Atomically: which epoch's shard set this push applies to, and
+        # register it in flight — a live reshard replays parked regions
+        # only after every push of the old epoch has finished.
+        with self._reshard_cond:
+            cur = self.reshard_epoch
+            shards = self.shards
+            self._inflight[cur] = self._inflight.get(cur, 0) + 1
+        try:
+            if epoch is not None and epoch != cur:
+                if not packed:
+                    # A tree push that raced the swap: pack each piece
+                    # list into its OLD-plan region, then translate.
+                    old_plan = self._retired_plans.get(epoch)
+                    if old_plan is None:
+                        raise ValueError(
+                            f"unknown reshard epoch {epoch}; re-pull to "
+                            "resync")
+                    payloads = [old_plan.pack_shard_pieces(p, j)
+                                for j, p in enumerate(payloads)]
+                    packed = True
+                payloads = self._translate_stale(payloads, epoch, cur)
+            now = self._clock() - self._t0
+            # Global mode: the gate decides FIRST (monolithic order:
+            # decide, apply, then maybe block), and its decision governs
+            # every shard's apply.
+            gate_dec = gate_stale = None
+            if self.gating == "global":
+                gate_dec, gate_stale = self._gate_decide(worker)
+            max_stale, any_applied, any_credit = 0, False, False
+            total_wait = 0.0
+            for st, payload in zip(shards, payloads):
+                stale, applied, credit, waited = self._push_shard(
+                    st, worker, payload, packed, gate_dec, gate_stale)
+                max_stale = max(max_stale, stale)
+                any_applied = any_applied or applied
+                any_credit = any_credit or credit
+                total_wait += waited
+            if gate_dec is not None:
+                total_wait += self._gate_wait(worker, gate_dec)
+                max_stale = gate_stale
+            with self._metrics_lock:
+                self.metrics.record_push(worker, max_stale,
+                                         applied=any_applied,
+                                         credit=any_credit, time=now)
+                if total_wait > 0:
+                    self.metrics.record_wait(worker, total_wait)
+                clock = self.metrics.pushes.get(worker, -1)
+            if TRACE.enabled:
+                TRACE.span("push", t_push, worker=worker, clock=clock,
+                           args={"staleness": max_stale,
+                                 "applied": any_applied,
+                                 "credit": any_credit})
+        finally:
+            self._end_push(cur)
+
+    def _translate_stale(self, payloads: Sequence[torch.Tensor], epoch: int,
+                         cur: int) -> List[torch.Tensor]:
+        """Re-slice per-shard gradient regions packed under a retired
+        plan into the current plan's regions, chaining the retained
+        migration maps epoch by epoch (slice copies on the device)."""
+        bufs = list(payloads)
+        for e in range(epoch, cur):
+            mig = self._migrations.get(e)
+            if mig is None:
+                raise ValueError(
+                    f"reshard epoch {epoch} predates the retained "
+                    "migration maps; re-pull to resync")
+            bufs = mig.migrate_grads(bufs)
+        WIRE.reshard_translated += 1
+        return bufs
 
     def _push_shard(self, st: _ShardState, worker: int, payload: Any,
                     packed: bool = True,
@@ -455,7 +598,13 @@ class ShardedParameterServer(ParameterServerProtocol):
                 apply_staleness = gate_stale
             if dec.apply_update:
                 t_apply = TRACE.now() if TRACE.enabled else 0.0
-                if self.coalesce > 1:
+                if st.retired:
+                    # Mid-migration: the shard's state has been copied
+                    # out.  Park the region; the reshard replays it
+                    # through the migration map onto the NEW shards —
+                    # applied exactly once, never lost.
+                    self._park(st, payload, packed, apply_staleness)
+                elif self.coalesce > 1:
                     self._apply_coalesced(st, payload, packed,
                                           apply_staleness)
                 elif packed:
@@ -473,7 +622,10 @@ class ShardedParameterServer(ParameterServerProtocol):
             if not dec.release_now:
                 t_wait = TRACE.now() if TRACE.enabled else 0.0
                 arrival = self._clock()
-                while (not self.stopped
+                # ``st.abandoned``: a live reshard swapped this shard out
+                # — peers now push to the NEW shards, so this barrier can
+                # never fill; release (the new trackers were equalized).
+                while (not self.stopped and not st.abandoned
                        and not st.policy.may_release(st.tracker, worker)):
                     st.cond.wait(timeout=0.5)
                 waited = self._clock() - arrival
@@ -509,11 +661,190 @@ class ShardedParameterServer(ParameterServerProtocol):
             if not payload:              # empty shard: bookkeeping only
                 st.version += 1
                 return
-            payload = self.plan.pack_shard_pieces(payload, st.index)
+            payload = st.plan.pack_shard_pieces(payload, st.index)
         if payload.shape[0] == 0:        # empty shard region
             st.version += 1
             return
         st.window.submit(payload, st.optimizer.scale(staleness))
+
+    # -- live reshard --------------------------------------------------------
+    def _park(self, st: _ShardState, payload: Any, packed: bool,
+              staleness: int) -> None:
+        """Called under ``st.cond`` on a retired shard: hold the packed
+        gradient region for replay onto the new shards.  The retired
+        shard's version does NOT move (its buffer does not change), so
+        delta pulls stay truthful during the migration window."""
+        if not packed:
+            if not payload:
+                return
+            payload = st.plan.pack_shard_pieces(payload, st.index)
+        if payload.shape[0] == 0:
+            return
+        st.parked.append((payload, int(staleness)))
+        WIRE.reshard_parked += 1
+
+    def reshard(self, n_shards: int, *, split_oversized: Optional[bool] = None,
+                _mid_hook: Optional[Callable[[int], None]] = None) -> bool:
+        """Live-migrate the packed store to a new shard count S'.
+
+        Training continues throughout: each old shard is paused only for
+        the retire-and-grab under its own lock (traced as
+        ``reshard_shard``); pushes racing the migration park and replay
+        (``_park``); pulls and gating on not-yet-retired shards go on.
+        Returns True if a migration ran; a same-arity call is a no-op.
+        ``_mid_hook`` (tests and chaos only) fires after each shard's
+        copy-out — ``FaultPlan.kill_mid_reshard`` SIGKILLs the server
+        there.
+        """
+        if self.apply_mode != "fused":
+            raise ValueError("live reshard requires apply_mode='fused' "
+                             "(the packed store is what migrates)")
+        if n_shards < 1:
+            raise ValueError("n_shards must be >= 1")
+        from repro_torch.ft.reshard import (build_migration,
+                                            equalized_counts,
+                                            spread_versions)
+        from repro_torch.ft.snapshot import (capture_policy_state,
+                                             restore_policy_state)
+        with self._reshard_lock:
+            old_plan, old_shards, old_epoch = self._plan_state()
+            if n_shards == len(old_shards):
+                return False
+            t0 = TRACE.now() if TRACE.enabled else 0.0
+            new_plan = old_plan.rebuild(
+                n_shards,
+                split_oversized=(self._split_oversized
+                                 if split_oversized is None
+                                 else split_oversized))
+            mig = build_migration(old_plan, new_plan)
+            # Phase 1 — retire + grab, one shard at a time.  Marking the
+            # shard retired FIRST means nothing new enters its coalesce
+            # window while it drains.  The grab is a reference: no apply
+            # writes a buffer in place, so it stays valid, and the lock
+            # hold is the shard's whole migration pause.
+            copied_p, copied_m, copied_v = [], [], []
+            counts_per, credits_per = [], []
+            for st in old_shards:
+                t_s = TRACE.now() if TRACE.enabled else 0.0
+                with st.cond:
+                    st.retired = True
+                    while (st.window is not None and not self.stopped
+                           and (st.window.applying or st.window.pending)):
+                        st.cond.wait(timeout=0.1)
+                    copied_p.append(st._packed_p)
+                    copied_m.append(st._packed_m)
+                    copied_v.append(st.version)
+                    counts_per.append(dict(st.tracker.counts))
+                    credits_per.append(dict(st.tracker.credits))
+                if TRACE.enabled:
+                    TRACE.span("reshard_shard", t_s, shard=st.index)
+                if _mid_hook is not None:
+                    _mid_hook(st.index)
+            # Phase 2 — fold params + momentum through the migration map
+            # (slice copies on the device; bitwise) with no lock held.
+            # Versions redistribute sum-preserving; tracker counts and
+            # credits equalize to the per-worker minimum across old
+            # shards (the failover clamp rule).
+            new_p = mig.migrate(copied_p)
+            new_m = mig.migrate(copied_m)
+            del copied_p, copied_m
+            new_versions = spread_versions(sum(copied_v), n_shards)
+            eq_counts = equalized_counts(counts_per)
+            eq_credits = equalized_counts(credits_per)
+            pol_state = capture_policy_state(old_shards[0].policy)
+            workers = sorted(eq_counts)
+            new_states: List[_ShardState] = []
+            for k in range(n_shards):
+                policy = self._policy_factory()
+                restore_policy_state(policy, pol_state)
+                st = _ShardState(k, new_plan, [], new_p[k], policy,
+                                 self._optimizer_factory(), workers,
+                                 "fused", packed_m=new_m[k],
+                                 version=new_versions[k])
+                st.tracker.counts.update(eq_counts)
+                st.tracker.credits.update(eq_credits)
+                st.window = self._make_window(st)
+                new_states.append(st)
+            # Phase 3 — atomic swap + epoch bump.  The old plan and the
+            # map are kept so stale-epoch pushes still translate.
+            with self._reshard_cond:
+                self.plan = new_plan
+                self.shards = new_states
+                self.n_shards = n_shards
+                self._retired_plans[old_epoch] = old_plan
+                self._migrations[old_epoch] = mig
+                self.reshard_epoch = old_epoch + 1
+                self._reshard_cond.notify_all()
+            with self._snap_lock:
+                self._snap_key = self._snap_wire = None
+            # Error-feedback state is layout-shaped; reset it.
+            self._err.clear()
+            self._wire_err.clear()
+            # Phase 4 — release barrier waiters stranded on old shards.
+            for st in old_shards:
+                with st.cond:
+                    st.abandoned = True
+                    st.cond.notify_all()
+            # Phase 5 — once no push of the old epoch is in flight (none
+            # can append to a parked list any more), replay every parked
+            # region onto the new shards.
+            with self._reshard_cond:
+                while (self._inflight.get(old_epoch, 0) > 0
+                       and not self.stopped):
+                    self._reshard_cond.wait(timeout=0.5)
+                self._inflight.pop(old_epoch, None)
+            replayed = 0
+            for j, st in enumerate(old_shards):
+                with st.cond:
+                    parked, st.parked = st.parked, []
+                for region, staleness in parked:
+                    self._replay_region(mig, j, region, staleness)
+                    replayed += 1
+            WIRE.reshard_replayed += replayed
+            if TRACE.enabled:
+                TRACE.span("reshard", t0,
+                           args={"from": len(old_shards), "to": n_shards,
+                                 "epoch": old_epoch + 1,
+                                 "replayed": replayed})
+            return True
+
+    def _replay_region(self, mig, old_shard: int, region: torch.Tensor,
+                       staleness: int) -> None:
+        """Apply one parked old-plan gradient region to the new shards.
+
+        The momentum fold runs ONLY over the moved segments: every other
+        element of the destination shards already saw this push's decay
+        through its own old shard, so a whole-region ``fused_update``
+        would decay those elements twice.  The fold is the reference's
+        store-dtype arithmetic (``repro_torch.ft.reshard.replay_fold``),
+        on new buffers that replace the shard's under its lock.
+        """
+        from repro_torch.ft.reshard import replay_fold
+        flat = region.reshape(-1)
+        by_new: Dict[int, List[Any]] = {}
+        for mv in mig.moves_from(old_shard):
+            by_new.setdefault(mv.new_shard, []).append(mv)
+        _, shards, _ = self._plan_state()
+        for k, mvs in by_new.items():
+            st = shards[k]
+            with st.cond:
+                opt = st.optimizer
+                p = st._packed_p.reshape(-1).clone()
+                m = st._packed_m.reshape(-1).clone()
+                for mv in mvs:
+                    sl = slice(mv.new_off, mv.new_off + mv.size)
+                    p[sl], m[sl] = replay_fold(
+                        p[sl], m[sl],
+                        flat[mv.old_off:mv.old_off + mv.size].to(p.dtype),
+                        opt.lr, opt.momentum, opt.scale(staleness))
+                st._packed_p = p.view(-1, WIRE_LANES)
+                st._packed_m = m.view(-1, WIRE_LANES)
+                st._pieces = None
+                # The buffer changed, so the version MUST move (delta
+                # pulls diff on it): one bump per replayed contribution
+                # per touched shard.
+                st.version += 1
+                st.cond.notify_all()
 
     # -- global gate ---------------------------------------------------------
     def _gate_decide(self, worker: int):
@@ -613,10 +944,6 @@ class ShardedParameterServer(ParameterServerProtocol):
             self.metrics.n_workers = len(self.shards[0].tracker.workers)
         self._err.pop(worker, None)
         self._wire_err.pop(worker, None)
-
-    def reshard(self, n_shards: int) -> bool:
-        raise NotImplementedError(
-            "live resharding comes with ROADMAP queue 1, item 8")
 
     def stop(self) -> None:
         self.stopped = True

@@ -18,7 +18,9 @@ buffers.  ``wire_format='tree'`` pulls the parameter tree
 With ``delta_pull=True`` (packed only) the worker keeps a resident
 packed buffer ON THE DEVICE plus the per-shard version vector of its
 last pull, and patches in place (``copy_``) only the shard regions that
-advanced.  (The reference
+advanced; after a live reshard (the server's shard count changed) it
+rebuilds that buffer against the server's new plan and resyncs.  (The
+reference
 keeps a host buffer because JAX arrays are immutable; here the buffer is
 simply overwritten, between steps, by the thread that owns it.)
 """
@@ -91,18 +93,30 @@ class PSWorker(threading.Thread):
         (the bootstrap vector of -1s makes the first delta carry every
         shard).  Returns a drop-in replacement for ``pull_packed``."""
         from repro_torch.wireformat import WIRE_LANES
-        layout = self.server.plan.wire_layout()
-        resident = torch.zeros((layout.total_rows, WIRE_LANES),
-                               dtype=layout.dtype, device=self.server.device)
-        state = {"versions": (-1,) * self.server.n_shards}
+        state = {}
+
+        def rebuild() -> None:
+            # against the server's CURRENT plan (an in-heap worker shares
+            # the server's objects, so ``server.plan`` IS the new plan)
+            layout = self.server.plan.wire_layout()
+            state["layout"] = layout
+            state["resident"] = torch.zeros(
+                (layout.total_rows, WIRE_LANES), dtype=layout.dtype,
+                device=self.server.device)
+            state["versions"] = (-1,) * len(layout.shard_rows)
+
+        rebuild()
 
         def pull(worker_id: int) -> torch.Tensor:
             d = self.server.pull_delta(worker_id, state["versions"])
-            if len(d.versions) != len(state["versions"]):
-                raise NotImplementedError(
-                    "the server's shard count changed (live resharding "
-                    "comes with ROADMAP queue 1, item 8)")
+            while len(d.versions) != len(state["versions"]):
+                # Live reshard: the server's arity moved under us.
+                # Rebuild the resident buffer and re-bootstrap; if the
+                # plan moves yet again meanwhile, resync once more.
+                rebuild()
+                d = self.server.pull_delta(worker_id, state["versions"])
             state["versions"] = d.versions
+            layout, resident = state["layout"], state["resident"]
             for j, region in zip(d.shards, d.regions):
                 start = layout.shard_row_start[j]
                 resident[start:start + region.shape[0]].copy_(region)

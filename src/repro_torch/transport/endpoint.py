@@ -18,12 +18,13 @@ The server's buffers live on its device (``cuda:0``); a pull reply
 needs them on the host.  The endpoint keeps one host copy per (shard,
 reshard epoch, version), for full pulls and for each delta region
 alike, so W workers pulling the same state cost one device-to-host
-copy.  TRACE frames are acknowledged and dropped (trace collection comes
-with ROADMAP queue 1, item 8).
+copy.  TRACE frames go to the session's ``TraceCollector`` (acknowledged
+and dropped without one).
 """
 
 from __future__ import annotations
 
+import json
 import threading
 from typing import Callable, Dict, Optional, Sequence
 
@@ -61,7 +62,8 @@ class PSServerEndpoint:
     server's ``push_packed_shard`` / ``pull_packed_shard``.
     """
 
-    def __init__(self, server, *, shards: Optional[Sequence[int]] = None):
+    def __init__(self, server, *, shards: Optional[Sequence[int]] = None,
+                 collector=None):
         if not getattr(server, "packed_wire", False):
             raise ValueError(
                 "endpoint needs a packed-wire server (apply_mode="
@@ -69,6 +71,9 @@ class PSServerEndpoint:
                 f"{getattr(server, 'apply_mode', None)!r}")
         self.server = server
         self.shards = None if shards is None else frozenset(shards)
+        #: ``repro_torch.obs.TraceCollector`` to merge MSG_TRACE flushes
+        #: into; without one the frames are acknowledged and dropped.
+        self.collector = collector
         if self.shards is not None:
             known = range(getattr(server, "n_shards", 1))
             bad = sorted(self.shards - set(known))
@@ -194,6 +199,13 @@ class PSServerEndpoint:
             return Frame(kind=MSG_OK, worker=frame.worker,
                          clock=server.version)
         if kind == MSG_TRACE:
+            if self.collector is not None and frame.blob:
+                try:
+                    events = json.loads(frame.blob)
+                except json.JSONDecodeError:
+                    events = None
+                if isinstance(events, list):
+                    self.collector.ingest(f"w{frame.worker}", events)
             return Frame(kind=MSG_OK, worker=frame.worker,
                          clock=server.version)
         # MSG_STOP is a server-side REPLY kind only: accepting it as a
@@ -247,16 +259,20 @@ class PSServerEndpoint:
         shard = self._check_shard(frame)
         if frame.payload is None:
             raise FrameError("push frame carried no payload")
-        if int(frame.aux) != 0:
-            raise FrameError(
-                f"push packed against reshard epoch {int(frame.aux)}: "
-                "reshard epochs come with ROADMAP queue 1, item 8")
         # copy=True: a shmem payload views the segment in place, and the
         # client overwrites it with its next request; on the CPU ``to``
         # would otherwise alias it.  On CUDA this is the one H2D copy.
         buf = frame.payload.to(self.server.device, copy=True)
         if shard < 0:
-            self.server.push_packed(frame.worker, buf)
+            if hasattr(self.server, "reshard"):
+                # ``aux`` carries the layout epoch the client packed
+                # against: a push that raced a live reshard is validated
+                # against the retired plan and translated; an epoch the
+                # server never issued bounces with a "resync" error.
+                self.server.push_packed(frame.worker, buf,
+                                        epoch=int(frame.aux))
+            else:
+                self.server.push_packed(frame.worker, buf)
         else:
             self.server.push_packed_shard(frame.worker, shard, buf)
 
@@ -285,6 +301,15 @@ class ShardRouter:
 
     def __init__(self, clients: Dict[int, PSTransportClient],
                  shard_rows: Sequence[int]):
+        self.rebuild(clients, shard_rows)
+
+    def rebuild(self, clients: Dict[int, PSTransportClient],
+                shard_rows: Sequence[int]) -> None:
+        """Re-point the routing table after a live reshard: the shard
+        count (and each shard's row extent) changed, so the old
+        shard -> client map is meaningless.  Callers derive
+        ``shard_rows`` from the NEW plan's wire layout and pass a client
+        per new shard."""
         if sorted(clients) != list(range(len(shard_rows))):
             raise ValueError(
                 f"need one client per shard 0..{len(shard_rows) - 1}, "

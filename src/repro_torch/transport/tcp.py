@@ -182,15 +182,26 @@ class TcpChannel(Channel):
     def request(self, data: bytes) -> Frame:
         try:
             self._sock.sendall(data)
-            header = _read_exact(self._sock, HEADER_SIZE)
+            header = self._read_reply(HEADER_SIZE)
             if header is None:
                 raise TransportClosed("server closed the connection")
             frame, payload_len = decode_header(bytes(header))
-            body = _read_exact(self._sock, payload_len)
+            body = self._read_reply(payload_len)
             if body is None:
                 raise TransportClosed("server closed mid-reply")
             return decode_body(frame, body)
         except OSError as e:
+            raise TransportClosed(str(e)) from e
+
+    def _read_reply(self, n: int) -> Optional[bytearray]:
+        """A reply that ends mid-frame is a server that died while
+        sending it (a 2 GB pull takes seconds on the wire): the
+        connection is gone, which the client's reconnect path handles,
+        not a malformed frame.  (The reference raises ``FrameError``
+        here, which its worker does not retry.)"""
+        try:
+            return _read_exact(self._sock, n)
+        except FrameError as e:
             raise TransportClosed(str(e)) from e
 
     def close(self) -> None:

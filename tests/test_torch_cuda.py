@@ -483,3 +483,82 @@ def test_bf16_unembed_matches_the_f32_product(gen, shape):
         torch.arange(v, device="cuda") >= v - 7, layers.NEG_INF)
     rx, rt = torch.autograd.grad(ref_logits, (x, table), g)
     assert torch.equal(gx, rx) and torch.equal(gt, rt)
+
+
+# ------------------------------------------------------- ft (item 8)
+def _bf16_server(device, n_shards=4):
+    from repro_torch.core.policies import make_policy_factory
+    from repro_torch.ps.server import ServerOptimizer
+    from repro_torch.ps.sharded.server import ShardedParameterServer
+    g = torch.Generator().manual_seed(3)
+    params = {"w0": torch.randn(24, 512, generator=g),
+              "w1": torch.randn(16, 128, generator=g),
+              "b": torch.randn(300, generator=g)}
+    return ShardedParameterServer(
+        {k: v.to(device=device, dtype=torch.bfloat16)
+         for k, v in params.items()},
+        make_policy_factory("asp", n_workers=1),
+        lambda: ServerOptimizer(lr=0.05, momentum=0.9,
+                                staleness_damping=True),
+        1, n_shards, apply_mode="fused")
+
+
+def _bits(t):
+    return t.detach().cpu().view(torch.int16)
+
+
+def test_bf16_snapshot_restores_bitwise_on_the_card(gen, tmp_path):
+    """bf16 shard buffers on cuda:0 through a snapshot on disk and back
+    into a fresh server on the card, bit for bit; its next apply (the
+    fused_update kernel) matches the original's."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.ft.snapshot import ServerSnapshotter, restore_latest
+    a = _bf16_server("cuda")
+    rows = a.plan.wire_layout().total_rows
+    for _ in range(3):
+        a.push_packed(0, _rand(gen, (rows, 512), torch.bfloat16))
+    mgr = CheckpointManager(str(tmp_path))
+    ServerSnapshotter(a, mgr, every_s=60.0).save_now()
+    mgr.wait()
+    b = _bf16_server("cuda")
+    assert restore_latest(b, CheckpointManager(str(tmp_path))) == a.version
+    for sa, sb in zip(a.shards, b.shards):
+        assert sb._packed_p.is_cuda and sb._packed_p.dtype == torch.bfloat16
+        assert torch.equal(_bits(sa._packed_p), _bits(sb._packed_p))
+        assert torch.equal(_bits(sa._packed_m), _bits(sb._packed_m))
+    g = _rand(gen, (rows, 512), torch.bfloat16)
+    a.push_packed(0, g)
+    b.push_packed(0, g)
+    for sa, sb in zip(a.shards, b.shards):
+        assert torch.equal(_bits(sa._packed_p), _bits(sb._packed_p))
+    a.stop(), b.stop()
+
+
+def test_migrate_on_the_card_is_bitwise_the_cpu_result(gen):
+    from repro_torch.ft.reshard import build_migration
+    srv = _bf16_server("cpu")
+    old, new = srv.plan, srv.plan.rebuild(6)
+    mig = build_migration(old, new)
+    bufs = [_rand(gen, (r, 512), torch.bfloat16)
+            for r in old.wire_layout().shard_rows]
+    on_card = mig.migrate(bufs)
+    on_cpu = mig.migrate([b.cpu() for b in bufs])
+    assert all(t.is_cuda for t in on_card)
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(_bits(a), _bits(b))
+    srv.stop()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_replay_fold_on_the_card_is_bitwise_the_cpu_fold(gen, dtype):
+    from repro_torch.ft.reshard import replay_fold
+    p, m, g = (_rand(gen, (1 << 16,), dtype) for _ in range(3))
+    for scale in (1.0, 1 / 3):
+        got = replay_fold(p, m, g, 0.05, 0.9, scale)
+        want = replay_fold(p.cpu(), m.cpu(), g.cpu(), 0.05, 0.9, scale)
+        for a, b in zip(got, want):
+            assert a.is_cuda and a.dtype == dtype
+            assert torch.equal(a.cpu().view(torch.int16 if dtype ==
+                                            torch.bfloat16 else torch.int32),
+                               b.view(torch.int16 if dtype == torch.bfloat16
+                                      else torch.int32))

@@ -49,7 +49,13 @@ def test_every_repro_torch_module_imports_without_jax_or_repro():
                 "repro_torch.transport.endpoint",
                 "repro_torch.launch.proc_pool", "repro_torch.ps.simulator",
                 "repro_torch.ps.sharded.simulator",
-                "repro_torch.api.__main__"}
+                "repro_torch.api.__main__",
+                "repro_torch.obs", "repro_torch.obs.collect",
+                "repro_torch.obs.export", "repro_torch.obs.summarize",
+                "repro_torch.obs.__main__", "repro_torch.checkpoint",
+                "repro_torch.checkpoint.manager", "repro_torch.ft",
+                "repro_torch.ft.snapshot", "repro_torch.ft.faults",
+                "repro_torch.ft.server_proc", "repro_torch.ft.reshard"}
     assert expected <= set(res["modules"])
 
 

@@ -188,20 +188,20 @@ def test_gating_still_blocks_per_worker():
 
 
 def test_push_packed_rejects_mismatched_wire_and_unported_modes():
-    """Wrong-shaped wires raise, live resharding stays refused (item 8),
-    and the modes this server once refused — coalescing, wire
-    compression, the global gate and the tree apply — now build and
-    fold a push."""
+    """Wrong-shaped wires raise, a push stamped with a reshard epoch the
+    server never issued bounces with "resync" (live resharding itself
+    runs since item 8 was ported), and the modes this server once
+    refused — coalescing, wire compression, the global gate and the
+    tree apply — now build and fold a push."""
     params = make_params()
     srv = make_port(params, n_shards=2)
     with pytest.raises(ValueError, match="does not match layout"):
         srv.push_packed(0, torch.zeros(8, 512))
     with pytest.raises(ValueError, match="shard buffers"):
         srv.push_packed(0, [torch.zeros(8, 512)])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        srv.reshard(3)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="resync"):
         srv.push_packed(0, srv.pull_packed(), epoch=1)
+    assert srv.reshard(3) is True and srv.reshard_epoch == 1
     srv.stop()
     tree = from_numpy_tree(params, "cpu")
     grads = from_numpy_tree(grads_like(params, 1), "cpu")

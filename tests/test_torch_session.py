@@ -23,6 +23,7 @@ import repro.api as japi
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import registry as jregistry
 from repro_torch import api
+from repro_torch.ft.faults import FaultPlan
 from repro_torch.models.params import from_numpy_tree
 from repro_torch.obs.trace import TRACE
 from repro_torch.perfcount import WIRE
@@ -117,12 +118,7 @@ def test_spec_json_round_trips_and_schema_is_the_reference_schema():
 
 
 @pytest.mark.parametrize("section,field,value,item", [
-    ("ft", "reshard_shards", 6, "item 8"),
-    ("ft", "fault_kill_worker", 1, "item 8"),
     ("ps", "kind", "none", "item 11"),
-    ("ft", "snapshot_every_s", 1.0, "item 8"),
-    ("obs", "trace", True, "item 8"),
-    ("ft", "reconnect_tries", 2, "item 8"),
     ("serve", "replicas", 1, "item 9"),
     ("model", "arch", "xlstm-125m", "item 10"),
 ])
@@ -133,17 +129,67 @@ def test_later_slices_raise_spec_errors_naming_their_item(section, field,
     if (section, field) == ("ps", "kind"):
         d["ps"].update(shards=0, apply="tree")
         d["wire"].update(format="tree", delta_pull=False)
+    japi.RunSpec.from_dict(d)              # valid for the reference ...
+    with pytest.raises(api.SpecError, match=item):
+        api.RunSpec.from_dict(d)           # ... refused, with its item
+
+
+def _item8_spec(section, field, value, tmp_path) -> dict:
+    d = _spec(api, workers=2, sync="dssp").to_dict()
+    d[section][field] = value
     if (section, field) == ("ft", "snapshot_every_s"):
-        d["ft"]["dir"] = "ckpt"
+        d["ft"]["dir"] = str(tmp_path / "ckpt")
     if section == "ft" and field != "snapshot_every_s":
         d["transport"]["kind"] = "tcp"
     if (section, field) == ("ft", "reshard_shards"):
         d["ft"]["reshard_round"] = 4
     if (section, field) == ("ft", "fault_kill_worker"):
         d["ft"]["fault_kill_worker_round"] = 2
-    japi.RunSpec.from_dict(d)              # valid for the reference ...
-    with pytest.raises(api.SpecError, match=item):
-        api.RunSpec.from_dict(d)           # ... refused, with its item
+    return d
+
+
+@pytest.mark.parametrize("section,field,value", [
+    ("ft", "reshard_shards", 6),
+    ("ft", "fault_kill_worker", 1),
+    ("ft", "snapshot_every_s", 1.0),
+    ("obs", "trace", True),
+    ("ft", "reconnect_tries", 2),
+])
+def test_item8_specs_are_accepted_and_arm_their_rig(section, field, value,
+                                                    tmp_path):
+    """The item-8 fields the port refused until its observability and
+    fault-tolerance slice: each spec is now accepted as the reference
+    accepts it, and the session it builds arms the matching piece."""
+    from repro_torch.launch.proc_pool import WorkerTask
+    d = _item8_spec(section, field, value, tmp_path)
+    jspec = japi.RunSpec.from_dict(d)
+    spec = api.RunSpec.from_dict(d)
+    assert spec.to_json() == jspec.to_json()
+    task = WorkerTask.from_spec(spec, 2, device="cpu")
+    external = spec.transport.kind != "inproc"
+    with api.build_session(spec, device="cpu",
+                           **({"external_workers": True} if external
+                              else {})) as s:
+        if field == "reshard_shards":
+            assert s.reshard(6) is True and s.server.n_shards == 6
+            assert s.server.reshard_epoch == 1
+        elif field == "fault_kill_worker":
+            assert task.fault_plan == jspec.ft.fault_plan().to_dict()
+            assert FaultPlan.from_dict(task.fault_plan).worker_kill_due(1, 2)
+        elif field == "snapshot_every_s":
+            assert s.ft_rig is not None and s.ft_rig.snapshotter is not None
+            s.run(2)
+        elif field == "trace":
+            assert s.obs_rig is not None and task.trace
+            s.run(2)
+        else:
+            assert task.reconnect_tries == 2
+    if field == "snapshot_every_s":
+        assert s.metrics()["ft"]["latest_step"] == s.server.version > 0
+    if field == "trace":
+        names = {e["name"] for e in s.obs_rig.events}
+        assert {"push", "compute_step"} <= names
+        assert s.metrics()["obs"]["events"] == len(s.obs_rig.events)
 
 
 def _lifted(case: str) -> dict:

@@ -270,12 +270,15 @@ def test_tcp_oversized_length_field_rejected():
 
 
 def test_push_stamped_with_a_reshard_epoch_is_refused_naming_item_8():
+    """A push stamped with a reshard epoch the server never issued is
+    refused with the retryable "resync" error (before the item-8 slice,
+    every stamped push was refused naming the item)."""
     server = make_server()
     endpoint, transport = serve("inproc", server)
     c = transport.connect(0)
     c.hello()
     c.reshard_epoch = 1
-    with pytest.raises(tw.FrameError, match="item 8"):
+    with pytest.raises(tw.FrameError, match="resync"):
         c.push_packed(torch.zeros(server.plan.wire_layout().total_rows, 512))
     server.stop()
     transport.shutdown()
@@ -350,8 +353,8 @@ def test_clean_shutdown_unblocks_waiting_dssp_workers(kind):
 
 def test_subscriber_takes_no_seat_and_trace_frames_are_dropped():
     """A ``MSG_SUB`` replica pulls without a barrier seat (BSP keeps
-    releasing the one trainer); TRACE flushes are acknowledged and
-    dropped (trace collection comes with ROADMAP item 8)."""
+    releasing the one trainer); TRACE flushes to an endpoint without a
+    collector are acknowledged and dropped."""
     server = make_server(n_workers=1, policy="bsp")
     endpoint, transport = serve("tcp", server, n_workers=2)
     trainer, replica = transport.connect(0), transport.connect(1)
@@ -476,7 +479,8 @@ def test_transport_session_trains_with_spawned_workers(kind, compression):
 
 def test_external_workers_drive_an_inproc_endpoint():
     """``transport.endpoint=True`` over inproc: the session serves the
-    frame protocol to the caller's own client; ``run`` refuses."""
+    frame protocol to the caller's own client; ``run`` refuses, and
+    ``reshard`` migrates the served store (a no-op at the same arity)."""
     spec = _spec(api, kind="inproc", endpoint=True, workers=1)
     assert spec.engine == "ps-transport"
     session = api.build_session(spec, device="cpu", external_workers=True)
@@ -492,11 +496,13 @@ def test_external_workers_drive_an_inproc_endpoint():
         assert session.server.version == spec.ps.shards
         again = client.pull_delta(d.versions)
         assert again.shards == tuple(range(spec.ps.shards))
+        assert session.reshard(3) is True
+        assert session.reshard(3) is False
+        d = client.pull_delta(again.versions)
+        assert d.full and d.epoch == 1 and len(d.versions) == 3
         client.bye()
         with pytest.raises(api.SpecError, match="external_workers"):
             session.run(2)
-        with pytest.raises(api.SpecError, match="item 8"):
-            session.reshard(3)
     finally:
         session.close()
 
@@ -551,6 +557,24 @@ def test_full_width_single_frame_depth_limit():
     assert frame_bytes(13) == 2_133_999_616 <= tw.MAX_PAYLOAD
     assert tw.MAX_PAYLOAD < frame_bytes(14)
     assert frame_bytes(24) > tw.MAX_PAYLOAD
+
+
+def test_full_width_frame_still_fits_after_a_reshard_to_six_shards():
+    """The 13-layer cut resharded S=4 -> S'=6 (the ft chip phase): each
+    extra shard region pads by less than one (8, 512) tile, so the full
+    pull after the migration — and a worker's full resync after a
+    failover — is still one frame under the 2 GiB limit."""
+    from repro_torch.configs import get_config
+    cut = dataclasses.replace(get_config("h2o-danube-1.8b"), n_layers=13)
+    plan = build_shard_plan(registry.abstract_params(cut), 4)
+    before = plan.wire_layout().total_rows * tw.WIRE_LANES
+    after_plan = plan.rebuild(6)
+    after = after_plan.wire_layout().total_rows * tw.WIRE_LANES
+    assert after_plan.wire_layout().total_elems == \
+        plan.wire_layout().total_elems
+    assert after - plan.wire_layout().total_elems <= 6 * (8 * 512 - 1)
+    assert before * 2 == 2_133_999_616
+    assert after * 2 <= tw.MAX_PAYLOAD
 
 
 # ========================================================= cross-package
