@@ -147,6 +147,12 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def function(name: str):
+    """One C entry point of the loaded library: after the first load, no
+    lock is taken (ctypes keeps the function on the library object)."""
+    return getattr(_lib if _lib is not None else library(), name)
+
+
 def check(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch")

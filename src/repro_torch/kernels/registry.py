@@ -18,7 +18,11 @@ the single entry point the model calls for its op — ``attention``,
     PLAIN_ASSOCIATIVE  (``ssm_scan`` only) the chunked associative scan
 
 The backward through the oracle is the only place a plain version runs
-on the card's main path.  Attention hands the kernel its inputs as
+on the card's main path.  The scan's runs there as one CUDA graph replay
+per call (``ScanBackwardGraphs``): the oracle's recompute and autograd
+through it, captured once per input signature, stream and thread, where
+eager PyTorch would queue some 25 k small kernels a call from Python.
+Attention hands the kernel its inputs as
 ``flash_attention.kernel_operands`` makes them: a strided or misaligned
 view copied, a head dim that is not a multiple of 8 zero-padded, so
 those launch the kernel too; the kernel masks ragged tiles itself, so
@@ -28,7 +32,8 @@ every sequence length takes it.  What no kernel takes (a head dim above
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -149,6 +154,107 @@ def residual_rmsnorm(x: torch.Tensor, res: torch.Tensor, weight: torch.Tensor,
 SSM_SCAN_BACKWARD = "ssm_scan_plain_backward"
 
 
+def scan_backward_body(tensors: Sequence[torch.Tensor],
+                       needs: Sequence[bool]
+                       ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The scan's backward as the reference computes it: ``tensors`` are
+    the six saved inputs (u, delta, a, bmat, cmat, h0), then dy and
+    dh_last; the gradients of the inputs that ``needs`` marks, recomputed
+    through the sequential oracle.  Run eagerly on the CPU; captured as a
+    CUDA graph on the card (``ScanBackwardGraphs``)."""
+    return _vjp_through(_ref.ssm_scan_ref, tensors[:6], tensors[6:], needs)
+
+
+class _GraphedScanBackward:
+    """``scan_backward_body`` for one signature, captured once as a CUDA
+    graph over static input buffers.  A call copies its inputs in,
+    replays on the caller's current stream, and returns clones of the
+    gradients (the next replay overwrites the static outputs)."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor],
+                 needs: Tuple[bool, ...]):
+        dev = tensors[0].device
+        self.static_in = [
+            t.detach().clone(memory_format=torch.contiguous_format)
+            for t in tensors]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):     # warm-up: cuBLAS handles, caches
+            scan_backward_body(self.static_in, needs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: another worker thread may allocate or wait on its
+        # own events while this one captures
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.static_out = scan_backward_body(self.static_in, needs)
+
+    def __call__(self, tensors: Sequence[torch.Tensor]
+                 ) -> Tuple[Optional[torch.Tensor], ...]:
+        for dst, src in zip(self.static_in, tensors):
+            dst.copy_(src)
+        self.graph.replay()
+        return tuple(None if g is None else g.clone()
+                     for g in self.static_out)
+
+
+class ScanBackwardGraphs:
+    """One captured ``scan_backward_body`` per input signature (device,
+    shapes, dtypes, ``needs``), current stream and calling thread, so no
+    two threads or streams ever share a graph's static buffers; captures
+    are serialised by one lock.  A capture that fails raises: the card
+    never falls back to the eager backward."""
+
+    def __init__(self):
+        self._graphs: Dict[tuple, _GraphedScanBackward] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, tensors: Sequence[torch.Tensor],
+                 needs: Sequence[bool]) -> Tuple[Optional[torch.Tensor], ...]:
+        dev = tensors[0].device
+        needs = tuple(bool(n) for n in needs)
+        key = (dev, tuple((tuple(t.shape), t.dtype) for t in tensors), needs,
+               torch.cuda.current_stream(dev).cuda_stream,
+               threading.get_ident())
+        graph = self._graphs.get(key)
+        if graph is None:
+            with self._lock:
+                graph = _GraphedScanBackward(tensors, needs)
+                self._graphs[key] = graph
+        return graph(tensors)
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def summary(self) -> list:
+        """Each graph's key (needs, stream, thread) and the bytes of the
+        allocator's segments in its private pool, which hold the
+        recompute's per-step intermediates between replays."""
+        segments = torch.cuda.memory_snapshot()
+        out = []
+        for (dev, _, needs, stream, thread), g in self._graphs.items():
+            pool = tuple(g.graph.pool())
+            out.append({"device": str(dev), "needs": needs, "stream": stream,
+                        "thread": thread, "pool_bytes": sum(
+                            seg["total_size"] for seg in segments
+                            if tuple(seg["segment_pool_id"]) == pool)})
+        return out
+
+    def pool_bytes(self) -> int:
+        """Device memory the captured graphs' private pools hold."""
+        return sum(g["pool_bytes"] for g in self.summary())
+
+    def clear(self) -> None:
+        """Drop every graph and its pool (after the last backward of a
+        signature; the next call captures again)."""
+        with self._lock:
+            self._graphs.clear()
+
+
+#: the process's scan-backward graphs (``_SSMScan.backward`` on the card)
+SCAN_BACKWARD_GRAPHS = ScanBackwardGraphs()
+
+
 class _SSMScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, delta, a, bmat, cmat, h0, chunk: int):
@@ -158,10 +264,15 @@ class _SSMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh_last):
         # The reference has no backward kernel either: its custom_vjp
-        # recomputes through the sequential oracle.
+        # recomputes through the sequential oracle.  On the card that
+        # recompute replays as one CUDA graph.
+        tensors = (*ctx.saved_tensors, dy, dh_last)
+        needs = ctx.needs_input_grad[:6]
         with torch.profiler.record_function(SSM_SCAN_BACKWARD):
-            grads = _vjp_through(_ref.ssm_scan_ref, ctx.saved_tensors,
-                                 (dy, dh_last), ctx.needs_input_grad[:6])
+            if dy.is_cuda:
+                grads = SCAN_BACKWARD_GRAPHS(tensors, needs)
+            else:
+                grads = scan_backward_body(tensors, needs)
         return grads + (None,)
 
 

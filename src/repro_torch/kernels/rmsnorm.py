@@ -28,7 +28,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
         return rmsnorm_plain(x, weight, eps)
     dev = cuda.require_cuda("rmsnorm", x, weight)
     d = x.shape[-1]
-    if tuple(weight.shape) != (d,):
+    if weight.shape != (d,):
         raise ValueError(f"rmsnorm: weight {tuple(weight.shape)} does not "
                          f"match the last axis of x {tuple(x.shape)}")
     if weight.dtype != x.dtype:
@@ -36,12 +36,9 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
                         f"{x.dtype}")
     code = cuda.dtype_code(x, "rmsnorm")
     out = torch.empty_like(x)
-    rows = x.numel() // d if d else 0
-    if rows == 0:
-        return out
-    lib = cuda.library()
-    cuda.check(lib.repro_rmsnorm(
-        x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d, float(eps),
-        code, dev.index, cuda.stream(dev)), "rmsnorm")
-    LAUNCHES.rmsnorm += 1
+    if out.numel():
+        cuda.check(cuda.function("repro_rmsnorm")(
+            x.data_ptr(), weight.data_ptr(), out.data_ptr(), out.numel() // d,
+            d, eps, code, dev.index, cuda.stream(dev)), "rmsnorm")
+        LAUNCHES.rmsnorm += 1
     return out

@@ -12,6 +12,7 @@ these sweep small and ragged ones.
 from __future__ import annotations
 
 import math
+import threading
 
 import pytest
 import torch
@@ -19,6 +20,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_compress as fc
 from repro_torch.kernels import fused_update as fu
+from repro_torch.kernels import ref
 from repro_torch.kernels import registry
 from repro_torch.kernels import residual_rmsnorm as rrn
 from repro_torch.kernels import rmsnorm as rn
@@ -166,13 +168,26 @@ def test_norms_match_plain(gen, dtype, shape):
 ])
 def test_flash_matches_plain(gen, dtype, b, lq, lk, hq, hkv, d, causal,
                              window):
+    """f32: atol 2e-5.  bf16 (P_hi V + P_lo V on the tensor cores): every
+    element within one bf16 ulp of the plain version, the ulp of the
+    larger of the two values counted at no less than that of 2^-8 (below
+    it the f32 sums' own error can exceed a bf16 ulp;
+    tests/test_torch_flash.py)."""
     q = _rand(gen, (b, lq, hq, d), dtype)
     k = _rand(gen, (b, lk, hkv, d), dtype)
     v = _rand(gen, (b, lk, hkv, d), dtype)
     out = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
-    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    tol = 2e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=0, atol=2e-5)
+        return
+    a, b_ = out.float(), want.float()
+    ulp = torch.maximum(_bf16_ulp(a.abs().clamp(min=2.0 ** -8)),
+                        _bf16_ulp(b_.abs().clamp(min=2.0 ** -8)))
+    beyond = (a - b_).abs() > ulp
+    assert not bool(beyond.any()), (
+        f"{int(beyond.sum())} elements beyond one bf16 ulp, max |err| "
+        f"{float((a - b_).abs().max())}")
 
 
 def test_flash_bf16_counts_one_launch_per_call(gen):
@@ -283,6 +298,88 @@ def test_ssm_scan_registry_backward_on_cuda_matches_plain(gen):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+SCAN_NEEDS = (True,) * 5 + (False,)    # h0 is zeros in the model
+
+
+def _scan_backward_inputs(gen, b, l, di, ds):
+    """The six saved inputs of the scan (f32, h0 zeros), dy, dh_last."""
+    xs = _ssm_inputs(gen, b, l, di, ds, torch.float32, False)
+    return (*xs, _rand(gen, (b, l, di), torch.float32),
+            _rand(gen, (b, di, ds), torch.float32))
+
+
+def _eager_scan_backward(ts):
+    return registry._vjp_through(ref.ssm_scan_ref, ts[:6], ts[6:],
+                                 SCAN_NEEDS)
+
+
+def _assert_bitwise(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b,l,di,ds", [(2, 40, 70, 16),
+                                       (2, 1024, 8192, 16)])  # hybrid's
+def test_graphed_scan_backward_is_bitwise_the_eager_one(gen, b, l, di, ds):
+    """One capture, then replays: two successive calls with different
+    inputs (the static buffers refilled) each give the eager
+    ``_vjp_through``'s gradients bit for bit."""
+    graphs = registry.ScanBackwardGraphs()
+    for _ in range(2):
+        ts = _scan_backward_inputs(gen, b, l, di, ds)
+        got = graphs(ts, SCAN_NEEDS)
+        _assert_bitwise(got, _eager_scan_backward(ts))
+    assert len(graphs) == 1 and graphs.pool_bytes() > 0
+    graphs.clear()
+
+
+def test_graphed_scan_backward_two_threads_at_once(gen):
+    """Two threads running the backward at once get a graph each (no
+    shared static buffers) and their own gradients, bit for bit."""
+    graphs = registry.ScanBackwardGraphs()
+    cases = [_scan_backward_inputs(gen, 2, 96, 160, 16) for _ in range(2)]
+    wants = [_eager_scan_backward(ts) for ts in cases]
+    results, errors = [None, None], []
+    start = threading.Barrier(2, timeout=120)
+
+    def run(i):
+        try:
+            start.wait()
+            for _ in range(3):
+                got = graphs(cases[i], SCAN_NEEDS)
+            torch.cuda.current_stream().synchronize()
+            results[i] = got
+        except BaseException as e:   # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert len(graphs) == 2
+    for got, want in zip(results, wants):
+        _assert_bitwise(got, want)
+    graphs.clear()
+
+
+def test_registry_scan_backward_replays_a_graph(gen):
+    """``_SSMScan.backward`` on the card goes through the process's
+    graphs: the same gradients as the eager body, bit for bit."""
+    ts = _scan_backward_inputs(gen, 2, 64, 96, 16)
+    xs = [t.clone().requires_grad_(n) for t, n in zip(ts[:6], SCAN_NEEDS)]
+    registry.SCAN_BACKWARD_GRAPHS.clear()
+    y, h = registry.ssm_scan(*xs, chunk=16, kernels="ssm_scan=pallas")
+    got = torch.autograd.grad((y, h), xs[:5], ts[6:])
+    assert len(registry.SCAN_BACKWARD_GRAPHS) == 1
+    _assert_bitwise(got, _eager_scan_backward(ts)[:5])
+    registry.SCAN_BACKWARD_GRAPHS.clear()
+
+
 def test_ssm_scan_refuses_what_it_cannot_launch_on(gen):
     u, delta, a, bmat, cmat, h0 = _ssm_inputs(gen, 1, 8, 16, 16,
                                               torch.float32, False)
@@ -312,6 +409,32 @@ def _assert_norm_close(got, want, dtype):
     else:
         ulp = torch.maximum(_bf16_ulp(a), _bf16_ulp(b))
         assert bool(((a - b).abs() <= ulp).all()), (a - b).abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 7, 4096])
+@pytest.mark.parametrize("d", [64, 2560, 2561, 4096, 8192, 24576])
+def test_rmsnorm_every_path(gen, dtype, rows, d):
+    """Every path of csrc/rmsnorm.cu: the register path at the widths the
+    models use (64, 2560, 4096) and 8192, d = 2561 (not whole 16-byte
+    vectors: the loop path, one element a lane), d = 24576 (wider than
+    the register path holds: the loop path on vectors), and an aligned
+    buffer viewed one element off (the loop path's scalar form).  One
+    launch a call."""
+    if rows * d > (1 << 26):   # keep each tensor within 256 MB of f32
+        rows = (1 << 26) // d
+    x = _rand(gen, (rows, d), dtype)
+    w = (1.0 + 0.1 * _rand(gen, (d,), torch.float32)).to(dtype)
+    before = LAUNCHES.rmsnorm
+    _assert_norm_close(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w), dtype)
+    assert LAUNCHES.rmsnorm == before + 1
+    n = rows * d
+    bx = _rand(gen, (n + 1,), dtype)
+    bw = (1.0 + 0.1 * _rand(gen, (d + 1,), torch.float32)).to(dtype)
+    xv, wv = bx[1:].view(rows, d), bw[1:]
+    assert xv.data_ptr() % 16 and xv.is_contiguous()
+    _assert_norm_close(rn.rmsnorm(xv, wv), rn.rmsnorm_plain(xv, wv), dtype)
+    assert LAUNCHES.rmsnorm == before + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

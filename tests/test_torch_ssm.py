@@ -173,6 +173,54 @@ def test_gradients_match_jax_grad_of_the_oracle(variant):
                                    atol=2e-6 * scale)
 
 
+@pytest.mark.parametrize("needs", [
+    (True,) * 6,
+    (True, True, True, True, True, False),     # h0 zeros, as in the model
+    (False, True, False, False, True, False),
+])
+def test_scan_backward_body_is_the_eager_vjp(needs):
+    """``registry.scan_backward_body`` (what the card captures as a CUDA
+    graph) run eagerly: bitwise ``_vjp_through`` of the oracle, and the
+    reference's ``jax.vjp`` of its oracle within the gradient tolerance
+    above (rtol 1e-4, atol 2e-6 of the largest gradient)."""
+    xs = _inputs(2, 48, 8, 16, h0_nonzero=True, seed=4)
+    jx, tx = _both(xs, "float32")
+    r = np.random.RandomState(5)
+    dy = r.randn(2, 48, 8).astype(np.float32)
+    dh = r.randn(2, 8, 16).astype(np.float32)
+    douts = (torch.from_numpy(dy), torch.from_numpy(dh))
+    got = treg.scan_backward_body((*tx, *douts), needs)
+    want = treg._vjp_through(tref.ssm_scan_ref, tx, douts, needs)
+    _, vjp = jax.vjp(jref.ssm_scan_ref, *jx)
+    gj = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    assert len(got) == 6
+    for g, w, j, n in zip(got, want, gj, needs):
+        assert (g is None) == (not n) and (w is None) == (not n)
+        if not n:
+            continue
+        assert torch.equal(g, w)
+        scale = max(1.0, float(np.abs(np.asarray(j)).max()))
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=1e-4,
+                                   atol=2e-6 * scale)
+
+
+def test_cpu_backward_runs_eagerly_without_a_graph():
+    """On the CPU ``_SSMScan.backward`` is the eager body: the same
+    gradients bit for bit, and no graph is captured."""
+    xs = _inputs(2, 40, 8, 16, h0_nonzero=False, seed=6)
+    _, tx = _both(xs, "float32")
+    tx = [t.requires_grad_(i != 5) for i, t in enumerate(tx)]
+    before = len(treg.SCAN_BACKWARD_GRAPHS)
+    y, h = treg.ssm_scan(*tx, chunk=8, kernels="ssm_scan=pallas")
+    dy, dh = torch.ones_like(y), torch.full_like(h, 0.5)
+    got = torch.autograd.grad((y, h), tx[:5], (dy, dh))
+    want = treg.scan_backward_body(
+        (*(t.detach() for t in tx), dy, dh), (True,) * 5 + (False,))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert len(treg.SCAN_BACKWARD_GRAPHS) == before
+
+
 def test_chunk_is_clamped_as_the_reference_clamps_it():
     xs = _inputs(1, 12, 4, 8, h0_nonzero=True, seed=3)
     _, tx = _both(xs, "float32")
