@@ -23,7 +23,9 @@ after an error:
            exponential, one per (b, t, d, s)
   kernels  each kernel against its plain PyTorch version on the card, at
            the main path's shapes and a few others (ragged sizes, f32 and
-           bf16), with its tolerance; median CUDA-event times of the
+           bf16; serving's prefill attention and norm shapes), with its
+           tolerance, and serving's ``quantize_kv`` bitwise against the
+           CPU; median CUDA-event times of the
            kernel, the plain version and one library call where PyTorch
            has one, and the least time the card could take (bound); for
            attention's bf16 and f32 train shapes, the norms' dense and
@@ -108,6 +110,32 @@ after an error:
            smoke size: a worker killed while gated over shmem and
            respawned, push frames dropped over tcp with reconnects, and
            a server killed inside its reshard that resumes untorn
+  serve parity
+           the h2o-danube and Jamba smoke configs (f32, Jamba with MoE)
+           decoded on the card from one packed wire by
+           ``repro_torch.serve.Decoder``, with the kernels and with the
+           plain formulations: logits along the plain decoder's greedy
+           tokens within 2e-4; and the dense ring cache (window 16)
+           decoded 40 positions, against the full forward at each
+  serve    the train configuration (full width, 2 trainer threads, the
+           second 2x slower) for 24 steps while 2 replica threads serve
+           16 requests each (prompts of 512, 32 new tokens, batches of
+           8, admitted within 4 applied updates once the server has
+           applied one): ``run_train``'s checks (arrival staleness up
+           to s_upper + 1 in a run this long, no release past s_upper),
+           every request served with no violation and a version above 0,
+           and the launches of every decode batch, warm-ups included:
+           24 ``flash_attention_fwd``, 24 ``residual_rmsnorm`` and 25 +
+           49 x 31 ``rmsnorm``; requests/s, latency, each replica's
+           refreshes and bytes, peaks; then one batch with the card to
+           itself: its wall time, the prefill's and a token's time, and
+           the device's idle share (``torch.profiler``)
+  serve transport
+           the transport configuration (13 layers, 2 worker processes
+           over tcp) with 1 spawned replica process refreshing each
+           second: the same checks, the replica process's launches
+           exactly per batch, its refresh bytes, and pushes/s beside the
+           transport phase's
 
 The last two lines of standard output are the JSON kernel table and the
 contract line ``{"ok": true, "device": {...}}``.  This script imports
@@ -458,13 +486,24 @@ def check_fused_compress(torch, timer, fc, main_rows):
     return main
 
 
+#: serving's norm shapes at full width: the decode step's (max_batch, 1,
+#: d_model) rows (2 n_layers + 1 launches a token) and a prefill batch
+#: of max_batch prompts of prompt_len
+SERVE_DECODE_ROWS = (8, 1, 2560)
+SERVE_PREFILL_ROWS = (8, 512, 2560)
+
+
 def check_norms(torch, timer, rn, rrn):
     g = torch.Generator(device="cuda").manual_seed(2)
     main = {}
-    #: the dense step's shape (the table's row) and the Jamba step's
-    timed_device = ((4, 1024, 2560), (2, 1024, 4096))
+    #: the dense step's shape (the table's row), the Jamba step's, and
+    #: serving's: a decode step's rows and a prefill batch
+    timed_device = ((4, 1024, 2560), (2, 1024, 4096), SERVE_DECODE_ROWS,
+                    SERVE_PREFILL_ROWS)
     for dt, shape in ((torch.bfloat16, (4, 1024, 2560)),
                       (torch.bfloat16, (2, 1024, 4096)),
+                      (torch.bfloat16, SERVE_DECODE_ROWS),
+                      (torch.bfloat16, SERVE_PREFILL_ROWS),
                       (torch.float32, (4, 1024, 2560)),
                       (torch.float32, (3, 7, 2561)),
                       (torch.bfloat16, (5, 1000))):
@@ -543,6 +582,29 @@ def check_norms(torch, timer, rn, rrn):
     return main
 
 
+def check_quantize_kv(torch):
+    """Serving's int8 KV quantisation (plain PyTorch, no kernel of its
+    own) on the card against the CPU on the same input, at the full
+    width's cache shape: codes and scales bit for bit (both divisions
+    are tensor by tensor)."""
+    from repro_torch.models.layers import quantize_kv
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn((8, 544, 8, 80), generator=g, device="cuda")
+             * 3.0).to(dt)
+        q, sc = quantize_kv(x)
+        qc, scc = quantize_kv(x.cpu())
+        codes = int((q.cpu() != qc).sum())
+        scales = int((sc.cpu() != scc).sum())
+        say({"kernel": "quantize_kv (plain)", "case": str(dt)[6:],
+             "shape": list(x.shape), "codes_differing": codes,
+             "scales_differing": scales, "tolerance": "bitwise"})
+        if codes or scales:
+            fail(f"quantize_kv {dt}: {codes} codes and {scales} scales "
+                 "differ from the CPU's")
+    return {}
+
+
 def unmasked_pairs(lq: int, lk: int, causal: bool, window) -> int:
     total = 0
     for i in range(lq):
@@ -551,6 +613,10 @@ def unmasked_pairs(lq: int, lk: int, causal: bool, window) -> int:
         lo = max(0, qpos - window + 1) if window else 0
         total += max(0, hi - lo + 1)
     return total
+
+
+#: serving's prefill: 8 prompts of 512 at h2o-danube's heads
+SERVE_PREFILL_ATTENTION = "serve prefill"
 
 
 def check_flash(torch, timer, fa):
@@ -578,6 +644,8 @@ def check_flash(torch, timer, fa):
          torch.bfloat16, False),
         ("hybrid path: jamba attention", 2, 1024, 1024, 32, 8, 128, True,
          None, torch.bfloat16, False),
+        (SERVE_PREFILL_ATTENTION, 8, 512, 512, 32, 8, 80, True, 4096,
+         torch.bfloat16, False),
     ]
     main, failures = None, []
     for (label, b, lq, lk, hq, hkv, d, causal, window, dt,
@@ -647,7 +715,7 @@ def check_flash(torch, timer, fa):
         plain_ms = timer(plain)
         lib_ms = None
         extra = {}
-        if is_main or label == "f32 train shape":
+        if is_main or label in ("f32 train shape", SERVE_PREFILL_ATTENTION):
             # causal with window >= lk: exactly is_causal
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa = lambda: F.scaled_dot_product_attention(
@@ -868,17 +936,25 @@ def check_parity(torch, api, label: str, spec_of, tol: float = 1e-4):
 
 
 def run_train(torch, api, label: str, spec, per_step, *, spawned=False,
-              extra=None, **overrides):
-    """8 DSSP steps of ``spec`` (2 workers, the second slower) through
-    ``build_session``; losses finite, staleness within s_upper, DSSP
-    extensions == credit releases, every kernel's launches exactly what
-    the run implies (``per_step``: launches per worker step; the
-    server's ``fused_update`` once per shard version), peak below the
-    card's 80 GB.  ``spawned``: the workers are processes
+              extra=None, steps: int = 8, also=None, arrival_slack: int = 0,
+              **overrides):
+    """``steps`` (8) DSSP steps of ``spec`` (2 workers, the second
+    slower) through ``build_session``; losses finite, no worker released
+    past s_upper and the arrival staleness within s_upper (plus
+    ``arrival_slack``: in a run long enough for the slower worker to
+    fall s_upper behind, the push that arrives one past the bound is
+    applied and blocked, so it is recorded at s_upper + 1), DSSP
+    extensions == credit releases, every kernel's launches
+    exactly what the run implies (``per_step``: launches per worker
+    step; the server's ``fused_update`` once per shard version; ``also(
+    session)``, called after the run, gives the launches of anything
+    else the session ran in this process, e.g. serving replicas), peak
+    below the card's 80 GB.  ``spawned``: the workers are processes
     (``ps-transport``), each holding ``per_step`` in its own
     ``WorkerResult``, and this process launches only the server's
     kernel.  ``extra(server, workers, m, wall)`` checks further and
-    returns fields for the record.  Returns the launches."""
+    returns fields for the record.  Returns the record, with the
+    launches."""
     from repro_torch.obs.trace import TRACE
     from repro_torch.perfcount import LAUNCHES, TRANSPORT
     free_device_memory(torch)
@@ -889,7 +965,7 @@ def run_train(torch, api, label: str, spec, per_step, *, spawned=False,
     LAUNCHES.reset()
     TRANSPORT.reset()
     t0 = time.monotonic()
-    m = session.run(8)
+    m = session.run(steps)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = LAUNCHES.snapshot()
@@ -897,24 +973,32 @@ def run_train(torch, api, label: str, spec, per_step, *, spawned=False,
     TRACE.disable()
     server = session.server
     workers = session.results if spawned else session.workers
+    more = also(session) if also is not None else {}
     session.close()
 
     losses = [l for _, _, l in server.metrics.loss_trajectory]
     passes = sum(w.iterations_done for w in workers)
-    if passes != 8 or len(losses) != 8 or not all(map(math.isfinite, losses)):
+    if (passes != steps or len(losses) != steps
+            or not all(map(math.isfinite, losses))):
         fail(f"{label}: {passes} steps, losses {losses}")
-    if m["max_staleness"] > spec.sync.s_upper:
-        fail(f"{label}: staleness {m['max_staleness']} > s_upper")
-    ext = {(e["worker"], e["clock"]) for e in events
-           if e["name"] == "dssp_decision"
-           and e["args"]["reason"] in ("grant", "credit_spend")}
+    if m["max_staleness"] > spec.sync.s_upper + arrival_slack:
+        fail(f"{label}: staleness {m['max_staleness']} > s_upper"
+             + (f" + {arrival_slack}" if arrival_slack else ""))
+    decisions = [e for e in events if e["name"] == "dssp_decision"]
+    released = [e["args"]["gap"] for e in decisions
+                if e["args"]["reason"] != "block"]
+    if released and max(released) > spec.sync.s_upper:
+        fail(f"{label}: a worker released at gap {max(released)} > "
+             "s_upper")
+    ext = {(e["worker"], e["clock"]) for e in decisions
+           if e["args"]["reason"] in ("grant", "credit_spend")}
     if len(ext) != m["credit_releases"]:
         fail(f"{label}: {len(ext)} DSSP extensions != "
              f"{m['credit_releases']} credit releases")
     rows = server.plan.wire_layout().shard_rows
     # no coalescing and no compression on this path
-    expected = {name: 0 if spawned else per_step.get(name, 0) * passes
-                for name in launches}
+    expected = {name: (0 if spawned else per_step.get(name, 0) * passes)
+                + more.get(name, 0) for name in launches}
     expected["fused_update"] = sum(st.version for st, r in
                                    zip(server.shards, rows) if r)
     if launches != expected:
@@ -939,7 +1023,7 @@ def run_train(torch, api, label: str, spec, per_step, *, spawned=False,
     if extra is not None:
         rec.update(extra(server, workers, m, wall))
     say(rec)
-    return launches
+    return rec
 
 
 #: The server phase's linger: long enough for the two workers' pushes to
@@ -1187,8 +1271,8 @@ def run_transport(torch, api, per_step):
         return rec
 
     sampler = MemoryUsedSampler()
-    run_train(torch, api, "transport", spec, per_step, spawned=True,
-              extra=extra, model_config=cut, timeout=900.0)
+    return run_train(torch, api, "transport", spec, per_step, spawned=True,
+                     extra=extra, model_config=cut, timeout=900.0)
 
 
 def run_transport_paths(torch, api, per_step):
@@ -1242,6 +1326,267 @@ def run_transport_paths(torch, api, per_step):
              f"push to {live} shards")
     say({"phase": "transport paths", "run": "inproc endpoint, external "
          "client", "rows": rows, "applied_updates": version})
+
+
+# -------------------------------------------------------------------- serve
+#: serving at full width (each replica: 16 requests of 512-token prompts,
+#: 32 new tokens each, batches of 8), fed by delta pulls and admitted
+#: within 4 applied updates of the server once it has applied one
+SERVE = dict(replicas=2, prompt_len=512, max_new=32, max_batch=8,
+             requests=16, staleness_bound=4, start_at_version=1,
+             refresh_every_s=0.05)
+#: the serve phase's trainer steps (2 workers): the train phase's warm
+#: steps take 0.63-0.79 s, and a replica's warm-up and two batches take
+#: seconds, so 24 steps keep training going while the replicas serve
+SERVE_STEPS = 24
+
+
+def serve_batch_launches(cfg, max_new: int):
+    """Kernel launches of one decode batch of a dense config: the
+    prefill's attention and fused norm a layer, its norm a layer and the
+    final one; then two norms a layer and the final one a later
+    token."""
+    n = cfg.n_layers
+    return {"flash_attention_fwd": n, "residual_rmsnorm": n,
+            "rmsnorm": n + 1 + (2 * n + 1) * (max_new - 1)}
+
+
+def teacher_forced_logits(torch, dec, wire, prompts, tokens):
+    """``dec``'s logits at every generated position, fed ``tokens``
+    (b, max_new) after the prompts: (b, max_new, v)."""
+    params = dec.params(wire)
+    last, state = dec.prefill(params, torch.from_numpy(prompts).long()
+                              .to(dec.device))
+    out = [last]
+    for j in range(tokens.shape[1] - 1):
+        tok = torch.from_numpy(tokens[:, j:j + 1]).long().to(dec.device)
+        last, state = dec.step(params, tok, state, prompts.shape[1] + j)
+        out.append(last)
+    return torch.stack(out, dim=1)
+
+
+def check_serve_parity(torch, tol: float = 2e-4, device: str = "cuda:0"):
+    """The h2o-danube and Jamba smoke configs (f32; Jamba with its MoE)
+    decoded on the card from one wire, with the kernels and with the
+    plain formulations: logits along the plain decoder's greedy tokens
+    agree within ``tol``.  Then the dense ring cache (the smoke window,
+    16) decoded 40 positions, against the full forward at each."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import registry, transformer
+    from repro_torch.ps.sharded.plan import build_shard_plan
+    from repro_torch.serve import Decoder
+    rec = {"phase": "serve parity", "tol": tol}
+    rng = np.random.RandomState(0)
+    for arch in ("h2o-danube-1.8b", "jamba-v0.1-52b"):
+        cfg = get_smoke_config(arch)
+        params = registry.init_params(cfg, seed=0, device=device)
+        plan = build_shard_plan(params, 4)
+        wire = plan.pack(params)
+        prompts = rng.randint(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        logits, tokens = {}, None
+        for kernels in ("xla", "auto"):
+            dec = Decoder(dataclasses.replace(cfg, kernels=kernels), plan,
+                          prompt_len=16, max_new=8, max_batch=4,
+                          device=device)
+            if tokens is None:
+                tokens = dec.decode(wire.clone(), prompts)
+            logits[kernels] = teacher_forced_logits(
+                torch, dec, wire.clone(), prompts, tokens)
+            rec[f"{arch} tokens ({kernels})"] = \
+                dec.decode(wire.clone(), prompts).tolist()
+        err = (logits["auto"] - logits["xla"]).abs().max().item()
+        rec[f"{arch} max_abs_err"] = err
+        if not err <= tol:
+            fail(f"serve parity ({arch}): kernel and plain logits differ "
+                 f"by {err}")
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    params = registry.init_params(cfg, seed=0, device=device)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 40))).to(
+        device)
+    with torch.inference_mode():
+        full, _ = transformer.forward(cfg, params, toks)
+        cache = transformer.init_cache(cfg, 2, 40, device=device)
+        if cache["k"].shape[2] != cfg.sliding_window:
+            fail(f"serve parity: ring of {cache['k'].shape[2]} slots")
+        err = 0.0
+        for i in range(40):
+            logits, cache = transformer.forward_decode(
+                cfg, params, toks[:, i:i + 1], cache, i)
+            err = max(err, (logits[:, 0] - full[:, i]).abs().max().item())
+    rec["ring (window 16, 40 positions) max_abs_err"] = err
+    say(rec)
+    if not err <= tol:
+        fail(f"serve parity: the ring cache's logits differ from the full "
+             f"forward's by {err}")
+
+
+def time_decode_batch(torch, cfg, plan, wire, sv, device: str = "cuda:0"):
+    """One decode batch of ``cfg`` on ``wire``, the card to itself: the
+    wall time of an untraced batch, the prefill's and a later token's
+    time (synchronised), and the device's busy time over a traced batch
+    (``torch.profiler``), whence its idle share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Decoder
+    dec = Decoder(cfg, plan, prompt_len=sv["prompt_len"],
+                  max_new=sv["max_new"], max_batch=sv["max_batch"],
+                  device=device)
+    prompts = np.random.RandomState(11).randint(
+        0, cfg.vocab_size, (sv["max_batch"], sv["prompt_len"])).astype(
+        np.int32)
+    dec.decode(wire, prompts)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    tokens = dec.decode(wire, prompts)
+    batch_ms = (time.monotonic() - t0) * 1e3
+    if tokens.shape != (sv["max_batch"], sv["max_new"]) or not (
+            0 <= tokens.min() and tokens.max() < cfg.vocab_size):
+        fail(f"serve: decoded tokens {tokens.shape}, range "
+             f"[{tokens.min()}, {tokens.max()}]")
+    params = dec.params(wire)
+    toks = torch.from_numpy(prompts).long().to(device)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    last, state = dec.prefill(params, toks)
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    tok = torch.argmax(last, dim=-1)[:, None]
+    t0 = time.monotonic()
+    for j in range(sv["max_new"] - 1):
+        logits, state = dec.step(params, tok, state, sv["prompt_len"] + j)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    token_ms = (time.monotonic() - t0) * 1e3 / (sv["max_new"] - 1)
+    del params, state, last, logits
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dec.decode(wire, prompts)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == cuda and not e.is_user_annotation]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    return {"batch_ms": batch_ms, "prefill_ms": prefill_ms,
+            "decode_ms_per_token": token_ms,
+            "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+            "kernels_per_batch": len(kernels),
+            "idle_share": (1.0 - busy_ms / batch_ms if busy_ms > 0
+                           else "not measured")}
+
+
+def check_serving(tag, m, results, requests: int, bound: int):
+    """The serving invariants: every request served, no admission past
+    the bound, a version above 0 served, no replica failed."""
+    sv = m["serve"]
+    if sv["requests"] != requests or sv["violations"] != 0 \
+            or sv["staleness_max"] > bound or not sv["version_max"] > 0:
+        fail(f"{tag}: serve metrics {sv}")
+    for r in results:
+        if r.error or not r.refreshes:
+            fail(f"{tag}: replica {r.replica_id}: {r.error or r}")
+
+
+def run_serve(torch, api, per_step, *, device: str = "cuda:0"):
+    """Training and serving on one card: ``run_train``'s checks on the
+    full-width train configuration with ``SERVE_STEPS`` steps while 2
+    replica threads serve from the in-heap server; every request served
+    within the staleness bound, and the launches of every decode batch
+    (warm-ups included) on top of the trainers'.  Then one batch timed
+    with the card to itself.  Returns the run's record."""
+    from repro_torch.configs import get_config
+    cfg = get_config("h2o-danube-1.8b")
+    spec = main_path_spec(api, full=True, workers=2, sync="dssp").replace(
+        serve=api.ServeSpec(**SERVE))
+    per_batch = serve_batch_launches(cfg, SERVE["max_new"])
+    held = {}
+
+    def also(session):
+        results = held["results"] = session.serve_results
+        held["wire"] = session.server.pull_packed().clone()
+        held["plan"] = session.server.plan
+        batches = sum(r.batches for r in results) + len(results)
+        held["batches"] = batches
+        return {name: n * batches for name, n in per_batch.items()}
+
+    def extra(server, workers, m, wall):
+        results = held["results"]
+        check_serving("serve", m, results,
+                      SERVE["replicas"] * SERVE["requests"],
+                      SERVE["staleness_bound"])
+        return {"serve": m["serve"], "decode_batches": held["batches"],
+                "final_version": server.version,
+                "served_versions": [r.served_versions for r in results],
+                "replica_refreshes": [r.refreshes for r in results],
+                "replica_refresh_bytes": [r.refresh_bytes for r in results],
+                "memory_used_peak_mib": sampler.stop()}
+
+    sampler = MemoryUsedSampler()
+    rec = run_train(torch, api, "serve", spec, per_step, steps=SERVE_STEPS,
+                    also=also, extra=extra, arrival_slack=1)
+    sv = rec["serve"]
+    say(f"serve: requests/s {sv['requests_per_s']}, p50 ms {sv['p50_ms']}, "
+        f"p99 ms {sv['p99_ms']}, legal fraction {sv['legal_fraction']}, "
+        f"staleness max {sv['staleness_max']}, versions "
+        f"{sv['version_min']}-{sv['version_max']} of "
+        f"{rec['final_version']}")
+    for rid, (n, b) in enumerate(zip(rec["replica_refreshes"],
+                                     rec["replica_refresh_bytes"])):
+        say(f"serve: replica {rid}: {n} refreshes, {b} bytes")
+    say(f"serve: peak memory GB {rec['max_memory_allocated_gb']}, card "
+        f"memory.used peak MiB {rec['memory_used_peak_mib']}")
+    free_device_memory(torch)
+    timing = time_decode_batch(torch, cfg, held.pop("plan"),
+                               held.pop("wire"), SERVE, device=device)
+    say({"phase": "serve", "run": "one batch, the card to itself",
+         **timing})
+    return rec
+
+
+def run_serve_transport(torch, api, per_step):
+    """The transport configuration (13 layers) trained by 2 worker
+    processes over tcp while 1 spawned replica process serves from
+    delta pulls (refreshed each second): the serving invariants, the
+    replica's launches per batch exactly, ``run_train``'s checks.
+    Returns the run's record."""
+    cut = transport_config()
+    sv = dict(SERVE, replicas=1, refresh_every_s=1.0)
+    spec = main_path_spec(
+        api, full=True, workers=2, sync="dssp",
+        transport=api.TransportSpec(kind="tcp", host="127.0.0.1")).replace(
+        serve=api.ServeSpec(**sv))
+    per_batch = serve_batch_launches(cut, sv["max_new"])
+    held = {}
+
+    def also(session):
+        held["results"] = session.serve_results
+        return {}
+
+    def extra(server, workers, m, wall):
+        results = held["results"]
+        check_serving("serve transport", m, results, sv["requests"],
+                      sv["staleness_bound"])
+        for r in results:
+            want = {name: per_batch.get(name, 0) * (r.batches + 1)
+                    for name in r.launches}
+            if r.launches != want:
+                fail(f"serve transport: replica {r.replica_id} launches "
+                     f"{r.launches} != expected {want}")
+        return {"serve": m["serve"],
+                "replica_launches": [r.launches for r in results],
+                "replica_refreshes": [r.refreshes for r in results],
+                "replica_refresh_bytes": [r.refresh_bytes for r in results],
+                "replica_max_memory_allocated_gb":
+                    [r.peak_memory_bytes / 1e9 for r in results],
+                "worker_max_memory_allocated_gb":
+                    [r.peak_memory_bytes / 1e9 for r in workers],
+                "memory_used_peak_mib": sampler.stop()}
+
+    sampler = MemoryUsedSampler()
+    return run_train(torch, api, "serve transport", spec, per_step,
+                     spawned=True, also=also, extra=extra, model_config=cut,
+                     timeout=900.0)
 
 
 # ----------------------------------------------------------------------- ft
@@ -1793,7 +2138,7 @@ def profile_step(torch, api, label: str, spec, steps: int = 2, **overrides):
 
 #: kernel checks that ``--only`` can name
 CHECKS = ("fused_update", "norms", "flash", "fused_update_batched",
-          "fused_compress", "ssm_scan")
+          "fused_compress", "ssm_scan", "quantize_kv")
 
 
 def parse_args(argv):
@@ -1901,6 +2246,7 @@ def main(argv=None) -> None:
             torch, timer, fc, main_rows),
         "ssm_scan": lambda: {"ssm_scan": check_ssm_scan(
             torch, timer, ss, scan_instr)},
+        "quantize_kv": lambda: check_quantize_kv(torch),
     }
     table = {}
     for name in CHECKS:
@@ -1924,7 +2270,7 @@ def main(argv=None) -> None:
         main_path_spec(api, full=True, workers=2, sync="dssp"),
         {"flash_attention_fwd": n_layers * 2,
          "residual_rmsnorm": n_layers * 2,
-         "rmsnorm": n_layers * 2 + 1})                # + the final norm
+         "rmsnorm": n_layers * 2 + 1})["launches"]    # + the final norm
     # straggler 1.0: the one worker is also the last, which the spec
     # would otherwise slow down by sleeping
     profile_step(torch, api, "train",
@@ -1953,7 +2299,7 @@ def main(argv=None) -> None:
         {"ssm_scan": mamba_slots * 2, "flash_attention_fwd": groups * 2,
          "residual_rmsnorm": cut.n_layers * 2,
          "rmsnorm": cut.n_layers * 2 + 1},
-        model_config=cut)
+        model_config=cut)["launches"]
     launches["ssm_scan"] = hybrid["ssm_scan"]
     graphs = kreg.SCAN_BACKWARD_GRAPHS
     if len(graphs) == 0:
@@ -1975,9 +2321,9 @@ def main(argv=None) -> None:
 
     # -- transport, transport paths --------------------------------------
     layers = transport_config().n_layers
-    run_transport(torch, api, {"flash_attention_fwd": layers * 2,
-                               "residual_rmsnorm": layers * 2,
-                               "rmsnorm": layers * 2 + 1})
+    per_step = {"flash_attention_fwd": layers * 2,
+                "residual_rmsnorm": layers * 2, "rmsnorm": layers * 2 + 1}
+    transport = run_transport(torch, api, per_step)
     smoke = get_smoke_config("h2o-danube-1.8b")
     passes = smoke.n_layers * (2 if smoke.remat == "full" else 1)
     run_transport_paths(torch, api, {"flash_attention_fwd": passes,
@@ -1991,6 +2337,21 @@ def main(argv=None) -> None:
     run_ft_paths(torch, api, {"flash_attention_fwd": passes,
                               "residual_rmsnorm": passes,
                               "rmsnorm": passes + 1})
+
+    # -- serve parity, serve, serve transport ----------------------------
+    check_serve_parity(torch)
+    serve = run_serve(torch, api, {"flash_attention_fwd": n_layers * 2,
+                                   "residual_rmsnorm": n_layers * 2,
+                                   "rmsnorm": n_layers * 2 + 1})
+    for name in ("fused_update", "rmsnorm", "residual_rmsnorm",
+                 "flash_attention_fwd"):
+        launches[name] += serve["launches"][name]
+    served = run_serve_transport(torch, api, per_step)
+    say(f"serve transport: pushes/s {served['pushes_per_s']} with a "
+        f"replica (the transport phase's without one: "
+        f"{transport['pushes_per_s']}); replica refresh bytes "
+        f"{served['replica_refresh_bytes']} in "
+        f"{served['replica_refreshes']} refreshes")
 
     replaces = {
         "fused_update": "src/repro/kernels/fused_update.py:37",

@@ -18,8 +18,11 @@ sampler, worker ``MSG_TRACE`` flushes and spills merged into one trace,
 exported on close) and ``spec.ft`` (snapshots, resume-before-serve, a
 final snapshot on close; on ``ps-transport`` also the live-reshard
 trigger); ``reshard`` migrates a running transport session's server by
-hand.  The restartable out-of-process server is
-``repro_torch.ft.ServerProcess``.
+hand.  Both run ``spec.serve``'s replicas beside the trainers
+(``repro_torch.serve``): threads reading the in-heap server on
+``ps-threads``, spawned processes on the transport slots after the
+workers' on ``ps-transport``; ``metrics()["serve"]`` aggregates them.
+The restartable out-of-process server is ``repro_torch.ft.ServerProcess``.
 
     with build_session(spec) as session:      # start() on enter
         session.run(steps)                    # blocks until trained
@@ -30,8 +33,9 @@ Device rule: the session runs on ``cuda:0``.  ``device=`` is a
 build-time override like ``params=`` and ``step_fn=`` (not a ``RunSpec``
 field, so the schema stays the reference's); tests pass
 ``device="cpu"``.  With no ``device=`` and no CUDA, ``build_session``
-raises — it never carries on on the CPU.  Spawned workers run on the
-session's device too (``WorkerTask.device``).
+raises — it never carries on on the CPU.  Spawned workers and replicas
+run on the session's device too (``WorkerTask.device``,
+``ReplicaTask.device``).
 """
 
 from __future__ import annotations
@@ -505,6 +509,70 @@ def worker_batches(cfg, data_cfg, w: int, device: torch.device) -> Iterator:
 
 
 # ===================================================================
+# serving rig (both PS engines)
+# ===================================================================
+def _serve_threads(session) -> tuple:
+    """Start ``spec.serve.replicas`` replica threads against the live
+    in-heap server (the ``ps-threads`` engine's serve tier: replicas read
+    the server directly, no transport), on the session's device.
+    Returns ``(threads, results)``: join the threads, then read the
+    results list."""
+    spec = session.spec
+    if spec.serve.replicas <= 0:
+        return [], []
+    import threading
+    import traceback
+
+    from repro_torch.serve import (BatchQueue, Decoder, DirectSubscription,
+                                   ParamSubscriber, Refresher,
+                                   ReplicaResult, ReplicaWorker,
+                                   drive_replica, replica_chain)
+    cfg, _ = _model_setup(spec, session._ov.get("model_config"))
+    plan = session.server.plan
+    layout = plan.wire_layout()
+    sv = spec.serve
+    w = spec.ps.workers
+    results: List = [None] * sv.replicas
+    threads = []
+
+    def run_one(i: int, rid: int) -> None:
+        subscriber = ParamSubscriber(DirectSubscription(session.server, rid),
+                                     layout, replica_id=rid,
+                                     device=session.device)
+        refresher = Refresher(subscriber, sv.refresh_every_s)
+        refresher.start()
+        try:
+            decoder = Decoder(cfg, plan, prompt_len=sv.prompt_len,
+                              max_new=sv.max_new, max_batch=sv.max_batch,
+                              device=session.device)
+            decoder.warmup()
+            worker = ReplicaWorker(
+                rid, subscriber, BatchQueue(), decoder,
+                staleness_bound=sv.staleness_bound,
+                batch_window_ms=sv.batch_window_ms, max_batch=sv.max_batch)
+            results[i] = drive_replica(
+                worker, replica_chain(cfg, spec.data.seed, rid,
+                                      prompt_len=sv.prompt_len,
+                                      max_new=sv.max_new),
+                requests=sv.requests, prompt_len=sv.prompt_len,
+                pace_s=sv.request_every_ms / 1e3,
+                start_at_version=sv.start_at_version)
+        except Exception:
+            results[i] = ReplicaResult(rid, error=traceback.format_exc())
+        finally:
+            refresher.stop()
+
+    for i in range(sv.replicas):
+        # replica ids sit AFTER the trainers' (workers 0..W-1), the
+        # transport engine's slot convention
+        t = threading.Thread(target=run_one, args=(i, w + i), daemon=True,
+                             name=f"serve-replica-{w + i}")
+        t.start()
+        threads.append(t)
+    return threads, results
+
+
+# ===================================================================
 # engine: threaded parameter server
 # ===================================================================
 @register_engine("ps-threads")
@@ -522,6 +590,8 @@ class ThreadedPSSession(TrainingSession):
     workers: List = []
     obs_rig = None
     ft_rig = None
+    #: ``ReplicaResult`` per serving replica, after ``run``
+    serve_results = None
 
     def _start(self) -> None:
         params = self._ov.get("params")
@@ -552,8 +622,19 @@ class ThreadedPSSession(TrainingSession):
                      delta_pull=spec.wire.delta_pull,
                      loss_from_aux=loss_from_aux)
             for i in range(w)]
-        run_cluster(self.server, self.workers,
-                    timeout=self._ov.get("timeout", 1200.0))
+        serve_threads, serve_results = _serve_threads(self)
+        timeout = self._ov.get("timeout", 1200.0)
+        run_cluster(self.server, self.workers, timeout=timeout)
+        for t in serve_threads:
+            t.join(timeout=timeout)
+        if serve_threads:
+            from repro_torch.serve import raise_on_replica_failure
+            self.serve_results = serve_results
+            stuck = [t.name for t in serve_threads if t.is_alive()]
+            if stuck:
+                raise RuntimeError(f"serve replicas {stuck} still running "
+                                   f"after {timeout} s")
+            raise_on_replica_failure(serve_results)
         if self.obs_rig is not None:
             self.obs_rig.finish()
         if self.verbose:
@@ -589,6 +670,9 @@ class ThreadedPSSession(TrainingSession):
         out = _ps_metrics(self.engine, self.server, self.obs_rig)
         if self.ft_rig is not None:
             out["ft"] = self.ft_rig.metrics()
+        if self.serve_results is not None:
+            from repro_torch.serve import aggregate_serve
+            out["serve"] = aggregate_serve(self.serve_results)
         return out
 
     def _close(self) -> None:
@@ -620,6 +704,8 @@ class TransportPSSession(TrainingSession):
     transport = None
     #: ``WorkerResult`` per spawned worker, after ``run``
     results = None
+    #: ``ReplicaResult`` per spawned serving replica, after ``run``
+    serve_results = None
     obs_rig = None
     ft_rig = None
 
@@ -640,8 +726,12 @@ class TransportPSSession(TrainingSession):
             collector=self.obs_rig.collector if self.obs_rig else None)
         if self.obs_rig is not None:
             self.obs_rig.start(_obs_snapshot_fn(self.server))
+        # serving replicas take the transport slots AFTER the trainers'
+        # (shmem allocates one segment per id; tcp ignores the count):
+        # workers 0..W-1, replicas W..W+R-1
         self.transport = make_transport(
-            spec.transport.kind, n_workers=spec.ps.workers,
+            spec.transport.kind,
+            n_workers=spec.ps.workers + spec.serve.replicas,
             host=spec.transport.host, port=spec.transport.port)
         self.transport.serve(self.endpoint)
 
@@ -701,12 +791,30 @@ class TransportPSSession(TrainingSession):
         pool = ProcessWorkerPool(
             self.transport.address(), task, w,
             slowdowns=_speed_factors(spec, self._ov.get("speed_factors")))
+        rpool = None
+        if spec.serve.replicas > 0:
+            from repro_torch.serve import ReplicaPool, ReplicaTask
+            rtask = ReplicaTask.from_spec(
+                spec, device=str(self.device),
+                model_config=self._ov.get("model_config"),
+                trace_spill=(self.obs_rig.make_spill_dir()
+                             if self.obs_rig else ""))
+            rpool = ReplicaPool(self.transport.address(), rtask,
+                                spec.serve.replicas, first_id=w)
         pool.start()
+        if rpool is not None:
+            rpool.start()
         trigger_stop = _start_reshard_watch(self.server, spec.ft)
+        timeout = self._ov.get("timeout", 1200.0)
         try:
-            self.results = pool.join(
-                timeout=self._ov.get("timeout", 1200.0),
-                endpoint=self.endpoint)
+            self.results = pool.join(timeout=timeout,
+                                     endpoint=self.endpoint)
+            if rpool is not None:
+                # replicas drain their own request load; join them while
+                # the wire is still up (their last refreshes and trace
+                # flushes ride it)
+                self.serve_results = rpool.join(timeout=timeout,
+                                                endpoint=self.endpoint)
         finally:
             # Training is over either way: release gated workers and
             # tear the wire down before surfacing failures.
@@ -714,7 +822,12 @@ class TransportPSSession(TrainingSession):
                 trigger_stop.set()
             self.close()
             pool.terminate()
+            if rpool is not None:
+                rpool.terminate()
         raise_on_failure(self.results)
+        if rpool is not None:
+            from repro_torch.serve import raise_on_replica_failure
+            raise_on_replica_failure(self.serve_results)
         if self.verbose:
             m = self.server.metrics
             done = sum(r.iterations_done for r in self.results)
@@ -730,6 +843,9 @@ class TransportPSSession(TrainingSession):
                                          for r in self.results)
         if self.ft_rig is not None:
             out["ft"] = self.ft_rig.metrics()
+        if self.serve_results is not None:
+            from repro_torch.serve import aggregate_serve
+            out["serve"] = aggregate_serve(self.serve_results)
         return out
 
     def _close(self) -> None:

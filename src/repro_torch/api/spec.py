@@ -722,8 +722,6 @@ def _require_ported(spec: "RunSpec") -> None:
                     "of a family not ported yet)", "item 10"))
     _require(ps.kind != "none",
              _later("ps.kind='none'", "item 11 (the SPMD pipeline)"))
-    _require(spec.serve.replicas == 0,
-             _later("serve.replicas > 0", "item 9"))
 
 
 def _sub_from_dict(sub_cls, section: str, sub: Any):

@@ -1,5 +1,5 @@
 """Jamba-style hybrid: Mamba/attention 1:7 interleave + MoE every 2nd
-layer — training forward.
+layer — training forward and decode.
 
 Counterpart of the training half of ``repro/models/hybrid.py``: layer
 ``i`` is an attention layer iff ``i % attn_period == attn_offset``
@@ -15,8 +15,12 @@ backward pass (``torch.utils.checkpoint``), as the reference's per-slot
 whole group only bounds what its scan saves, which a loop of per-slot
 checkpoints already does.
 
-The decode half (``init_state``, ``state_specs``, ``forward_decode``)
-comes with serving (ROADMAP queue 1, item 9).
+Decode (``init_state``, ``forward_decode``) is the reference's: one
+token through every group, the attention slot over its KV cache and
+each Mamba slot one recurrence step (``ssm.mamba_decode``), the state
+updated in place and returned.  The reference's ``state_specs`` places
+the state on a mesh; it comes with the SPMD slice (ROADMAP queue 1,
+item 11).
 """
 
 from __future__ import annotations
@@ -115,3 +119,65 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     x = L.apply_norm(cfg, x, params["final_norm"])
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return L.unembed(x, table, cfg.vocab_size), aux_total
+
+
+# --------------------------------------------------------------- serving
+def init_state(cfg: ModelConfig, batch: int, max_seq: int,
+               device=None) -> Dict[str, Any]:
+    """Decode state of zeros: one attention layer's KV cache per group,
+    and the conv tail and f32 scan state of each group's period-1 Mamba
+    slots."""
+    period = cfg.attn_period or 1
+    groups = cfg.n_layers // period
+    di = cfg.expand * cfg.d_model
+    dt = torch_dtype(cfg.dtype)
+    kv_shape = (groups, batch, max_seq, cfg.n_kv_heads,
+                cfg.resolved_head_dim)
+    return {
+        "kv": {"k": torch.zeros(kv_shape, dtype=dt, device=device),
+               "v": torch.zeros(kv_shape, dtype=dt, device=device)},
+        "mamba": {
+            "conv": torch.zeros((groups, period - 1, batch, cfg.d_conv - 1,
+                                 di), dtype=dt, device=device),
+            "h": torch.zeros((groups, period - 1, batch, di, cfg.d_state),
+                             dtype=torch.float32, device=device),
+        },
+    }
+
+
+def forward_decode(cfg: ModelConfig, params: Dict[str, Any],
+                   token: torch.Tensor, state: Dict[str, Any], index: int,
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step: token (b, 1) at position ``index`` (a host int).
+    Returns (logits (b, 1, v), state), the state updated in place."""
+    kinds = _slot_kinds(cfg)
+    groups = cfg.n_layers // (cfg.attn_period or 1)
+    x = L.embed(token, params["embed"]).to(torch_dtype(cfg.dtype))
+    per_slot = [T.layer_weights(slot, groups) for slot in params["slots"]]
+    kv, mamba = state["kv"], state["mamba"]
+    for g in range(groups):
+        mi = 0  # mamba slot counter within the group
+        for (mixer, ffn), ws in zip(kinds, per_slot):
+            w = ws[g]
+            h = L.apply_norm(cfg, x, w["mixer_norm"])
+            if mixer == "attn":
+                out = L.decode_attention_block(
+                    cfg, h, w["attn"], {"k": kv["k"][g], "v": kv["v"][g]},
+                    index)
+            else:
+                out, st = ssm.mamba_decode(
+                    cfg, h, w["mamba"], {"conv": mamba["conv"][g, mi],
+                                         "h": mamba["h"][g, mi]})
+                mamba["conv"][g, mi] = st["conv"]
+                mamba["h"][g, mi] = st["h"]
+                mi += 1
+            x = x + out
+            h = L.apply_norm(cfg, x, w["ffn_norm"])
+            if ffn == "moe":
+                out, _ = moe_lib.moe_block(cfg, h, w["moe"])
+            else:
+                out = L.mlp_block(cfg, h, w["mlp"])
+            x = x + out
+    x = L.apply_norm(cfg, x, params["final_norm"])
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.unembed(x, table, cfg.vocab_size), state

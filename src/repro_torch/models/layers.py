@@ -4,7 +4,8 @@ Counterpart of ``repro/models/layers.py`` on one device: the worker-step
 hot ops (attention, RMSNorm, fused residual+RMSNorm) route through
 ``repro_torch.kernels.registry`` by ``cfg.kernels``; the projections and
 the MLP products stay ``torch.matmul``, as the reference leaves them to
-XLA.
+XLA.  So does one-token decode attention over a KV cache
+(``_attention_grouped``), which the reference computes in XLA too.
 
 Conventions:
   activations   (batch, seq, d_model)                 bf16/f32
@@ -14,6 +15,7 @@ Conventions:
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -63,10 +65,13 @@ def rotary_embedding(positions: torch.Tensor, head_dim: int,
 
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor) -> torch.Tensor:
-    """x (b, s, h, d); cos/sin (s, d/2)."""
+    """x (b, s, h, d); cos/sin (b, s, d/2) or (s, d/2)."""
     half = x.shape[-1] // 2
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
-    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    if cos.dim() == 2:          # (s, d/2) -> broadcast over batch/heads
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                       # (b, s, d/2)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -85,15 +90,41 @@ def causal_window_mask(lq: int, lk: int, *, q_offset: int = 0,
     return mask
 
 
+def _attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Grouped GQA for decode: q (b, lq, hkv, g, d); k/v (b, lk, hkv, d);
+    mask (lq, lk), True = attend.
+
+    The reference's XLA form: scores summed in f32 and scaled by
+    1/sqrt(d), masked with ``NEG_INF``, softmax in f32, the
+    probabilities rounded to v's dtype before ``P·V`` (summed in f32).
+    The scale divides by a tensor on the scores' device, an IEEE
+    division everywhere (on CUDA a Python scalar divisor is a multiply
+    by its reciprocal)."""
+    d = q.shape[-1]
+    scores = torch.einsum("blhgd,bmhd->bhglm", q.float(), k.float())
+    scores = scores / torch.full((), math.sqrt(d), dtype=torch.float32,
+                                 device=scores.device)
+    scores = scores.masked_fill(~mask[None, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhglm,bmhd->blhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
 def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, *, causal: bool = True,
               window: Optional[int] = None) -> torch.Tensor:
     """Grouped-query attention with the structured mask
     ``causal_window_mask(lq, lk, q_offset=lk-lq, window=window)``:
-    q (b, lq, hq, d); k/v (b, lk, hkv, d) -> (b, lq, hq, d).
+    q (b, lq, hq, d); k/v (b, lk, hkv, d) -> (b, lq, hq, d), through the
+    kernel registry.
 
-    The reference's other paths (decode, the mesh-sharded SP/TP
-    formulations) come with the serving and SPMD slices."""
+    Decode runs the reference's lq == 1 path, ``_attention_grouped``
+    over the cache's slot-validity mask (``decode_attention_block``):
+    that mask is a ring's, not the causal structure, so it never reaches
+    the flash kernel.  The mesh-sharded SP/TP formulations come with the
+    SPMD slice."""
     return K.attention(q, k, v, causal=causal, window=window,
                        kernels=cfg.kernels)
 
@@ -104,12 +135,9 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.reshape(b * l, d) @ w.reshape(d, -1)).view(b, l, *w.shape[1:])
 
 
-def attention_block(cfg: ModelConfig, x: torch.Tensor,
-                    w: Dict[str, torch.Tensor], cos: torch.Tensor,
-                    sin: torch.Tensor) -> torch.Tensor:
-    """Full self-attention sublayer (training path), causal with
-    ``cfg.sliding_window``."""
-    b, l, _ = x.shape
+def _qkv(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, torch.Tensor],
+         cos: Optional[torch.Tensor], sin: Optional[torch.Tensor]):
+    """The sublayer's projections, biases, q/k norms and rotary."""
     q = _project(x, w["wq"])
     k = _project(x, w["wk"])
     v = _project(x, w["wv"])
@@ -121,10 +149,101 @@ def attention_block(cfg: ModelConfig, x: torch.Tensor,
     if cfg.use_rope:
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-    out = attention(cfg, q, k, v, causal=True, window=cfg.sliding_window)
-    hq, hd, d = w["wo"].shape
-    return (out.reshape(b * l, hq * hd) @ w["wo"].reshape(hq * hd, d)
+    return q, k, v
+
+
+def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("blhk,hkd->bld") as one matmul."""
+    b, l = out.shape[:2]
+    hq, hd, d = wo.shape
+    return (out.reshape(b * l, hq * hd) @ wo.reshape(hq * hd, d)
             ).view(b, l, d)
+
+
+def attention_block(cfg: ModelConfig, x: torch.Tensor,
+                    w: Dict[str, torch.Tensor], cos: torch.Tensor,
+                    sin: torch.Tensor, *, collect_kv: bool = False):
+    """Full self-attention sublayer (training / prefill path), causal
+    with ``cfg.sliding_window``.  With ``collect_kv`` also returns the
+    post-rotary ``(k, v)``: the prefill path stacks them into the
+    serving KV cache."""
+    q, k, v = _qkv(cfg, x, w, cos, sin)
+    out = attention(cfg, q, k, v, causal=True, window=cfg.sliding_window)
+    out = _out_project(out, w["wo"])
+    if collect_kv:
+        return out, (k, v)
+    return out
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., hd) -> (int8 values, f32 per-row scale).  Symmetric.
+
+    Both divisions are tensor by tensor, so the codes are the CPU's on
+    the card too: a Python-scalar divisor would be a multiply by its
+    reciprocal there, which moves codes at the rounding edges."""
+    xf = x.float()
+    amax = torch.clamp(torch.amax(xf.abs(), dim=-1), min=1e-8)
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def decode_attention_block(cfg: ModelConfig, x: torch.Tensor,
+                           w: Dict[str, torch.Tensor],
+                           cache: Dict[str, torch.Tensor], index: int,
+                           ) -> torch.Tensor:
+    """One-token decode over a KV cache, updated in place.
+
+    x (b, 1, d); cache {'k','v'} (b, S, hkv, hd) with ring semantics
+    when the config's sliding window is smaller than S.  With
+    ``cfg.kv_cache_dtype == 'int8'`` the cache holds quantized values
+    plus per-(token, head) scales ('k_scale'/'v_scale', (b, S, hkv)).
+    ``index`` (the token's position) is a host int: the decode loop is
+    driven from Python.
+    """
+    b = x.shape[0]
+    s_max = cache["k"].shape[1]
+    cos = sin = None
+    if cfg.use_rope:
+        pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
+        cos, sin = rotary_embedding(pos, cfg.resolved_head_dim,
+                                    cfg.rope_theta)
+    q, k, v = _qkv(cfg, x, w, cos, sin)
+
+    slot = index % s_max                      # ring slot (SWA caches)
+    if "k_scale" in cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        cache["k"][:, slot] = kq[:, 0]
+        cache["v"][:, slot] = vq[:, 0]
+        cache["k_scale"][:, slot] = ks[:, 0]
+        cache["v_scale"][:, slot] = vs[:, 0]
+        ck = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+        cv = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        ck, cv = cache["k"], cache["v"]
+
+    # validity of each ring slot for the current query position: slot s
+    # was last written 'age' tokens ago (age = (cur_slot - s) mod S); it
+    # holds a real token iff age <= index (cold start: slots "older"
+    # than the stream are unwritten and would attend as zero vectors)
+    slots = torch.arange(s_max, device=x.device)
+    age = (slot - slots) % s_max
+    valid = age <= index
+    if cfg.sliding_window is not None:
+        valid &= age < cfg.sliding_window
+    hq, hkv = q.shape[2], ck.shape[2]
+    out = _attention_grouped(
+        q.reshape(b, 1, hkv, hq // hkv, q.shape[-1]), ck, cv,
+        valid[None, :])
+    return _out_project(out.reshape(q.shape), w["wo"])
 
 
 # ----------------------------------------------------------------- MLP

@@ -1,16 +1,17 @@
-"""Architecture registry: config -> param defs / init / loss.
+"""Architecture registry: config -> param defs / init / loss / decode.
 
 Counterpart of ``repro/models/registry.py`` for the families the port
 runs: ``dense`` (``transformer.py``) and ``hybrid`` (``hybrid.py``,
 Jamba).  The reference's moe / ssm / audio / vlm families come with
-ROADMAP queue 1, item 10.
+ROADMAP queue 1, item 10; its ``state_specs`` (decode state on a mesh)
+with item 11.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -25,6 +26,10 @@ from repro_torch.models.layers import cross_entropy
 class Family:
     param_defs: Callable[[ModelConfig], Any]
     loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]
+    #: ``(cfg, params, token, state, index) -> (logits, state)``
+    decode_fn: Optional[Callable[..., Any]] = None
+    #: ``(cfg, batch, max_seq, device=None) -> state``
+    init_state: Optional[Callable[..., Any]] = None
 
 
 def _hybrid_loss(cfg: ModelConfig, params, batch):
@@ -34,9 +39,16 @@ def _hybrid_loss(cfg: ModelConfig, params, batch):
     return nll + w * aux, {"loss": nll, "aux_loss": aux}
 
 
+def _lm_init_state(cfg: ModelConfig, batch: int, max_seq: int,
+                   device=None):
+    return transformer.init_cache(cfg, batch, max_seq, device=device)
+
+
 FAMILIES: Dict[str, Family] = {
-    "dense": Family(transformer.param_defs, transformer.loss_fn),
-    "hybrid": Family(hybrid.param_defs, _hybrid_loss),
+    "dense": Family(transformer.param_defs, transformer.loss_fn,
+                    transformer.forward_decode, _lm_init_state),
+    "hybrid": Family(hybrid.param_defs, _hybrid_loss, hybrid.forward_decode,
+                     hybrid.init_state),
 }
 
 
@@ -79,3 +91,7 @@ def count_params(cfg: ModelConfig) -> int:
 
 def loss_fn(cfg: ModelConfig) -> Callable:
     return functools.partial(family(cfg).loss_fn, cfg)
+
+
+def decode_fn(cfg: ModelConfig) -> Callable:
+    return functools.partial(family(cfg).decode_fn, cfg)

@@ -1,13 +1,15 @@
-"""State-space families: the Mamba (S6) block, training path.
+"""State-space families: the Mamba (S6) block, training and decode.
 
 Counterpart of the Mamba half of ``repro/models/ssm.py`` (``mamba_defs``,
-``_causal_conv``, ``mamba_block``): the same parameter names and
-shapes, the same order of casts and products.  The selective scan goes
-through ``repro_torch.kernels.registry.ssm_scan`` by ``cfg.kernels``:
-the Hopper kernel on the card, the chunked associative scan on the CPU.
+``_causal_conv``, ``mamba_block``, ``mamba_decode``): the same parameter
+names and shapes, the same order of casts and products.  The selective
+scan goes through ``repro_torch.kernels.registry.ssm_scan`` by
+``cfg.kernels``: the Hopper kernel on the card, the chunked associative
+scan on the CPU.  ``mamba_decode`` is one recurrence step in plain
+PyTorch, as the reference's is plain XLA: it runs no kernel.
 
-mLSTM, sLSTM (xLSTM) and ``mamba_decode`` come with later slices
-(ROADMAP queue 1, items 9 and 10).
+mLSTM and sLSTM (xLSTM) come with a later slice (ROADMAP queue 1,
+item 10).
 """
 
 from __future__ import annotations
@@ -87,3 +89,29 @@ def mamba_block(cfg: ModelConfig, x: torch.Tensor,
     y = y + xcf * w["d_skip"].float()
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
     return _matmul(y, w["w_out"])
+
+
+def mamba_decode(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
+                 state: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token: x (b, 1, d); state conv (b, k-1, di), h (b, di, ds) f32.
+    Returns (out (b, 1, d), new state)."""
+    ds = cfg.d_state
+    di = cfg.expand * cfg.d_model
+    xin, z = _matmul(x, w["w_in"]).split(di, dim=-1)
+    xc, new_tail = _causal_conv(xin, w["conv_w"], w["conv_b"],
+                                tail=state["conv"])
+    xc = F.silu(xc.float()).to(x.dtype)
+    bcdt = _matmul(xc, w["w_bcdt"]).float()
+    bmat, cmat, dt = bcdt[..., :ds], bcdt[..., ds:2 * ds], bcdt[..., 2 * ds:]
+    delta = F.softplus(_matmul(dt, w["dt_proj"].float())
+                       + w["dt_bias"].float())                 # (b, 1, di)
+    a = -torch.exp(w["a_log"].float())
+    abar = torch.exp(delta[..., None] * a[None, None])[:, 0]   # (b, di, ds)
+    xcf = xc.float()
+    bbar = (delta[..., None] * bmat[:, :, None, :] * xcf[..., None])[:, 0]
+    h = abar * state["h"] + bbar
+    y = torch.einsum("bds,bs->bd", h, cmat[:, 0])
+    y = y + xcf[:, 0] * w["d_skip"].float()
+    y = y[:, None].to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    return _matmul(y, w["w_out"]), {"conv": new_tail, "h": h}

@@ -1,5 +1,5 @@
 """Dense decoder-only transformer (the llama / mistral family) — training
-forward and loss.
+forward and loss, serving prefill and KV-cache decode.
 
 Counterpart of the dense path of ``repro/models/transformer.py``: the
 same parameter tree (stacked per-layer weights under ``layers`` with a
@@ -10,6 +10,12 @@ per-layer grads in backward, not one full-size scatter per layer).
 ``cfg.remat == "full"`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``), as ``jax.checkpoint`` does around the
 reference's scan body.
+
+Serving (``forward_prefill``, ``init_cache``, ``forward_decode``) is the
+reference's, with one difference of form: decode updates the cache
+tensors in place and returns the same dict (the reference's scan
+returns new arrays).  The reference's ``cache_specs`` places the cache
+on a mesh; it comes with the SPMD slice (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -79,14 +85,19 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 # --------------------------------------------------------------- layer body
 def _layer(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
-           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Pre-norm residual block."""
+           cos: torch.Tensor, sin: torch.Tensor, collect_kv: bool = False):
+    """Pre-norm residual block.  With ``collect_kv`` also returns the
+    attention's post-rotary (k, v)."""
     h = L.apply_norm(cfg, x, w["attn_norm"])
-    att = L.attention_block(cfg, h, w["attn"], cos, sin)
+    att = L.attention_block(cfg, h, w["attn"], cos, sin,
+                            collect_kv=collect_kv)
+    if collect_kv:
+        att, kv = att
     # fused residual-add + norm: one pass produces the updated stream
     # AND its normed view for the MLP
     x, h = L.residual_apply_norm(cfg, att, x, w["mlp_norm"])
-    return x + L.mlp_block(cfg, h, w["mlp"])
+    x = x + L.mlp_block(cfg, h, w["mlp"])
+    return (x, kv) if collect_kv else x
 
 
 def layer_weights(layer_params: Any, n: int):
@@ -123,3 +134,79 @@ def loss_fn(cfg: ModelConfig, params: Dict[str, Any],
     logits, aux = forward(cfg, params, batch["tokens"])
     nll = L.cross_entropy(logits, batch["labels"])
     return nll, {"loss": nll, "aux_loss": aux}
+
+
+# --------------------------------------------------------------- serving
+def forward_prefill(cfg: ModelConfig, params: Dict[str, Any],
+                    tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Serving prefill: last-position logits (b, 1, v) and the populated
+    KV cache.
+
+    Only the final position is normed and unembedded; the per-layer
+    post-rotary K/V are stacked into the decode cache layout
+    (n_layers, b, l, hkv, hd), quantized when ``cfg.kv_cache_dtype ==
+    'int8'``.  An inference path: no remat."""
+    b, l = tokens.shape
+    dt = torch_dtype(cfg.dtype)
+    x = L.embed(tokens, params["embed"]).to(dt)
+    positions = torch.arange(l, device=tokens.device)
+    cos, sin = L.rotary_embedding(positions, cfg.resolved_head_dim,
+                                  cfg.rope_theta)
+    quantized = cfg.kv_cache_dtype == "int8"
+    kv = {}
+    for w in layer_weights(params["layers"], cfg.n_layers):
+        x, (k, v) = _layer(cfg, x, w, cos, sin, collect_kv=True)
+        if quantized:
+            for name, t in (("k", k), ("v", v)):
+                q, s = L.quantize_kv(t)
+                kv.setdefault(name, []).append(q)
+                kv.setdefault(name + "_scale", []).append(s)
+        else:
+            kv.setdefault("k", []).append(k.to(dt))
+            kv.setdefault("v", []).append(v.to(dt))
+    x = L.apply_norm(cfg, x[:, -1:].contiguous(), params["final_norm"])
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return (L.unembed(x, table, cfg.vocab_size),
+            {name: torch.stack(ts) for name, ts in kv.items()})
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None
+               ) -> Dict[str, torch.Tensor]:
+    """Stacked per-layer KV cache of zeros.  SWA models cap the ring at
+    the window; ``cfg.kv_cache_dtype == 'int8'`` stores quantized K/V
+    with per-(token, head) f32 scales (``layers.quantize_kv``)."""
+    if cfg.sliding_window is not None:
+        max_seq = min(max_seq, cfg.sliding_window)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device)}
+    dt = torch_dtype(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def forward_decode(cfg: ModelConfig, params: Dict[str, Any],
+                   token: torch.Tensor, cache: Dict[str, torch.Tensor],
+                   index: int
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step: token (b, 1) at position ``index`` (a host int);
+    cache leaves (n_layers, ...), updated in place.  Returns (logits
+    (b, 1, v), cache).  Two norms a layer, as the reference's step: no
+    fused residual+norm on this path."""
+    x = L.embed(token, params["embed"]).to(torch_dtype(cfg.dtype))
+    ws = layer_weights(params["layers"], cfg.n_layers)
+    for i, w in enumerate(ws):
+        layer_cache = {name: t[i] for name, t in cache.items()}
+        h = L.apply_norm(cfg, x, w["attn_norm"])
+        x = x + L.decode_attention_block(cfg, h, w["attn"], layer_cache,
+                                         index)
+        h = L.apply_norm(cfg, x, w["mlp_norm"])
+        x = x + L.mlp_block(cfg, h, w["mlp"])
+    x = L.apply_norm(cfg, x, params["final_norm"])
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.unembed(x, table, cfg.vocab_size), cache

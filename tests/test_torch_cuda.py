@@ -685,3 +685,96 @@ def test_replay_fold_on_the_card_is_bitwise_the_cpu_fold(gen, dtype):
                                             torch.bfloat16 else torch.int32),
                                b.view(torch.int16 if dtype == torch.bfloat16
                                       else torch.int32))
+
+
+# ------------------------------------------------------------------ serving
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kv_on_the_card_is_bitwise_the_cpu(gen, dtype):
+    """The int8 KV codes and scales divide tensor by tensor, so the card
+    computes the CPU's bits (a Python-scalar divisor would multiply by
+    its reciprocal there)."""
+    from repro_torch.models.layers import quantize_kv
+    x = (_rand(gen, (8, 544, 8, 80), torch.float32) * 3.0).to(dtype)
+    q, s = quantize_kv(x)
+    qc, sc = quantize_kv(x.cpu())
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 2560])
+def test_rmsnorm_on_decode_rows(gen, dtype, d):
+    """The decode step's norms: (b, 1, d) rows, one launch a call."""
+    x = _rand(gen, (8, 1, d), dtype)
+    w = (1.0 + 0.1 * _rand(gen, (d,), torch.float32)).to(dtype)
+    before = LAUNCHES.rmsnorm
+    got = registry.rmsnorm(x, w, kernels="auto")
+    assert LAUNCHES.rmsnorm == before + 1
+    _assert_norm_close(got, rn.rmsnorm_plain(x, w), dtype)
+
+
+def test_registry_attention_at_the_prefill_shape_is_one_launch(gen):
+    """Serving's prefill attention (8 prompts of 512, 32/8 heads of 80,
+    causal, window 4096, bf16) through the registry: one kernel launch,
+    every element within one bf16 ulp of the plain version (values
+    below 2^-8 at its ulp)."""
+    q = _rand(gen, (8, 512, 32, 80), torch.bfloat16)
+    k = _rand(gen, (8, 512, 8, 80), torch.bfloat16)
+    v = _rand(gen, (8, 512, 8, 80), torch.bfloat16)
+    before = LAUNCHES.flash_attention_fwd
+    with torch.inference_mode():
+        out = registry.attention(q, k, v, causal=True, window=4096,
+                                 kernels="auto")
+    assert LAUNCHES.flash_attention_fwd == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=4096)
+    a, b = out.float(), want.float()
+    ulp = torch.maximum(_bf16_ulp(a.abs().clamp(min=2.0 ** -8)),
+                        _bf16_ulp(b.abs().clamp(min=2.0 ** -8)))
+    assert not bool(((a - b).abs() > ulp).any())
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "jamba-v0.1-52b"])
+def test_decoder_with_kernels_matches_plain_formulations(gen, arch):
+    """The smoke configs (f32) decoded on the card from one wire, with
+    ``kernels='auto'`` (the Hopper kernels) and ``'xla'`` (the plain
+    formulations): teacher-forced logits along the plain decoder's
+    greedy tokens within 2e-4, and the kernels launched on the dense
+    prefill."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import registry as models
+    from repro_torch.ps.sharded.plan import build_shard_plan
+    from repro_torch.serve import Decoder
+    cfg = get_smoke_config(arch)
+    params = models.init_params(cfg, seed=0, device="cuda")
+    plan = build_shard_plan(params, 2)
+    wire = plan.pack(params)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (4, 12))
+    logits = {}
+    for kernels in ("xla", "auto"):
+        dec = Decoder(dataclasses.replace(cfg, kernels=kernels), plan,
+                      prompt_len=12, max_new=6, max_batch=4, device="cuda")
+        if kernels == "xla":
+            tokens = dec.decode(wire.clone(), prompts)
+        before = LAUNCHES.snapshot()
+        p = dec.params(wire.clone())
+        toks = torch.from_numpy(prompts).cuda()
+        last, state = dec.prefill(p, toks)
+        out = [last]
+        for j in range(tokens.shape[1] - 1):
+            tok = torch.from_numpy(tokens[:, j:j + 1]).long().cuda()
+            last, state = dec.step(p, tok, state, 12 + j)
+            out.append(last)
+        logits[kernels] = torch.stack(out, dim=1)
+        launched = LAUNCHES.delta(before)
+        if kernels == "xla":
+            assert not any(launched.values()), launched
+        elif cfg.family == "dense":
+            assert launched["flash_attention_fwd"] == cfg.n_layers
+            assert launched["residual_rmsnorm"] == cfg.n_layers
+            assert launched["rmsnorm"] == \
+                cfg.n_layers + 1 + (2 * cfg.n_layers + 1) * 5
+    torch.testing.assert_close(logits["auto"], logits["xla"], rtol=2e-4,
+                               atol=2e-4)

@@ -55,7 +55,9 @@ def test_every_repro_torch_module_imports_without_jax_or_repro():
                 "repro_torch.obs.__main__", "repro_torch.checkpoint",
                 "repro_torch.checkpoint.manager", "repro_torch.ft",
                 "repro_torch.ft.snapshot", "repro_torch.ft.faults",
-                "repro_torch.ft.server_proc", "repro_torch.ft.reshard"}
+                "repro_torch.ft.server_proc", "repro_torch.ft.reshard",
+                "repro_torch.serve", "repro_torch.serve.batching",
+                "repro_torch.serve.replica", "repro_torch.serve.engine"}
     assert expected <= set(res["modules"])
 
 

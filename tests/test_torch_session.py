@@ -119,7 +119,6 @@ def test_spec_json_round_trips_and_schema_is_the_reference_schema():
 
 @pytest.mark.parametrize("section,field,value,item", [
     ("ps", "kind", "none", "item 11"),
-    ("serve", "replicas", 1, "item 9"),
     ("model", "arch", "xlstm-125m", "item 10"),
 ])
 def test_later_slices_raise_spec_errors_naming_their_item(section, field,

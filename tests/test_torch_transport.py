@@ -7,8 +7,10 @@ across two endpoints, a killed worker freeing its barrier seat, error
 replies to a garbage header and an oversized length, shutdown releasing
 gated DSSP workers; then the cross-package runs over tcp (the
 reference's worker processes against the port's endpoint, and the
-port's against the reference's), and a 3-worker DSSP ``ps-transport``
-session against the ``ps-threads`` session of the same spec.
+port's against the reference's; a serving replica of each package
+subscribed to the other's endpoint), and a 3-worker DSSP
+``ps-transport`` session against the ``ps-threads`` session of the same
+spec.
 
 Every spawned child runs under a deadline (``q.get(timeout=...)``,
 ``join(timeout=...)``, the pool's ``join`` timeout), so a hang fails
@@ -622,6 +624,81 @@ def test_port_workers_train_against_the_reference_endpoint():
         assert session.server.version == 4 * 2
         losses = _losses(session.server)
         assert len(losses) == 4 and all(map(math.isfinite, losses))
+    finally:
+        session.close()
+
+
+def _train_and_serve(address, endpoint, replica_pool):
+    """The port's 2 worker processes train through ``address`` while
+    ``replica_pool`` (one replica, either package's) serves; returns the
+    replica's results."""
+    task = WorkerTask(arch="h2o-danube-1.8b", n_shards=2, n_iterations=4,
+                      smoke=True, seq_len=32, global_batch=4, data_seed=3,
+                      delta_pull=True, device="cpu")
+    pool = ProcessWorkerPool(address, task, 2)
+    pool.start()
+    replica_pool.start()
+    try:
+        results = pool.join(timeout=CHILD_S, endpoint=endpoint)
+        served = replica_pool.join(timeout=CHILD_S, endpoint=endpoint)
+    finally:
+        pool.terminate()
+        replica_pool.terminate()
+    raise_on_failure(results)
+    return served
+
+
+#: one replica's serving load in the cross-package runs
+_SERVE = dict(requests=4, start_at_version=1, prompt_len=8, max_new=4,
+              max_batch=4, staleness_bound=4, refresh_every_s=0.05,
+              data_seed=3)
+
+
+def test_port_replica_serves_from_the_reference_endpoint():
+    """A port replica process (``device='cpu'``) subscribes to the
+    reference's tcp endpoint with ``MSG_SUB`` and serves from its delta
+    pulls while the port's workers train into it."""
+    import repro.api as japi
+    from repro_torch.serve import (ReplicaPool, ReplicaTask,
+                                   aggregate_serve,
+                                   raise_on_replica_failure)
+    session = japi.build_session(_spec(japi, workers=2),
+                                 external_workers=True)
+    try:
+        rpool = ReplicaPool(session.address(), ReplicaTask(
+            arch="h2o-danube-1.8b", n_shards=2, device="cpu", **_SERVE),
+            1, first_id=2)
+        served = _train_and_serve(session.address(), session.endpoint,
+                                  rpool)
+        raise_on_replica_failure(served)
+        agg = aggregate_serve(served)
+        assert agg["requests"] == 4 and agg["violations"] == 0, agg
+        assert agg["version_max"] > 0, agg
+        assert session.server.version == 8 * 2
+    finally:
+        session.close()
+
+
+def test_reference_replica_serves_from_the_port_endpoint():
+    """A reference replica process (JAX on the CPU) subscribes to the
+    port's tcp endpoint and serves from its delta pulls while the port's
+    workers train into it."""
+    from repro.serve import ReplicaPool as JReplicaPool
+    from repro.serve import ReplicaTask as JReplicaTask
+    from repro.serve import aggregate_serve as jaggregate
+    from repro.serve import raise_on_replica_failure as jraise
+    session = api.build_session(_spec(api, workers=2), device="cpu",
+                                external_workers=True)
+    try:
+        rpool = JReplicaPool(session.address(), JReplicaTask(
+            arch="h2o-danube-1.8b", n_shards=2, **_SERVE), 1, first_id=2)
+        served = _train_and_serve(session.address(), session.endpoint,
+                                  rpool)
+        jraise(served)
+        agg = jaggregate(served)
+        assert agg["requests"] == 4 and agg["violations"] == 0, agg
+        assert agg["version_max"] > 0, agg
+        assert session.server.version == 8 * 2
     finally:
         session.close()
 
