@@ -23,7 +23,10 @@ after an error:
            exponential, one per (b, t, d, s)
   kernels  each kernel against its plain PyTorch version on the card, at
            the main path's shapes and a few others (ragged sizes, f32 and
-           bf16; serving's prefill attention and norm shapes), with its
+           bf16; serving's prefill attention and norm shapes; the
+           transformer families' train step: attention at head dim 128
+           with 64/8, 40/40, 96/8, 64/4 and 16/16 heads, the q/k norms'
+           rows of 128 and both norms at widths 2048-12288), with its
            tolerance, and serving's ``quantize_kv`` bitwise against the
            CPU; median CUDA-event times of the
            kernel, the plain version and one library call where PyTorch
@@ -33,7 +36,9 @@ after an error:
            the profiler (the L2 flushed for the norms and the scan);
            bf16 attention is held to one bf16 ulp per element (values
            below 2^-8 counted at its ulp), with the share of elements
-           that differ from the plain version printed at each shape
+           that differ from the plain version printed at each shape; the
+           families' shapes also by device time, beside SDPA's and
+           ``F.rms_norm``'s
   parity   the smoke config trained through ``build_session`` twice on
            the card, kernels vs plain formulations: the losses must agree
   train    ``repro_torch.api.build_session`` on the FULL h2o-danube-1.8b
@@ -111,11 +116,14 @@ after an error:
            respawned, push frames dropped over tcp with reconnects, and
            a server killed inside its reshard that resumes untorn
   serve parity
-           the h2o-danube and Jamba smoke configs (f32, Jamba with MoE)
-           decoded on the card from one packed wire by
-           ``repro_torch.serve.Decoder``, with the kernels and with the
-           plain formulations: logits along the plain decoder's greedy
-           tokens within 2e-4; and the dense ring cache (window 16)
+           the h2o-danube, Jamba (MoE on), deepseek-moe (shared experts),
+           chameleon (q/k norms) and qwen1.5-32b (QKV bias, int8 KV
+           cache) smoke configs (f32) decoded on the card from one
+           packed wire by ``repro_torch.serve.Decoder``, with the kernels
+           and with the plain formulations: logits along the plain
+           decoder's greedy tokens within 2e-4 (the int8 cache: within
+           how far it moves the plain logits from an f32 cache's, and
+           the f32 cache within 2e-4); and the dense ring cache (window 16)
            decoded 40 positions, against the full forward at each
   serve    the train configuration (full width, 2 trainer threads, the
            second 2x slower) for 24 steps while 2 replica threads serve
@@ -136,6 +144,18 @@ after an error:
            second: the same checks, the replica process's launches
            exactly per batch, its refresh bytes, and pushes/s beside the
            transport phase's
+  archs    the transformer families, each on its own: qwen1.5-110b,
+           qwen1.5-32b, mistral-large-123b, chameleon-34b (vlm),
+           qwen3-moe-235b-a22b and deepseek-moe-16b.  Each one's smoke
+           config trained twice through ``build_session``, kernels vs
+           plain (losses agree); then its published widths cut in depth
+           (``ARCH_CUTS``: 1, 3, 2, 3, 1 and 5 layers, 3.13-3.85 B
+           parameters), passed as ``model_config``: 4 steps of seq 1024,
+           2 sequences a step, 2 DSSP workers (qwen1.5-110b: 1, BSP)
+           through 4 shards with delta pulls, checked as the train phase
+           is, with per worker step 2L attention and fused-norm launches
+           and 2L(1 + 2 qk_norm) + 1 ``rmsnorm``; then one profiled
+           one-worker step of deepseek-moe's cut (idle share)
 
 The last two lines of standard output are the JSON kernel table and the
 contract line ``{"ok": true, "device": {...}}``.  This script imports
@@ -491,19 +511,29 @@ def check_fused_compress(torch, timer, fc, main_rows):
 #: of max_batch prompts of prompt_len
 SERVE_DECODE_ROWS = (8, 1, 2560)
 SERVE_PREFILL_ROWS = (8, 512, 2560)
+#: the transformer families' train step (2 sequences of 1024): the q/k
+#: norms' rows of 128 (64 query heads: qwen1.5-110b, chameleon-34b,
+#: qwen3-moe; a lane holds one 16-byte vector and half of each warp
+#: idles) and the widths 2048 (deepseek-moe), 5120 (qwen1.5-32b), 8192
+#: (qwen1.5-110b, chameleon-34b) and 12288 (mistral-large)
+QK_NORM_ROWS = (2, 1024, 64, 128)
+ARCH_NORM_ROWS = (QK_NORM_ROWS, (2, 1024, 2048), (2, 1024, 5120),
+                  (2, 1024, 8192), (2, 1024, 12288))
 
 
 def check_norms(torch, timer, rn, rrn):
     g = torch.Generator(device="cuda").manual_seed(2)
     main = {}
-    #: the dense step's shape (the table's row), the Jamba step's, and
-    #: serving's: a decode step's rows and a prefill batch
+    #: the dense step's shape (the table's row), the Jamba step's,
+    #: serving's (a decode step's rows and a prefill batch), and the
+    #: transformer families' (ARCH_NORM_ROWS)
     timed_device = ((4, 1024, 2560), (2, 1024, 4096), SERVE_DECODE_ROWS,
-                    SERVE_PREFILL_ROWS)
+                    SERVE_PREFILL_ROWS) + ARCH_NORM_ROWS
     for dt, shape in ((torch.bfloat16, (4, 1024, 2560)),
                       (torch.bfloat16, (2, 1024, 4096)),
                       (torch.bfloat16, SERVE_DECODE_ROWS),
                       (torch.bfloat16, SERVE_PREFILL_ROWS),
+                      *((torch.bfloat16, rows) for rows in ARCH_NORM_ROWS),
                       (torch.float32, (4, 1024, 2560)),
                       (torch.float32, (3, 7, 2561)),
                       (torch.bfloat16, (5, 1000))):
@@ -514,6 +544,8 @@ def check_norms(torch, timer, rn, rrn):
         d = shape[-1]
         rows = x.numel() // d
         for name in ("rmsnorm", "residual_rmsnorm"):
+            if name == "residual_rmsnorm" and shape == QK_NORM_ROWS:
+                continue    # the q/k norms have no residual
             if name == "rmsnorm":
                 kern = lambda: rn.rmsnorm(x, w)
                 plain = lambda: rn.rmsnorm_plain(x, w)
@@ -617,6 +649,8 @@ def unmasked_pairs(lq: int, lk: int, causal: bool, window) -> int:
 
 #: serving's prefill: 8 prompts of 512 at h2o-danube's heads
 SERVE_PREFILL_ATTENTION = "serve prefill"
+#: the label prefix of the transformer families' attention shapes
+ARCH_ATTENTION = "arch train step: "
 
 
 def check_flash(torch, timer, fa):
@@ -646,6 +680,18 @@ def check_flash(torch, timer, fa):
          None, torch.bfloat16, False),
         (SERVE_PREFILL_ATTENTION, 8, 512, 512, 32, 8, 80, True, 4096,
          torch.bfloat16, False),
+        # the transformer families' train step: 2 sequences of 1024,
+        # head dim 128, each head layout
+        (ARCH_ATTENTION + "qwen1.5-110b, chameleon-34b (64/8)", 2, 1024,
+         1024, 64, 8, 128, True, None, torch.bfloat16, False),
+        (ARCH_ATTENTION + "qwen1.5-32b (40/40)", 2, 1024, 1024, 40, 40, 128,
+         True, None, torch.bfloat16, False),
+        (ARCH_ATTENTION + "mistral-large-123b (96/8)", 2, 1024, 1024, 96,
+         8, 128, True, None, torch.bfloat16, False),
+        (ARCH_ATTENTION + "qwen3-moe-235b-a22b (64/4)", 2, 1024, 1024, 64,
+         4, 128, True, None, torch.bfloat16, False),
+        (ARCH_ATTENTION + "deepseek-moe-16b (16/16)", 2, 1024, 1024, 16, 16,
+         128, True, None, torch.bfloat16, False),
     ]
     main, failures = None, []
     for (label, b, lq, lk, hq, hkv, d, causal, window, dt,
@@ -715,7 +761,8 @@ def check_flash(torch, timer, fa):
         plain_ms = timer(plain)
         lib_ms = None
         extra = {}
-        if is_main or label in ("f32 train shape", SERVE_PREFILL_ATTENTION):
+        if (is_main or label in ("f32 train shape", SERVE_PREFILL_ATTENTION)
+                or label.startswith(ARCH_ATTENTION)):
             # causal with window >= lk: exactly is_causal
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa = lambda: F.scaled_dot_product_attention(
@@ -895,14 +942,12 @@ def main_path_spec(api, *, full: bool, workers: int, sync: str,
         transport=transport or api.TransportSpec())
 
 
-def hybrid_spec(api, *, smoke: bool, workers: int, sync: str,
-                kernels: str = "auto", straggler: float = 2.0):
-    """jamba-v0.1-52b through the main path's server and wire: seq 1024
-    and 2 sequences per worker step at full width (seq 64 at smoke
-    size)."""
+def arch_spec(api, arch: str, *, smoke: bool, workers: int, sync: str,
+              kernels: str = "auto", straggler: float = 2.0):
+    """``arch`` through the main path's server and wire: seq 1024 and 2
+    sequences per worker step at full width (seq 64 at smoke size)."""
     return api.RunSpec(
-        model=api.ModelSpec(arch="jamba-v0.1-52b", smoke=smoke,
-                            kernels=kernels),
+        model=api.ModelSpec(arch=arch, smoke=smoke, kernels=kernels),
         data=api.DataSpec(seq_len=64 if smoke else 1024, global_batch=2),
         optimizer=api.OptimizerSpec(lr=3e-3, momentum=0.9),
         sync=api.SyncSpec(mode=sync, s_lower=1, s_upper=4),
@@ -911,12 +956,15 @@ def hybrid_spec(api, *, smoke: bool, workers: int, sync: str,
         wire=api.WireSpec(format="packed", delta_pull=True))
 
 
+JAMBA = "jamba-v0.1-52b"
+
+
 def hybrid_config():
     """jamba-v0.1-52b at its published widths, cut to one period group
     (8 layers: 7 Mamba slots, attention at offset 3) with every FFN the
     dense SwiGLU (no experts): 2,725,326,848 parameters."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8,
+    return dataclasses.replace(get_config(JAMBA), n_layers=8,
                                moe=None)
 
 
@@ -1365,12 +1413,24 @@ def teacher_forced_logits(torch, dec, wire, prompts, tokens):
     return torch.stack(out, dim=1)
 
 
+#: the smoke configs that serve parity decodes: dense (a window), the
+#: hybrid (Mamba, attention, MoE), the MoE transformer with shared
+#: experts, the vlm (q/k norms), and QKV bias with an int8 KV cache
+SERVE_PARITY_ARCHS = ("h2o-danube-1.8b", "jamba-v0.1-52b",
+                      "deepseek-moe-16b", "chameleon-34b", "qwen1.5-32b")
+
+
 def check_serve_parity(torch, tol: float = 2e-4, device: str = "cuda:0"):
-    """The h2o-danube and Jamba smoke configs (f32; Jamba with its MoE)
-    decoded on the card from one wire, with the kernels and with the
-    plain formulations: logits along the plain decoder's greedy tokens
-    agree within ``tol``.  Then the dense ring cache (the smoke window,
-    16) decoded 40 positions, against the full forward at each."""
+    """The ``SERVE_PARITY_ARCHS`` smoke configs (f32) decoded on the card
+    from one wire, with the kernels and with the plain formulations:
+    logits along the plain decoder's greedy tokens agree within ``tol``.
+    An int8 KV cache (qwen1.5-32b) is decoded with an f32 cache too,
+    held to ``tol`` there; with its int8 cache the kernels' logits may
+    differ from the plain ones by no more than the int8 cache moves the
+    plain logits from the f32 cache's (a key whose f32 value differs by
+    ulps between the two formulations can round to the next int8 code,
+    ROADMAP queue 3).  Then the dense ring cache (the smoke window, 16)
+    decoded 40 positions, against the full forward at each."""
     import numpy as np
 
     from repro_torch.configs import get_smoke_config
@@ -1379,28 +1439,41 @@ def check_serve_parity(torch, tol: float = 2e-4, device: str = "cuda:0"):
     from repro_torch.serve import Decoder
     rec = {"phase": "serve parity", "tol": tol}
     rng = np.random.RandomState(0)
-    for arch in ("h2o-danube-1.8b", "jamba-v0.1-52b"):
+    for arch in SERVE_PARITY_ARCHS:
         cfg = get_smoke_config(arch)
         params = registry.init_params(cfg, seed=0, device=device)
         plan = build_shard_plan(params, 4)
         wire = plan.pack(params)
         prompts = rng.randint(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        caches = (cfg.kv_cache_dtype, "") if cfg.kv_cache_dtype else ("",)
         logits, tokens = {}, None
-        for kernels in ("xla", "auto"):
-            dec = Decoder(dataclasses.replace(cfg, kernels=kernels), plan,
-                          prompt_len=16, max_new=8, max_batch=4,
-                          device=device)
-            if tokens is None:
-                tokens = dec.decode(wire.clone(), prompts)
-            logits[kernels] = teacher_forced_logits(
-                torch, dec, wire.clone(), prompts, tokens)
-            rec[f"{arch} tokens ({kernels})"] = \
-                dec.decode(wire.clone(), prompts).tolist()
-        err = (logits["auto"] - logits["xla"]).abs().max().item()
-        rec[f"{arch} max_abs_err"] = err
-        if not err <= tol:
+        for cache in caches:
+            for kernels in ("xla", "auto"):
+                dec = Decoder(dataclasses.replace(
+                    cfg, kernels=kernels, kv_cache_dtype=cache), plan,
+                    prompt_len=16, max_new=8, max_batch=4, device=device)
+                if tokens is None:
+                    tokens = dec.decode(wire.clone(), prompts)
+                logits[cache, kernels] = teacher_forced_logits(
+                    torch, dec, wire.clone(), prompts, tokens)
+                if cache == cfg.kv_cache_dtype:
+                    rec[f"{arch} tokens ({kernels})"] = \
+                        dec.decode(wire.clone(), prompts).tolist()
+        errs = {cache: (logits[cache, "auto"] - logits[cache, "xla"]).abs()
+                .max().item() for cache in caches}
+        rec[f"{arch} max_abs_err"] = errs[cfg.kv_cache_dtype]
+        bound = tol
+        if cfg.kv_cache_dtype:
+            rec[f"{arch} f32 cache max_abs_err"] = errs[""]
+            if not errs[""] <= tol:
+                fail(f"serve parity ({arch}, f32 cache): kernel and plain "
+                     f"logits differ by {errs['']}")
+            bound = max(tol, (logits[cfg.kv_cache_dtype, "xla"]
+                              - logits["", "xla"]).abs().max().item())
+            rec[f"{arch} {cfg.kv_cache_dtype} cache bound"] = bound
+        if not errs[cfg.kv_cache_dtype] <= bound:
             fail(f"serve parity ({arch}): kernel and plain logits differ "
-                 f"by {err}")
+                 f"by {errs[cfg.kv_cache_dtype]} (bound {bound})")
     cfg = get_smoke_config("h2o-danube-1.8b")
     params = registry.init_params(cfg, seed=0, device=device)
     toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 40))).to(
@@ -1587,6 +1660,72 @@ def run_serve_transport(torch, api, per_step):
     return run_train(torch, api, "serve transport", spec, per_step,
                      spawned=True, also=also, extra=extra, model_config=cut,
                      timeout=900.0)
+
+
+# -------------------------------------------------------------------- archs
+#: the transformer families at their published widths, cut in depth to
+#: fit one card beside the phase's workers (PERF.md §4): (arch, layers,
+#: workers, sync).  qwen1.5-110b's one layer holds 3.85 B parameters, and
+#: two workers would reckon at about 73 of the card's 80 GB, so it trains
+#: with one (BSP, no straggler).
+ARCH_CUTS = (("qwen1.5-110b", 1, 1, "bsp"),
+             ("qwen1.5-32b", 3, 2, "dssp"),
+             ("mistral-large-123b", 2, 2, "dssp"),
+             ("chameleon-34b", 3, 2, "dssp"),
+             ("qwen3-moe-235b-a22b", 1, 2, "dssp"),
+             ("deepseek-moe-16b", 5, 2, "dssp"))
+ARCH_STEPS = 4
+#: the MoE architecture whose one-worker step is profiled
+ARCH_PROFILED = "deepseek-moe-16b"
+
+
+def arch_config(arch: str, layers: int):
+    """``arch`` at its published widths, cut to ``layers`` layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def arch_launches(cfg):
+    """Kernel launches of one worker step of a transformer config: per
+    layer and pass (the forward, and its recompute under remat) one
+    attention, one fused residual norm, and the attention norm with the
+    q/k norms where the config has them; the final norm once."""
+    passes = cfg.n_layers * (2 if cfg.remat == "full" else 1)
+    return {"flash_attention_fwd": passes, "residual_rmsnorm": passes,
+            "rmsnorm": passes * (1 + (2 if cfg.qk_norm else 0)) + 1}
+
+
+def run_archs(torch, api):
+    """The transformer families, each on its own: the smoke config's
+    parity (kernels vs plain, through ``build_session``), then
+    ``ARCH_STEPS`` steps of the full-width cut through ``run_train``
+    (``model_config=``), its records carrying the cut's parameters;
+    then one profiled one-worker step of ``ARCH_PROFILED``'s cut.
+    Returns the launches of the train runs, summed."""
+    total = {}
+    for arch, layers, workers, sync in ARCH_CUTS:
+        check_parity(torch, api, f"{arch} smoke", lambda kernels: arch_spec(
+            api, arch, smoke=True, workers=1, sync="bsp", kernels=kernels,
+            straggler=1.0))
+        cut = arch_config(arch, layers)
+        info = {"arch": arch, "layers": layers, "params": cut.param_count(),
+                "active_params": cut.active_param_count(),
+                "workers": workers, "sync": sync}
+        rec = run_train(
+            torch, api, f"arch {arch}",
+            arch_spec(api, arch, smoke=False, workers=workers, sync=sync,
+                      straggler=2.0 if workers > 1 else 1.0),
+            arch_launches(cut), steps=ARCH_STEPS,
+            extra=lambda *_: info, model_config=cut)
+        for name, n in rec["launches"].items():
+            total[name] = total.get(name, 0) + n
+        if arch == ARCH_PROFILED:
+            profiled = cut
+    profile_step(torch, api, f"arch {ARCH_PROFILED}",
+                 arch_spec(api, ARCH_PROFILED, smoke=False, workers=1,
+                           sync="bsp", straggler=1.0),
+                 steps=1, model_config=profiled)
+    return total
 
 
 # ----------------------------------------------------------------------- ft
@@ -2288,14 +2427,14 @@ def main(argv=None) -> None:
 
     # -- jamba parity, hybrid, hybrid profile ----------------------------
     check_parity(torch, api, "jamba smoke (MoE)", lambda kernels:
-                 hybrid_spec(api, smoke=True, workers=1, sync="bsp",
-                             kernels=kernels, straggler=1.0))
+                 arch_spec(api, JAMBA, smoke=True, workers=1, sync="bsp",
+                           kernels=kernels, straggler=1.0))
     cut = hybrid_config()
     groups = cut.n_layers // cut.attn_period
     mamba_slots = groups * (cut.attn_period - 1)
     hybrid = run_train(
         torch, api, "hybrid",
-        hybrid_spec(api, smoke=False, workers=2, sync="dssp"),
+        arch_spec(api, JAMBA, smoke=False, workers=2, sync="dssp"),
         {"ssm_scan": mamba_slots * 2, "flash_attention_fwd": groups * 2,
          "residual_rmsnorm": cut.n_layers * 2,
          "rmsnorm": cut.n_layers * 2 + 1},
@@ -2308,8 +2447,9 @@ def main(argv=None) -> None:
          "graph_pool_bytes": graphs.pool_bytes()})
     check_scan_backward_graph(torch, kreg, kref)
     prof = profile_step(torch, api, "hybrid",
-                        hybrid_spec(api, smoke=False, workers=1, sync="bsp",
-                                    straggler=1.0), steps=1, model_config=cut)
+                        arch_spec(api, JAMBA, smoke=False, workers=1,
+                                  sync="bsp", straggler=1.0),
+                        steps=1, model_config=cut)
     # a backward call copies 8 inputs in and clones 5 gradients out; the
     # replay's own kernels must land in its group too
     if prof is not None and not (prof["scan_backward_kernels_per_step"]
@@ -2352,6 +2492,10 @@ def main(argv=None) -> None:
         f"{transport['pushes_per_s']}); replica refresh bytes "
         f"{served['replica_refresh_bytes']} in "
         f"{served['replica_refreshes']} refreshes")
+
+    # -- the transformer families ------------------------------------------
+    for name, n in run_archs(torch, api).items():
+        launches[name] += n
 
     replaces = {
         "fused_update": "src/repro/kernels/fused_update.py:37",

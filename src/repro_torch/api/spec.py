@@ -49,9 +49,7 @@ CUSTOM_ARCH = "custom"
 
 #: The reference package's other architectures: valid names that the
 #: port refuses until their family is ported.
-LATER_ARCHS = ("qwen1.5-110b", "qwen1.5-32b", "mistral-large-123b",
-               "qwen3-moe-235b-a22b", "deepseek-moe-16b", "xlstm-125m",
-               "whisper-tiny", "chameleon-34b")
+LATER_ARCHS = ("xlstm-125m", "whisper-tiny")
 
 
 class SpecError(ValueError):
@@ -718,8 +716,8 @@ def _require_ported(spec: "RunSpec") -> None:
     from repro_torch.configs import arch_names  # light import
     ps = spec.ps
     _require(spec.model.arch in [CUSTOM_ARCH] + arch_names(),
-             _later(f"model.arch={spec.model.arch!r} (an architecture "
-                    "of a family not ported yet)", "item 10"))
+             _later(f"model.arch={spec.model.arch!r} (of the ssm family, "
+                    "xLSTM, or the audio family, Whisper)", "item 10"))
     _require(ps.kind != "none",
              _later("ps.kind='none'", "item 11 (the SPMD pipeline)"))
 

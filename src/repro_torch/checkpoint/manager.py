@@ -51,23 +51,24 @@ _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                  "uint8": torch.uint8, "bool": torch.bool}
 
 
+def _keystr_walk(node, path: str, out: List[Tuple[str, Any]]) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _keystr_walk(node[k], f"{path}[{k!r}]", out)
+    elif isinstance(node, (list, tuple)):
+        for i, x in enumerate(node):
+            _keystr_walk(x, f"{path}[{i}]", out)
+    else:
+        out.append((path, node))
+
+
 def keystr_names(tree: Any) -> List[Tuple[str, Any]]:
     """``(name, leaf)`` in flatten order, each name as
     ``jax.tree_util.keystr`` gives it: ``['key']`` per dict level,
-    ``[i]`` per list or tuple level."""
+    ``[i]`` per list or tuple level.  (A module-level walk: a recursive
+    closure would hold the leaves in a reference cycle.)"""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, path: str) -> None:
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], f"{path}[{k!r}]")
-        elif isinstance(node, (list, tuple)):
-            for i, x in enumerate(node):
-                walk(x, f"{path}[{i}]")
-        else:
-            out.append((path, node))
-
-    walk(tree, "")
+    _keystr_walk(tree, "", out)
     return out
 
 

@@ -1,9 +1,12 @@
-"""Architecture configs the port runs: the dense h2o-danube-1.8b and
-the hybrid jamba-v0.1-52b.
+"""Architecture configs the port runs: the dense h2o-danube-1.8b,
+qwen1.5-110b, qwen1.5-32b and mistral-large-123b, the early-fusion VLM
+chameleon-34b, the MoE transformers qwen3-moe-235b-a22b and
+deepseek-moe-16b, and the hybrid jamba-v0.1-52b.
 
 Each module exposes ``CONFIG`` (full-scale) and ``smoke_config()``
-(reduced, same family).  The other architectures of the reference
-package come with ROADMAP queue 1, item 10.
+(reduced, same family), equal to the reference package's.  Its other
+two architectures, xlstm-125m and whisper-tiny, come with ROADMAP queue
+1, item 10.
 """
 
 import importlib
@@ -13,6 +16,12 @@ from repro_torch.models.config import ModelConfig
 # CLI ids use dashes, as in the reference package
 _ALIASES = {
     "h2o-danube-1.8b": "h2o_danube_1p8b",
+    "qwen1.5-110b": "qwen15_110b",
+    "qwen1.5-32b": "qwen15_32b",
+    "mistral-large-123b": "mistral_large_123b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "chameleon-34b": "chameleon_34b",
     "jamba-v0.1-52b": "jamba_v01_52b",
 }
 

@@ -10,9 +10,9 @@ loops constructed with the same policy and seed sleep the same
 schedule, which makes a run that retries reproducible.
 
 Counterpart of ``repro/ft/backoff.py`` (the same policies and
-schedules).  Stdlib-only: the transport client imports it.  The rest of
-the reference's ``ft`` package (faults, snapshots, failover, resharding)
-comes with ROADMAP queue 1, item 8.
+schedules).  Stdlib-only: the transport client imports it; the rest of
+``repro_torch.ft`` (fault plans, snapshots, the restartable server
+process, live resharding) builds on it.
 """
 
 from __future__ import annotations

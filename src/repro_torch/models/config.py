@@ -1,9 +1,9 @@
 """Model configuration shared by every architecture family.
 
 A field-for-field copy of the reference package's ``ModelConfig``, so a
-config means the same thing on both sides.  The port reads the dense
-transformer's fields; the others (MoE, SSM, hybrid, enc-dec, and the
-reference's mesh-sharding and chunking knobs) are kept so configs stay
+config means the same thing on both sides.  The port reads the
+transformer's, MoE's and hybrid's fields; the others (xLSTM, enc-dec,
+and the reference's mesh-sharding knobs) are kept so configs stay
 identical and later slices can use them.
 """
 
@@ -60,7 +60,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     remat: str = "full"                   # none | full (per-layer recompute)
-    # the reference's chunking / mesh knobs (not read by the port yet)
+    # the reference's chunking knobs (the port reads moe_chunk) and mesh
+    # knobs (not read by the port yet)
     attn_chunk: int = 512
     moe_chunk: int = 256
     mamba_chunk: int = 128
@@ -91,10 +92,26 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // max(1, self.n_kv_heads)
 
+    def is_attention_layer(self, i: int) -> bool:
+        """Hybrid interleave (Jamba 1:7 -> attn_period=8)."""
+        if self.attn_period <= 0:
+            return True
+        return i % self.attn_period == self.attn_offset
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.moe is not None and (i % self.moe.every
+                                         == self.moe.every - 1)
+
     def param_count(self) -> int:
         """Total parameters (embedding included)."""
         from repro_torch.models.registry import count_params  # avoids cycle
         return count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through: the routed experts it is not
+        sent to left out."""
+        from repro_torch.models.registry import count_params
+        return count_params(self, active_only=True)
 
     def scaled(self, **overrides) -> "ModelConfig":
         """Reduced copy for smoke tests (same family, tiny dims)."""

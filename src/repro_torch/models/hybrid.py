@@ -43,9 +43,8 @@ def _slot_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     period = cfg.attn_period or 1
     kinds = []
     for j in range(period):
-        mixer = "attn" if j == cfg.attn_offset else "mamba"
-        ffn = "moe" if (cfg.moe is not None
-                        and j % cfg.moe.every == cfg.moe.every - 1) else "mlp"
+        mixer = "attn" if cfg.is_attention_layer(j) else "mamba"
+        ffn = "moe" if cfg.is_moe_layer(j) else "mlp"
         kinds.append((mixer, ffn))
     return kinds
 

@@ -1,8 +1,13 @@
 """Architecture registry: config -> param defs / init / loss / decode.
 
 Counterpart of ``repro/models/registry.py`` for the families the port
-runs: ``dense`` (``transformer.py``) and ``hybrid`` (``hybrid.py``,
-Jamba).  The reference's moe / ssm / audio / vlm families come with
+runs:
+
+  dense | moe | vlm -> transformer.py (llama/qwen/mistral/qwen3/deepseek;
+                       chameleon: early-fusion VQ tokens = LM)
+  hybrid            -> hybrid.py      (jamba)
+
+The reference's ssm (xLSTM) and audio (Whisper) families come with
 ROADMAP queue 1, item 10; its ``state_specs`` (decode state on a mesh)
 with item 11.
 """
@@ -44,9 +49,13 @@ def _lm_init_state(cfg: ModelConfig, batch: int, max_seq: int,
     return transformer.init_cache(cfg, batch, max_seq, device=device)
 
 
+_LM = Family(transformer.param_defs, transformer.loss_fn,
+             transformer.forward_decode, _lm_init_state)
+
 FAMILIES: Dict[str, Family] = {
-    "dense": Family(transformer.param_defs, transformer.loss_fn,
-                    transformer.forward_decode, _lm_init_state),
+    "dense": _LM,
+    "moe": _LM,
+    "vlm": _LM,
     "hybrid": Family(hybrid.param_defs, _hybrid_loss, hybrid.forward_decode,
                      hybrid.init_state),
 }
@@ -56,8 +65,8 @@ def family(cfg: ModelConfig) -> Family:
     fam = FAMILIES.get(cfg.family)
     if fam is None:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            "queue 1, item 10)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (xLSTM "
+            "and Whisper: ROADMAP queue 1, item 10)")
     return fam
 
 
@@ -85,8 +94,21 @@ def abstract_params(cfg: ModelConfig) -> Any:
         param_defs(cfg))
 
 
-def count_params(cfg: ModelConfig) -> int:
-    return P.count(param_defs(cfg))
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Total parameters; with ``active_only`` the routed experts a token
+    is not sent to are left out (the reference's count, exactly)."""
+    total = P.count(param_defs(cfg))
+    if active_only and cfg.moe is not None:
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * (m.d_expert or cfg.d_ff)
+        n_moe_layers = sum(1 for i in range(cfg.n_layers)
+                           if cfg.is_moe_layer(i))
+        if cfg.family == "hybrid":
+            period = cfg.attn_period or 1
+            n_moe_layers = (cfg.n_layers // period) * sum(
+                1 for j in range(period) if cfg.is_moe_layer(j))
+        total -= max(0, n_moe_layers * (m.n_experts - m.top_k) * per_expert)
+    return total
 
 
 def loss_fn(cfg: ModelConfig) -> Callable:

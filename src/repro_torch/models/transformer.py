@@ -1,10 +1,13 @@
-"""Dense decoder-only transformer (the llama / mistral family) — training
-forward and loss, serving prefill and KV-cache decode.
+"""Decoder-only transformer (llama / qwen / mistral / chameleon, and the
+MoE transformers qwen3-moe / deepseek-moe) — training forward and loss,
+serving prefill and KV-cache decode.
 
-Counterpart of the dense path of ``repro/models/transformer.py``: the
-same parameter tree (stacked per-layer weights under ``layers`` with a
-leading layer axis), pre-norm blocks of GQA(+SWA) attention and a SwiGLU
-MLP.  The reference scans over layers; here a Python loop walks the
+Counterpart of ``repro/models/transformer.py``: the same parameter tree
+(stacked per-layer weights under ``layers`` with a leading layer axis),
+pre-norm blocks of GQA(+SWA) attention, with optional QKV bias and q/k
+norms, and a SwiGLU MLP, or with ``cfg.moe`` an MoE FFN (``moe.py``)
+whose load-balancing loss each layer returns and ``forward`` sums.  The
+reference scans over layers; here a Python loop walks the
 layers over ``unbind`` views of the stacked weights (one stack of the
 per-layer grads in backward, not one full-size scatter per layer).
 ``cfg.remat == "full"`` recomputes each layer in the backward pass
@@ -27,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_util
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, torch_dtype
 
@@ -61,21 +65,25 @@ def mlp_defs(cfg: ModelConfig, n: int) -> Dict[str, ParamDef]:
 
 
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.moe is not None or cfg.norm != "rmsnorm" or cfg.act != "silu":
+    if cfg.norm != "rmsnorm" or cfg.act != "silu":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense rmsnorm/SwiGLU transformer is "
-            "ported (other families: ROADMAP queue 1, item 10)")
+            f"{cfg.name}: only the rmsnorm/SwiGLU transformer is ported "
+            "(layernorm and GELU: ROADMAP queue 1, item 10)")
     n = cfg.n_layers
+    layer: Dict[str, Any] = {
+        "attn": attn_defs(cfg, n),
+        "attn_norm": {"scale": ParamDef((n, cfg.d_model), init="ones")},
+        "mlp_norm": {"scale": ParamDef((n, cfg.d_model), init="ones")},
+    }
+    if cfg.moe is not None:
+        layer["moe"] = moe_lib.moe_defs(cfg, n)
+    else:
+        layer["mlp"] = mlp_defs(cfg, n)
     defs: Dict[str, Any] = {
         "embed": ParamDef((cfg.padded_vocab, cfg.d_model), init="embed",
                           fan_in_dims=(1,)),
         "final_norm": {"scale": ParamDef((cfg.d_model,), init="ones")},
-        "layers": {
-            "attn": attn_defs(cfg, n),
-            "attn_norm": {"scale": ParamDef((n, cfg.d_model), init="ones")},
-            "mlp_norm": {"scale": ParamDef((n, cfg.d_model), init="ones")},
-            "mlp": mlp_defs(cfg, n),
-        },
+        "layers": layer,
     }
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((cfg.padded_vocab, cfg.d_model),
@@ -84,20 +92,28 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 # --------------------------------------------------------------- layer body
+def _ffn(cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any]):
+    """The FFN sublayer: (out, the MoE's aux loss, or None for the dense
+    MLP, whose aux is zero)."""
+    if "moe" in w:
+        return moe_lib.moe_block(cfg, h, w["moe"])
+    return L.mlp_block(cfg, h, w["mlp"]), None
+
+
 def _layer(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
            cos: torch.Tensor, sin: torch.Tensor, collect_kv: bool = False):
-    """Pre-norm residual block.  With ``collect_kv`` also returns the
-    attention's post-rotary (k, v)."""
+    """Pre-norm residual block.  Returns (x, aux) (aux None for a dense
+    MLP); with ``collect_kv`` also the attention's post-rotary (k, v)."""
     h = L.apply_norm(cfg, x, w["attn_norm"])
     att = L.attention_block(cfg, h, w["attn"], cos, sin,
                             collect_kv=collect_kv)
     if collect_kv:
         att, kv = att
     # fused residual-add + norm: one pass produces the updated stream
-    # AND its normed view for the MLP
+    # AND its normed view for the FFN
     x, h = L.residual_apply_norm(cfg, att, x, w["mlp_norm"])
-    x = x + L.mlp_block(cfg, h, w["mlp"])
-    return (x, kv) if collect_kv else x
+    out, aux = _ffn(cfg, h, w)
+    return (x + out, aux, kv) if collect_kv else (x + out, aux)
 
 
 def layer_weights(layer_params: Any, n: int):
@@ -111,29 +127,38 @@ def layer_weights(layer_params: Any, n: int):
 # --------------------------------------------------------------- forward
 def forward(cfg: ModelConfig, params: Dict[str, Any],
             tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training forward. tokens (b, l) -> logits (b, l, v), aux."""
+    """Training forward. tokens (b, l) -> logits (b, l, v), the aux loss
+    summed over layers (zero without MoE)."""
     b, l = tokens.shape
     x = L.embed(tokens, params["embed"]).to(torch_dtype(cfg.dtype))
     positions = torch.arange(l, device=tokens.device)
     cos, sin = L.rotary_embedding(positions, cfg.resolved_head_dim,
                                   cfg.rope_theta)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for w in layer_weights(params["layers"], cfg.n_layers):
         if cfg.remat == "full":
-            x = checkpoint(_layer, cfg, x, w, cos, sin, use_reentrant=False)
+            # the checkpointed layer returns its aux too, so the aux
+            # loss's gradient flows through the recompute
+            x, aux = checkpoint(_layer, cfg, x, w, cos, sin,
+                                use_reentrant=False)
         else:
-            x = _layer(cfg, x, w, cos, sin)
+            x, aux = _layer(cfg, x, w, cos, sin)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = L.apply_norm(cfg, x, params["final_norm"])
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return (L.unembed(x, table, cfg.vocab_size),
-            torch.zeros((), dtype=torch.float32, device=tokens.device))
+    return L.unembed(x, table, cfg.vocab_size), aux_total
 
 
 def loss_fn(cfg: ModelConfig, params: Dict[str, Any],
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``nll + aux_loss_weight · aux`` (the weight 0 without MoE), and
+    the parts: ``loss`` is the nll."""
     logits, aux = forward(cfg, params, batch["tokens"])
     nll = L.cross_entropy(logits, batch["labels"])
-    return nll, {"loss": nll, "aux_loss": aux}
+    weight = cfg.moe.aux_loss_weight if cfg.moe else 0.0
+    return nll + weight * aux, {"loss": nll, "aux_loss": aux}
 
 
 # --------------------------------------------------------------- serving
@@ -156,7 +181,7 @@ def forward_prefill(cfg: ModelConfig, params: Dict[str, Any],
     quantized = cfg.kv_cache_dtype == "int8"
     kv = {}
     for w in layer_weights(params["layers"], cfg.n_layers):
-        x, (k, v) = _layer(cfg, x, w, cos, sin, collect_kv=True)
+        x, _, (k, v) = _layer(cfg, x, w, cos, sin, collect_kv=True)
         if quantized:
             for name, t in (("k", k), ("v", v)):
                 q, s = L.quantize_kv(t)
@@ -197,7 +222,8 @@ def forward_decode(cfg: ModelConfig, params: Dict[str, Any],
     """One decode step: token (b, 1) at position ``index`` (a host int);
     cache leaves (n_layers, ...), updated in place.  Returns (logits
     (b, 1, v), cache).  Two norms a layer, as the reference's step: no
-    fused residual+norm on this path."""
+    fused residual+norm on this path.  An MoE FFN routes the one token in
+    a single dispatch (``moe_block``'s branch for l = 1)."""
     x = L.embed(token, params["embed"]).to(torch_dtype(cfg.dtype))
     ws = layer_weights(params["layers"], cfg.n_layers)
     for i, w in enumerate(ws):
@@ -206,7 +232,7 @@ def forward_decode(cfg: ModelConfig, params: Dict[str, Any],
         x = x + L.decode_attention_block(cfg, h, w["attn"], layer_cache,
                                          index)
         h = L.apply_norm(cfg, x, w["mlp_norm"])
-        x = x + L.mlp_block(cfg, h, w["mlp"])
+        x = x + _ffn(cfg, h, w)[0]
     x = L.apply_norm(cfg, x, params["final_norm"])
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return L.unembed(x, table, cfg.vocab_size), cache

@@ -6,7 +6,8 @@ same way for process replicas (transport) and thread replicas (in-heap):
   * ``Decoder``: greedy continuation over the packed wire buffer, with
     shapes pinned at construction (``max_batch`` x ``prompt_len``
     prompts, ``max_new`` tokens; a short batch is padded by repeating
-    its last row).  The dense families prefill in one forward through
+    its last row).  The cache families (the dense, MoE and ``vlm``
+    transformers) prefill in one forward through
     the kernel registry (attention, residual+RMSNorm and RMSNorm run
     their Hopper kernels on the card) and decode one token a step over
     a KV cache; the recurrent families (the Jamba hybrid) prefill token

@@ -193,8 +193,8 @@ class PSTransportClient:
 
     def send_trace(self, events: Sequence[dict]) -> None:
         """Flush a drained trace event batch to the server-side
-        collector (no-op reply; dropped by endpoints without one, as the
-        port's are until ROADMAP queue 1, item 8)."""
+        collector (no-op reply; an endpoint without a collector drops
+        the batch)."""
         if not events:
             return
         blob = json.dumps(list(events),

@@ -15,37 +15,42 @@ from typing import Any, Callable, List, Tuple
 Tree = Any
 
 
+def _walk(node, leaves: List[Any]):
+    if isinstance(node, dict):
+        return {k: _walk(node[k], leaves) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_walk(x, leaves) for x in node)
+    leaves.append(node)
+    return None
+
+
 def flatten(tree: Tree) -> Tuple[List[Any], Any]:
     """(leaves in sorted-key order, treedef).  The treedef is the tree's
-    structure with ``None`` at every leaf position."""
+    structure with ``None`` at every leaf position.
+
+    The walks are module functions, not closures: a nested function that
+    calls itself through its closure is a reference cycle, and its cells
+    (the leaf list, the leaf iterator) would keep every leaf tensor
+    alive until the cycle collector runs."""
     leaves: List[Any] = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(x) for x in node)
-        leaves.append(node)
-        return None
-
-    return leaves, walk(tree)
+    return leaves, _walk(tree, leaves)
 
 
 def leaves(tree: Tree) -> List[Any]:
     return flatten(tree)[0]
 
 
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(x, it) for x in node)
+    return next(it)
+
+
 def unflatten(treedef: Any, leaf_list: List[Any]) -> Tree:
     it = iter(leaf_list)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(x) for x in node)
-        return next(it)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out

@@ -1,7 +1,9 @@
 """repro_torch's serving path against the reference's, on the CPU: the
 dense prefill and KV-cache decode (f32 and int8 caches, the sliding
-window's ring), the Jamba hybrid's decode (Mamba recurrence, attention
-cache, MoE), and the ``Decoder`` over one packed wire.
+window's ring), the MoE transformers' and qwen1.5-32b's (int8 cache)
+prefill and decode, the Jamba hybrid's decode (Mamba recurrence,
+attention cache, MoE), and the ``Decoder`` over one packed wire for the
+dense, MoE, ``vlm`` and hybrid families.
 
 Parameters come from the reference's ``registry.init_params(cfg,
 PRNGKey(0))`` and cross through numpy; token ids come from
@@ -61,9 +63,14 @@ def _dense(**kw):
     return JModelConfig(**base), ModelConfig(**base)
 
 
+def _smoke(arch):
+    """An architecture's smoke config in both packages."""
+    return (dataclasses.replace(jax_smoke(arch), kernels="auto"),
+            get_smoke_config(arch))
+
+
 def _jamba():
-    return (dataclasses.replace(jax_smoke(JAMBA), kernels="auto"),
-            get_smoke_config(JAMBA))
+    return _smoke(JAMBA)
 
 
 def _params(jcfg):
@@ -169,6 +176,60 @@ def test_decode_continues_prefill_cache(kv_dtype):
             else:
                 _close(got, want, KV_TOL, f"{name} pos {i}")
     print(f"int8 codes one step apart: {flips}")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-moe-16b",
+                                  "qwen1.5-32b"])
+def test_smoke_config_prefill_and_decode_match_reference(arch):
+    """The MoE transformers (q/k norms and routed experts; routed and
+    shared experts) and qwen1.5-32b (QKV bias, head dim 12, an int8
+    cache): the prefill's last logits and cache, then 6 teacher-forced
+    decode steps, each from the reference's cache, the one-token MoE
+    in a single dispatch.  Logits and the slot written are held against
+    the reference's; an int8 code may sit one step away."""
+    jcfg, cfg = _smoke(arch)
+    quantized = cfg.kv_cache_dtype == "int8"
+    assert quantized == (arch == "qwen1.5-32b")
+    jparams, params = _params(jcfg)
+    b, l_prompt, l_total = 2, 6, 12
+    toks = _tokens(0, b, l_total)
+    jlogits, jcache = jtransformer.forward_prefill(
+        jcfg, jparams, jnp.asarray(toks[:, :l_prompt]))
+    with torch.inference_mode():
+        logits, cache = transformer.forward_prefill(
+            cfg, params, _t(toks[:, :l_prompt]).long())
+    _close(logits, jlogits, TOL, "prefill logits")
+    assert sorted(cache) == sorted(jcache)
+    flips = 0
+
+    def check_cache(cache, jcache, what):
+        nonlocal flips
+        for name in sorted(cache):
+            got, want = cache[name].numpy(), np.asarray(jcache[name])
+            assert got.shape == want.shape, name
+            if name in ("k", "v") and quantized:
+                diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+                assert diff.max() <= 1, (name, what)
+                flips += int((diff > 0).sum())
+            else:
+                _close(got, want, KV_TOL, f"{name} {what}")
+
+    check_cache(cache, jcache, "prefill")
+    pad = l_total - l_prompt
+    jcache = {k: jnp.pad(v, ((0, 0), (0, 0), (0, pad))
+                         + ((0, 0),) * (v.ndim - 3))
+              for k, v in jcache.items()}
+    for i in range(l_prompt, l_total):
+        cache = {k: _t(v) for k, v in jcache.items()}
+        with torch.inference_mode():
+            logits, cache = transformer.forward_decode(
+                cfg, params, _t(toks[:, i:i + 1]).long(), cache, i)
+        jlogits, jcache = jtransformer.forward_decode(
+            jcfg, jparams, jnp.asarray(toks[:, i:i + 1]), jcache,
+            jnp.int32(i))
+        _close(logits, jlogits, TOL, f"pos {i}")
+        check_cache(cache, jcache, f"pos {i}")
+    print(f"{arch}: int8 codes one step apart: {flips}")
 
 
 def test_sliding_window_ring_cache_matches_reference():
@@ -317,13 +378,18 @@ def _agreeing_tokens(got, want, ref_logits, tol):
     return excluded
 
 
-@pytest.mark.parametrize("family", ["dense", "hybrid"])
+@pytest.mark.parametrize("family", ["dense", "hybrid", "moe", "vlm"])
 def test_decoder_matches_reference_decoder(family):
     """Both packages' ``Decoder``s on one wire and the same prompts:
     teacher-forced logits along the reference's greedy tokens, the
-    greedy tokens themselves, and a short batch padded and sliced."""
-    if family == "dense":
-        jcfg, cfg = _dense()
+    greedy tokens themselves, and a short batch padded and sliced.
+    ``moe`` is deepseek-moe-16b's smoke config (routed and shared
+    experts), ``vlm`` chameleon-34b's (q/k norms)."""
+    if family in ("dense", "moe", "vlm"):
+        jcfg, cfg = {"dense": _dense,
+                     "moe": lambda: _smoke("deepseek-moe-16b"),
+                     "vlm": lambda: _smoke("chameleon-34b")}[family]()
+        assert cfg.family == family
         kw, tol = dict(prompt_len=8, max_new=6, max_batch=4), TOL
     else:
         jcfg, cfg = _jamba()
