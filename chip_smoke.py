@@ -26,9 +26,12 @@ after an error:
            bf16; serving's prefill attention and norm shapes; the
            transformer families' train step: attention at head dim 128
            with 64/8, 40/40, 96/8, 64/4 and 16/16 heads, the q/k norms'
-           rows of 128 and both norms at widths 2048-12288), with its
-           tolerance, and serving's ``quantize_kv`` bitwise against the
-           CPU; median CUDA-event times of the
+           rows of 128 and both norms at widths 2048-12288; ``rmsnorm``
+           at xlstm-125m's width 768), with its tolerance, serving's
+           ``quantize_kv`` bitwise against the CPU, and the sLSTM time
+           loop at xlstm-125m's shape captured as CUDA graphs, forward
+           and backward bit for bit the eager loop (times, kernels a
+           replay, pool bytes); median CUDA-event times of the
            kernel, the plain version and one library call where PyTorch
            has one, and the least time the card could take (bound); for
            attention's bf16 and f32 train shapes, the norms' dense and
@@ -117,9 +120,9 @@ after an error:
            a server killed inside its reshard that resumes untorn
   serve parity
            the h2o-danube, Jamba (MoE on), deepseek-moe (shared experts),
-           chameleon (q/k norms) and qwen1.5-32b (QKV bias, int8 KV
-           cache) smoke configs (f32) decoded on the card from one
-           packed wire by ``repro_torch.serve.Decoder``, with the kernels
+           chameleon (q/k norms), qwen1.5-32b (QKV bias, int8 KV
+           cache) and xlstm-125m (recurrent) smoke configs (f32) decoded
+           on the card from one packed wire by ``repro_torch.serve.Decoder``, with the kernels
            and with the plain formulations: logits along the plain
            decoder's greedy tokens within 2e-4 (the int8 cache: within
            how far it moves the plain logits from an f32 cache's, and
@@ -143,7 +146,10 @@ after an error:
            over tcp) with 1 spawned replica process refreshing each
            second: the same checks, the replica process's launches
            exactly per batch, its refresh bytes, and pushes/s beside the
-           transport phase's
+           transport phase's; then one xlstm-125m decode batch (8
+           prompts of 512, prefilled token by token, 32 new tokens) with
+           the card to itself: prefill and token times, its ``rmsnorm``
+           launches a token exactly, kernels a token and idle share
   archs    the transformer families, each on its own: qwen1.5-110b,
            qwen1.5-32b, mistral-large-123b, chameleon-34b (vlm),
            qwen3-moe-235b-a22b and deepseek-moe-16b.  Each one's smoke
@@ -156,9 +162,19 @@ after an error:
            is, with per worker step 2L attention and fused-norm launches
            and 2L(1 + 2 qk_norm) + 1 ``rmsnorm``; then one profiled
            one-worker step of deepseek-moe's cut (idle share)
+  families xlstm-125m (``ssm``) and whisper-tiny (``audio``) at their
+           published configs, uncut (12 layers; 4 + 4): each one's
+           smoke parity, then 4 steps of seq 1024, 2 sequences a step,
+           2 DSSP workers, checked as the train phase is, with 2L + 1
+           ``rmsnorm`` launches a worker step for xLSTM and none for
+           Whisper; xLSTM's sLSTM graphs (one backward graph, a forward
+           graph a thread, none added by later steps or sessions); then
+           one profiled one-worker xLSTM step, the sLSTM replays as
+           groups of their own
 
-The last two lines of standard output are the JSON kernel table and the
-contract line ``{"ok": true, "device": {...}}``.  This script imports
+Each phase boundary prints the script's elapsed seconds.  The last two
+lines of standard output are the JSON kernel table and the contract
+line ``{"ok": true, "device": {...}}``.  This script imports
 nothing of JAX and nothing of the ``repro`` package.
 """
 
@@ -519,21 +535,27 @@ SERVE_PREFILL_ROWS = (8, 512, 2560)
 QK_NORM_ROWS = (2, 1024, 64, 128)
 ARCH_NORM_ROWS = (QK_NORM_ROWS, (2, 1024, 2048), (2, 1024, 5120),
                   (2, 1024, 8192), (2, 1024, 12288))
+#: xlstm-125m's norms at width 768 (``rmsnorm`` only: xLSTM adds its
+#: residual plainly): its train step's rows (2 sequences of 1024) and a
+#: decode step's (8, 1); a bf16 row is 96 16-byte vectors, one warp with
+#: three vectors a lane
+XLSTM_NORM_ROWS = ((2, 1024, 768), (8, 1, 768))
 
 
 def check_norms(torch, timer, rn, rrn):
     g = torch.Generator(device="cuda").manual_seed(2)
     main = {}
     #: the dense step's shape (the table's row), the Jamba step's,
-    #: serving's (a decode step's rows and a prefill batch), and the
-    #: transformer families' (ARCH_NORM_ROWS)
+    #: serving's (a decode step's rows and a prefill batch), the
+    #: transformer families' (ARCH_NORM_ROWS) and xLSTM's
     timed_device = ((4, 1024, 2560), (2, 1024, 4096), SERVE_DECODE_ROWS,
-                    SERVE_PREFILL_ROWS) + ARCH_NORM_ROWS
+                    SERVE_PREFILL_ROWS) + ARCH_NORM_ROWS + XLSTM_NORM_ROWS
     for dt, shape in ((torch.bfloat16, (4, 1024, 2560)),
                       (torch.bfloat16, (2, 1024, 4096)),
                       (torch.bfloat16, SERVE_DECODE_ROWS),
                       (torch.bfloat16, SERVE_PREFILL_ROWS),
                       *((torch.bfloat16, rows) for rows in ARCH_NORM_ROWS),
+                      *((torch.bfloat16, rows) for rows in XLSTM_NORM_ROWS),
                       (torch.float32, (4, 1024, 2560)),
                       (torch.float32, (3, 7, 2561)),
                       (torch.bfloat16, (5, 1000))):
@@ -544,8 +566,9 @@ def check_norms(torch, timer, rn, rrn):
         d = shape[-1]
         rows = x.numel() // d
         for name in ("rmsnorm", "residual_rmsnorm"):
-            if name == "residual_rmsnorm" and shape == QK_NORM_ROWS:
-                continue    # the q/k norms have no residual
+            if name == "residual_rmsnorm" and (
+                    shape == QK_NORM_ROWS or shape in XLSTM_NORM_ROWS):
+                continue    # the q/k norms and xLSTM's have no residual
             if name == "rmsnorm":
                 kern = lambda: rn.rmsnorm(x, w)
                 plain = lambda: rn.rmsnorm_plain(x, w)
@@ -923,6 +946,77 @@ def check_scan_backward_graph(torch, kreg, kref):
     rec["graph_pool_bytes"] = graphs.pool_bytes()
     graphs.clear()
     say(rec)
+
+
+#: xlstm-125m's sLSTM time loop: (batch, length, heads, head dim)
+SLSTM_SHAPE = (2, 1024, 4, 192)
+
+
+def traced_kernels(torch, fn):
+    """(kernels, device ms) of one call of ``fn`` as ``torch.profiler``
+    traces them (a graph replay's kernels included)."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.events()
+            if e.device_type == cuda and not e.is_user_annotation]
+    return len(seen), sum(e.device_time_total for e in seen) / 1e3
+
+
+def check_slstm_graphs(torch, kreg, ssm):
+    """The sLSTM time loop at xlstm-125m's shape (gates (2, 1024, 4,
+    4·192) f32, recurrent weights (4, 192, 768)) through graph caches of
+    its own: the forward and the backward, two calls each with new
+    inputs (the first captures), each bit for bit the eager loop and
+    autograd through it.  Host-clock seconds of every call to a
+    synchronize (the first graphed ones include the capture), the
+    kernels and device time of one replay (traced), and the bytes of
+    each graph's private pool."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    b, l, heads, hd = SLSTM_SHAPE
+    needs = (True, True)
+    fwd = kreg.CudaGraphs(ssm.slstm_forward_body)
+    bwd = kreg.CudaGraphs(ssm.slstm_backward_body)
+    rec = {"phase": "kernels", "run": "sLSTM loop, graphed against eager",
+           "shape": [b, l, heads, 4 * hd], "tolerance": "bitwise"}
+    for call in range(2):
+        rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+        gx = rnd(b, l, heads, 4 * hd)
+        wh = rnd(heads, hd, 4 * hd) / math.sqrt(hd)
+        dh = rnd(b, l, heads, hd)
+        runs = (("eager_forward", lambda: (ssm.slstm_loop(gx, wh),)),
+                ("graphed_forward", lambda: fwd((gx, wh))),
+                ("eager_backward", lambda: kreg._vjp_through(
+                    ssm.slstm_loop, (gx, wh), (dh,), needs)),
+                ("graphed_backward", lambda: bwd((gx, wh, dh), needs)))
+        outs, times = {}, {}
+        for name, fn in runs:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            times[f"{name}_s"] = time.monotonic() - t0
+        for which in ("forward", "backward"):
+            for i, (a, w) in enumerate(zip(outs[f"graphed_{which}"],
+                                           outs[f"eager_{which}"])):
+                if not torch.equal(a, w):
+                    fail(f"sLSTM graphed {which}, call {call}, output {i}: "
+                         "not bitwise the eager one (max |err| "
+                         f"{(a - w).abs().max().item()})")
+        rec[f"call {call}"] = times
+    for which, fn in (("forward", lambda: fwd((gx, wh))),
+                      ("backward", lambda: bwd((gx, wh, dh), needs))):
+        n, ms = traced_kernels(torch, fn)
+        rec[f"{which}_replay_kernels"] = n
+        rec[f"{which}_replay_device_ms"] = ms
+    rec["forward_pool_bytes"] = fwd.pool_bytes()
+    rec["backward_pool_bytes"] = bwd.pool_bytes()
+    fwd.clear()
+    bwd.clear()
+    say(rec)
+    return {}
 
 
 # ----------------------------------------------------------------- runs
@@ -1415,9 +1509,11 @@ def teacher_forced_logits(torch, dec, wire, prompts, tokens):
 
 #: the smoke configs that serve parity decodes: dense (a window), the
 #: hybrid (Mamba, attention, MoE), the MoE transformer with shared
-#: experts, the vlm (q/k norms), and QKV bias with an int8 KV cache
+#: experts, the vlm (q/k norms), QKV bias with an int8 KV cache, and
+#: xLSTM (the mLSTM and sLSTM recurrences, prefilled token by token)
 SERVE_PARITY_ARCHS = ("h2o-danube-1.8b", "jamba-v0.1-52b",
-                      "deepseek-moe-16b", "chameleon-34b", "qwen1.5-32b")
+                      "deepseek-moe-16b", "chameleon-34b", "qwen1.5-32b",
+                      "xlstm-125m")
 
 
 def check_serve_parity(torch, tol: float = 2e-4, device: str = "cuda:0"):
@@ -1547,6 +1643,97 @@ def time_decode_batch(torch, cfg, plan, wire, sv, device: str = "cuda:0"):
             "kernels_per_batch": len(kernels),
             "idle_share": (1.0 - busy_ms / batch_ms if busy_ms > 0
                            else "not measured")}
+
+
+#: one full-width xlstm-125m decode batch: serving's prompts and batch
+XLSTM_DECODE = dict(prompt_len=512, max_new=32, max_batch=8)
+#: decode steps traced for the device's busy time a token
+XLSTM_TRACED_TOKENS = 8
+
+
+def time_xlstm_decode(torch, device: str = "cuda:0"):
+    """One xlstm-125m decode batch (random weights from seed 0, the
+    published config) with the card to itself: 8 prompts of 512 tokens,
+    prefilled token by token through the decode step (a recurrent
+    family), then 32 new tokens.  After a warm-up batch: the prefill's
+    time and a later token's (synchronised), the ``rmsnorm`` launches a
+    token (its 12 layers' and the final norm, no other kernel), and,
+    over ``XLSTM_TRACED_TOKENS`` traced tokens, the kernels a token and
+    the device's busy time, whence the idle share of an untraced
+    token."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.perfcount import LAUNCHES
+    from repro_torch.ps.sharded.plan import build_shard_plan
+    from repro_torch.serve import Decoder
+    cfg = get_config("xlstm-125m")
+    params = registry.init_params(cfg, seed=0, device=device)
+    plan = build_shard_plan(params, 4)
+    wire = plan.pack(params)
+    del params
+    sv = XLSTM_DECODE
+    dec = Decoder(cfg, plan, device=device, **sv)
+    prompts = np.random.RandomState(12).randint(
+        0, cfg.vocab_size, (sv["max_batch"], sv["prompt_len"])).astype(
+        np.int32)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    tokens = dec.decode(wire, prompts)
+    warm_ms = (time.monotonic() - t0) * 1e3
+    if tokens.shape != (sv["max_batch"], sv["max_new"]) or not (
+            0 <= tokens.min() and tokens.max() < cfg.vocab_size):
+        fail(f"xlstm decode: tokens {tokens.shape}, range "
+             f"[{tokens.min()}, {tokens.max()}]")
+    p = dec.params(wire)
+    toks = torch.from_numpy(prompts).long().to(device)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    last, state = dec.prefill(p, toks)
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    tok = torch.argmax(last, dim=-1)[:, None]
+    before = LAUNCHES.snapshot()
+    t0 = time.monotonic()
+    n_tok = sv["max_new"] - 1
+    for j in range(n_tok):
+        logits, state = dec.step(p, tok, state, sv["prompt_len"] + j)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+    torch.cuda.synchronize()
+    token_ms = (time.monotonic() - t0) * 1e3 / n_tok
+    launched = LAUNCHES.delta(before)
+    want = {name: (cfg.n_layers + 1) * n_tok if name == "rmsnorm" else 0
+            for name in launched}
+    if launched != want:
+        fail(f"xlstm decode: launches {launched} != expected {want}")
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for j in range(XLSTM_TRACED_TOKENS):
+            logits, state = dec.step(p, tok, state, sv["prompt_len"] + j)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == cuda and not e.is_user_annotation]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 \
+        / XLSTM_TRACED_TOKENS
+    state_bytes = sum(t.numel() * t.element_size()
+                      for kind in state.values() for t in kind.values())
+    rec = {"phase": "serve", "run": "xlstm-125m decode batch, the card to "
+           "itself", **sv, "warm_batch_ms": warm_ms,
+           "prefill_ms": prefill_ms,
+           "prefill_ms_per_token": prefill_ms / sv["prompt_len"],
+           "decode_ms_per_token": token_ms,
+           "rmsnorm_launches_per_token": launched["rmsnorm"] / n_tok,
+           "kernels_per_token": len(kernels) / XLSTM_TRACED_TOKENS,
+           "device_busy_ms_per_token": busy_ms if busy_ms > 0
+           else "not measured",
+           "idle_share": (1.0 - busy_ms / token_ms if busy_ms > 0
+                          else "not measured"),
+           "state_bytes": state_bytes}
+    say(rec)
+    return rec
 
 
 def check_serving(tag, m, results, requests: int, bound: int):
@@ -1686,11 +1873,19 @@ def arch_config(arch: str, layers: int):
 
 
 def arch_launches(cfg):
-    """Kernel launches of one worker step of a transformer config: per
-    layer and pass (the forward, and its recompute under remat) one
-    attention, one fused residual norm, and the attention norm with the
-    q/k norms where the config has them; the final norm once."""
+    """Kernel launches of one worker step of a config, by family.  A
+    transformer: per layer and pass (the forward, and its recompute
+    under remat) one attention, one fused residual norm, and the
+    attention norm with the q/k norms where the config has them; the
+    final norm once.  xLSTM: the layer's norm a layer and pass, and the
+    final norm (its residual is a plain add; no attention).  Whisper:
+    none (layernorm, and attention over an explicit mask, both plain, as
+    the reference's never reach its registry)."""
     passes = cfg.n_layers * (2 if cfg.remat == "full" else 1)
+    if cfg.family == "ssm":
+        return {"rmsnorm": passes + 1}
+    if cfg.family == "audio":
+        return {}
     return {"flash_attention_fwd": passes, "residual_rmsnorm": passes,
             "rmsnorm": passes * (1 + (2 if cfg.qk_norm else 0)) + 1}
 
@@ -1725,6 +1920,78 @@ def run_archs(torch, api):
                  arch_spec(api, ARCH_PROFILED, smoke=False, workers=1,
                            sync="bsp", straggler=1.0),
                  steps=1, model_config=profiled)
+    return total
+
+
+# ----------------------------------------------------------------- families
+#: the recurrent and audio families at their published configs, uncut:
+#: xlstm-125m (12 layers, sLSTM at 5 and 11; 81,178,448 parameters) and
+#: whisper-tiny (4 + 4 layers; 49,049,088)
+FAMILY_ARCHS = ("xlstm-125m", "whisper-tiny")
+#: the family whose one-worker step is profiled
+FAMILY_PROFILED = "xlstm-125m"
+
+
+def slstm_graph_counts(ssm) -> dict:
+    fwd, bwd = ssm.SLSTM_FORWARD_GRAPHS, ssm.SLSTM_BACKWARD_GRAPHS
+    return {"forward_graphs": len(fwd), "backward_graphs": len(bwd),
+            "forward_pool_bytes": fwd.pool_bytes(),
+            "backward_pool_bytes": bwd.pool_bytes()}
+
+
+def run_families(torch, api):
+    """xlstm-125m (``ssm``) and whisper-tiny (``audio``), each on its
+    own: the smoke config's parity (kernels vs plain, through
+    ``build_session``), then ``ARCH_STEPS`` steps of the published
+    config through ``run_train`` (seq 1024, Whisper's frames as long, 2
+    sequences a worker step, 2 DSSP workers [1, 4], straggler 2.0, bf16,
+    remat full), with ``arch_launches``' family-aware counts.  For xLSTM
+    the sLSTM loop's graphs: one backward graph (the autograd engine's
+    one device thread) and a forward graph for each thread that ran the
+    loop (each worker, and the device thread's remat recompute), none
+    added after the first step, nor by a later session; then one
+    profiled one-worker xLSTM step.  Returns the launches of the train
+    runs, summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    total = {}
+    for arch in FAMILY_ARCHS:
+        check_parity(torch, api, f"{arch} smoke", lambda kernels: arch_spec(
+            api, arch, smoke=True, workers=1, sync="bsp", kernels=kernels,
+            straggler=1.0))
+        ssm.SLSTM_FORWARD_GRAPHS.clear()
+        ssm.SLSTM_BACKWARD_GRAPHS.clear()
+        cfg = get_config(arch)
+        info = {"arch": arch, "layers": cfg.n_layers,
+                "encoder_layers": cfg.n_encoder_layers,
+                "params": cfg.param_count()}
+        spec = arch_spec(api, arch, smoke=False, workers=2, sync="dssp")
+        rec = run_train(torch, api, f"family {arch}", spec,
+                        arch_launches(cfg), steps=ARCH_STEPS,
+                        extra=lambda *_: dict(info, **slstm_graph_counts(
+                            ssm)))
+        for name, n in rec["launches"].items():
+            total[name] = total.get(name, 0) + n
+        if cfg.family != "ssm":
+            continue
+        graphs = slstm_graph_counts(ssm)
+        if not (1 <= graphs["forward_graphs"] <= spec.ps.workers + 1
+                and graphs["backward_graphs"] == 1):
+            fail(f"family {arch}: sLSTM graphs {graphs}: one backward "
+                 "graph and one forward graph a thread expected")
+        say({"phase": f"family {arch}", "slstm_forward_graphs":
+             ssm.SLSTM_FORWARD_GRAPHS.summary(), "slstm_backward_graphs":
+             ssm.SLSTM_BACKWARD_GRAPHS.summary()})
+        profile_step(torch, api, f"family {arch}",
+                     arch_spec(api, arch, smoke=False, workers=1, sync="bsp",
+                               straggler=1.0), steps=1)
+        after = slstm_graph_counts(ssm)
+        if (after["forward_graphs"], after["backward_graphs"]) != (
+                graphs["forward_graphs"], graphs["backward_graphs"]):
+            fail(f"family {arch}: the profile's sessions added sLSTM "
+                 f"graphs: {graphs} -> {after}")
+        ssm.SLSTM_FORWARD_GRAPHS.clear()
+        ssm.SLSTM_BACKWARD_GRAPHS.clear()
     return total
 
 
@@ -2167,6 +2434,19 @@ KERNEL_GROUPS = (("attention kernel (flash_fwd)", ("flash_fwd",)),
                  ("softmax (plain attention backward)", ("softmax",)))
 PLAIN_SCAN_BACKWARD = ("plain ssm_scan backward (recompute and autograd "
                        "through ssm_scan_ref, one CUDA graph replay)")
+SLSTM_FORWARD_GROUP = "sLSTM loop forward (one CUDA graph replay)"
+SLSTM_BACKWARD_GROUP = ("sLSTM loop backward (recompute and autograd "
+                        "through the loop, one CUDA graph replay)")
+
+
+def range_groups():
+    """Profiler ranges whose device spans hold a graph replay, each with
+    its group: (range name, group)."""
+    from repro_torch.kernels.registry import SSM_SCAN_BACKWARD
+    from repro_torch.models.ssm import SLSTM_BACKWARD, SLSTM_FORWARD
+    return ((SSM_SCAN_BACKWARD, PLAIN_SCAN_BACKWARD),
+            (SLSTM_FORWARD, SLSTM_FORWARD_GROUP),
+            (SLSTM_BACKWARD, SLSTM_BACKWARD_GROUP))
 
 
 def kernel_function(name: str) -> str:
@@ -2206,15 +2486,14 @@ def profile_step(torch, api, label: str, spec, steps: int = 2, **overrides):
     device's idle share of the wall time of as many untraced steps of
     another fresh session (tracing every CPU op of the worker threads
     slows the host), and of the traced steps.  Kernels that run inside
-    the device span of the scan's backward range
-    (``registry.SSM_SCAN_BACKWARD``) form a group of their own: the
-    tracer ties a graph replay's kernels to no CPU op, but the span runs
-    from the range's first kernel (copying the inputs in) to its last
-    (cloning the gradients out), and the stream runs the replay between
-    them."""
+    the device span of a graph replay's range (``range_groups``: the
+    scan's backward, the sLSTM loop's forward and backward) form a
+    group of their own: the tracer ties a graph replay's kernels to no
+    CPU op, but the span runs from the range's first kernel (copying the
+    inputs in) to its last (cloning the outputs), and the stream runs
+    the replay between them."""
     from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
-    from repro_torch.kernels.registry import SSM_SCAN_BACKWARD
     untraced_ms = timed_steps(torch, api, spec, steps, **overrides)
     free_device_memory(torch)
     # the steps run in the session's worker threads: record their CPU
@@ -2232,21 +2511,25 @@ def profile_step(torch, api, label: str, spec, steps: int = 2, **overrides):
             wall_ms = (time.monotonic() - t0) * 1e3 / steps
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
-    spans = [(e.time_range.start, e.time_range.end) for e in events
-             if e.device_type == cuda and e.is_user_annotation
-             and e.name == SSM_SCAN_BACKWARD]
-    by_name, scan_bwd = {}, {}
+    spans = {group: [(e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == cuda and e.is_user_annotation
+                     and e.name == name]
+             for name, group in range_groups()}
+    by_name, in_range = {}, {}
     for e in events:
         # CPU ops, and ranges' device spans, are not kernels
         if e.device_type != cuda or e.is_user_annotation:
             continue
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.device_time_total / 1e3 / steps, n + 1)
-        if any(t0 <= e.time_range.start and e.time_range.end <= t1
-               for t0, t1 in spans):
-            ms_n = scan_bwd.setdefault(e.name, [0.0, 0])
-            ms_n[0] += e.device_time_total / 1e3
-            ms_n[1] += 1
+        for group, group_spans in spans.items():
+            if any(t0 <= e.time_range.start and e.time_range.end <= t1
+                   for t0, t1 in group_spans):
+                ms_n = in_range.setdefault(group, {}).setdefault(
+                    e.name, [0.0, 0])
+                ms_n[0] += e.device_time_total / 1e3
+                ms_n[1] += 1
+                break
     busy = sum(ms for ms, _ in by_name.values())
     if busy <= 0:   # the tracer saw no kernels: a measurement, not a fault
         say({"phase": "profile", "run": label, "step_wall_ms": untraced_ms,
@@ -2255,19 +2538,19 @@ def profile_step(torch, api, label: str, spec, steps: int = 2, **overrides):
         return None
     groups = {}
     for name, (ms, _) in by_name.items():
-        ms -= scan_bwd.get(name, (0.0, 0))[0] / steps
+        ms -= sum(k.get(name, (0.0, 0))[0] for k in in_range.values()) / steps
         g = kernel_group(name)
         groups[g] = groups.get(g, 0.0) + ms
-    if scan_bwd:
-        groups[PLAIN_SCAN_BACKWARD] = sum(
-            ms for ms, _ in scan_bwd.values()) / steps
+    for group, kernels in in_range.items():
+        groups[group] = sum(ms for ms, _ in kernels.values()) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     rec = {"phase": "profile", "run": label, "steps": steps,
          "step_wall_ms": untraced_ms, "traced_step_wall_ms": wall_ms,
          "device_busy_ms": busy, "idle_share": 1.0 - busy / untraced_ms,
          "traced_idle_share": 1.0 - busy / wall_ms,
-         "scan_backward_kernels_per_step": sum(
-             n for _, n in scan_bwd.values()) / steps,
+         "range_kernels_per_step": {
+             group: sum(n for _, n in kernels.values()) / steps
+             for group, kernels in in_range.items()},
          "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
          "top_kernels": [{"name": k[:90], "ms": ms, "calls": n // steps}
                          for k, (ms, n) in top]}
@@ -2277,7 +2560,7 @@ def profile_step(torch, api, label: str, spec, steps: int = 2, **overrides):
 
 #: kernel checks that ``--only`` can name
 CHECKS = ("fused_update", "norms", "flash", "fused_update_batched",
-          "fused_compress", "ssm_scan", "quantize_kv")
+          "fused_compress", "ssm_scan", "quantize_kv", "slstm")
 
 
 def parse_args(argv):
@@ -2302,6 +2585,11 @@ def parse_args(argv):
 
 def main(argv=None) -> None:
     args = parse_args(sys.argv[1:] if argv is None else argv)
+    start = time.monotonic()
+
+    def mark(phase: str) -> None:
+        """The script's elapsed seconds as ``phase`` begins."""
+        say({"elapsed_s": time.monotonic() - start, "next": phase})
     # -- device ----------------------------------------------------------
     import torch
     if not torch.cuda.is_available():
@@ -2332,7 +2620,7 @@ def main(argv=None) -> None:
     from repro_torch.kernels import residual_rmsnorm as rrn
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssm_scan as ss
-    from repro_torch.models import registry
+    from repro_torch.models import registry, ssm
     from repro_torch.ps.sharded.plan import build_shard_plan
 
     # -- build -----------------------------------------------------------
@@ -2364,6 +2652,7 @@ def main(argv=None) -> None:
         say({"phase": "sass", "loop_instructions_per_ex2": scan_instr,
              **sass})
 
+    mark("kernels")
     # -- kernels ---------------------------------------------------------
     timer = Timer(torch)
     cfg = get_config("h2o-danube-1.8b")
@@ -2386,6 +2675,7 @@ def main(argv=None) -> None:
         "ssm_scan": lambda: {"ssm_scan": check_ssm_scan(
             torch, timer, ss, scan_instr)},
         "quantize_kv": lambda: check_quantize_kv(torch),
+        "slstm": lambda: check_slstm_graphs(torch, kreg, ssm),
     }
     table = {}
     for name in CHECKS:
@@ -2398,6 +2688,7 @@ def main(argv=None) -> None:
              "device": torch.cuda.get_device_name(0)})
         return
 
+    mark("parity, train, profile, server, paths")
     # -- parity, train, profile, server, paths ---------------------------
     n_layers = 24
     check_parity(torch, api, "h2o-danube smoke", lambda kernels:
@@ -2425,6 +2716,7 @@ def main(argv=None) -> None:
     launches["fused_topk_ef"] = server_b["fused_topk_ef"]
     run_paths(torch, api)
 
+    mark("jamba")
     # -- jamba parity, hybrid, hybrid profile ----------------------------
     check_parity(torch, api, "jamba smoke (MoE)", lambda kernels:
                  arch_spec(api, JAMBA, smoke=True, workers=1, sync="bsp",
@@ -2452,13 +2744,15 @@ def main(argv=None) -> None:
                         steps=1, model_config=cut)
     # a backward call copies 8 inputs in and clones 5 gradients out; the
     # replay's own kernels must land in its group too
-    if prof is not None and not (prof["scan_backward_kernels_per_step"]
-                                 > 13 * mamba_slots):
-        fail("hybrid profile: the scan backward's group holds "
-             f"{prof['scan_backward_kernels_per_step']} kernels a step: "
-             "the graph replay's kernels are not attributed to it")
+    scan_kernels = (prof or {}).get("range_kernels_per_step", {}).get(
+        PLAIN_SCAN_BACKWARD, 0)
+    if prof is not None and not scan_kernels > 13 * mamba_slots:
+        fail(f"hybrid profile: the scan backward's group holds "
+             f"{scan_kernels} kernels a step: the graph replay's kernels "
+             "are not attributed to it")
     graphs.clear()      # the later phases do not run the scan
 
+    mark("transport")
     # -- transport, transport paths --------------------------------------
     layers = transport_config().n_layers
     per_step = {"flash_attention_fwd": layers * 2,
@@ -2470,6 +2764,7 @@ def main(argv=None) -> None:
                                      "residual_rmsnorm": passes,
                                      "rmsnorm": passes + 1})
 
+    mark("ft")
     # -- ft, ft paths ----------------------------------------------------
     run_ft(torch, api, {"flash_attention_fwd": layers * 2,
                         "residual_rmsnorm": layers * 2,
@@ -2478,6 +2773,7 @@ def main(argv=None) -> None:
                               "residual_rmsnorm": passes,
                               "rmsnorm": passes + 1})
 
+    mark("serve")
     # -- serve parity, serve, serve transport ----------------------------
     check_serve_parity(torch)
     serve = run_serve(torch, api, {"flash_attention_fwd": n_layers * 2,
@@ -2493,8 +2789,17 @@ def main(argv=None) -> None:
         f"{served['replica_refresh_bytes']} in "
         f"{served['replica_refreshes']} refreshes")
 
+    free_device_memory(torch)
+    time_xlstm_decode(torch)
+    free_device_memory(torch)
+
+    mark("archs")
     # -- the transformer families ------------------------------------------
     for name, n in run_archs(torch, api).items():
+        launches[name] += n
+    mark("families")
+    # -- the recurrent and audio families ----------------------------------
+    for name, n in run_families(torch, api).items():
         launches[name] += n
 
     replaces = {
@@ -2516,6 +2821,7 @@ def main(argv=None) -> None:
         "flash_attention_fwd": "flash_attention_sm90.cu",   # bf16
         "ssm_scan": "ssm_scan.cu",
     }
+    mark("end")
     unlaunched = [name for name in table if launches[name] <= 0]
     if unlaunched:
         fail(f"kernels never launched on their path: {unlaunched}")

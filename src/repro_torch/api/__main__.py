@@ -10,8 +10,8 @@ Counterpart of ``repro/api/__main__.py``.  ``--dump-schema`` prints
 message names its ROADMAP item).  ``--example`` prints the port's main
 path (DSSP, sharded server, fused apply, packed wire with delta pulls,
 h2o-danube-1.8b's smoke config): the reference's example is
-``RunSpec()``, whose default architecture (xlstm-125m) comes with item
-10.
+``RunSpec()``, whose default ``ps.kind='none'`` (the SPMD pipeline)
+comes with item 11.
 """
 
 from __future__ import annotations

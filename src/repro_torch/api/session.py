@@ -500,11 +500,15 @@ def packed_step(cfg, plan, device: torch.device, current_plan=None):
 
 def worker_batches(cfg, data_cfg, w: int, device: torch.device) -> Iterator:
     """Worker ``w``'s data stream (seed ``data_cfg.seed + 1 + w``, as in
-    the reference), as token tensors on ``device``."""
+    the reference), as tensors on ``device``: integer arrays (tokens,
+    labels) as ``torch.long``, floating ones (Whisper's f32 ``frames``)
+    in their own dtype, as the reference's ``jnp.asarray`` keeps it."""
     from repro_torch.data.synthetic import batches as data_batches
     wcfg = dataclasses.replace(data_cfg, seed=data_cfg.seed + 1 + w)
     for b in data_batches(cfg, wcfg):
-        yield {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
+        yield {k: torch.from_numpy(v).to(
+                   device=device,
+                   dtype=None if v.dtype.kind == "f" else torch.long)
                for k, v in b.items()}
 
 

@@ -5,7 +5,9 @@ sections, fields, defaults, choices and validation, and the same JSON
 (``dump_schema`` equals the checked-in ``schema.json``), so one spec
 file drives either package.  On top of the reference's rules the port
 refuses, with a ``SpecError`` naming the ROADMAP item that ports it,
-every value whose code path is not ported yet (``_require_ported``).
+the one value whose code path is not ported yet, ``ps.kind='none'``
+(the SPMD pipeline; ``_require_ported``).  Every architecture of the
+reference is accepted.
 
 ``RunSpec`` describes *what* to train and *how* the distributed pieces
 fit together — model, data, optimizer, synchronization paradigm, server
@@ -47,10 +49,6 @@ TRANSPORT_KINDS = ("inproc", "tcp", "shmem")
 #: (benchmarks / toy problems that never touch the model registry).
 CUSTOM_ARCH = "custom"
 
-#: The reference package's other architectures: valid names that the
-#: port refuses until their family is ported.
-LATER_ARCHS = ("xlstm-125m", "whisper-tiny")
-
 
 class SpecError(ValueError):
     """An invalid RunSpec field or combination of fields."""
@@ -88,7 +86,7 @@ class ModelSpec:
         _require(bool(self.arch), "model.arch must be a non-empty name")
         if self.arch != CUSTOM_ARCH:
             from repro_torch.configs import arch_names  # light import
-            _require(self.arch in arch_names() + list(LATER_ARCHS),
+            _require(self.arch in arch_names(),
                      f"model.arch={self.arch!r} is not a known "
                      f"architecture (have {arch_names()} or "
                      f"{CUSTOM_ARCH!r} for build-time overrides)")
@@ -713,12 +711,7 @@ def _later(what: str, item: str) -> str:
 
 def _require_ported(spec: "RunSpec") -> None:
     """Refuse every value whose code path a later slice ports."""
-    from repro_torch.configs import arch_names  # light import
-    ps = spec.ps
-    _require(spec.model.arch in [CUSTOM_ARCH] + arch_names(),
-             _later(f"model.arch={spec.model.arch!r} (of the ssm family, "
-                    "xLSTM, or the audio family, Whisper)", "item 10"))
-    _require(ps.kind != "none",
+    _require(spec.ps.kind != "none",
              _later("ps.kind='none'", "item 11 (the SPMD pipeline)"))
 
 

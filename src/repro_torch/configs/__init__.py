@@ -1,12 +1,12 @@
-"""Architecture configs the port runs: the dense h2o-danube-1.8b,
-qwen1.5-110b, qwen1.5-32b and mistral-large-123b, the early-fusion VLM
-chameleon-34b, the MoE transformers qwen3-moe-235b-a22b and
-deepseek-moe-16b, and the hybrid jamba-v0.1-52b.
+"""Architecture configs: every one of the reference package's ten — the
+dense h2o-danube-1.8b, qwen1.5-110b, qwen1.5-32b and mistral-large-123b,
+the early-fusion VLM chameleon-34b, the MoE transformers
+qwen3-moe-235b-a22b and deepseek-moe-16b, the hybrid jamba-v0.1-52b, the
+recurrent xlstm-125m (``ssm``) and the encoder-decoder whisper-tiny
+(``audio``).
 
 Each module exposes ``CONFIG`` (full-scale) and ``smoke_config()``
-(reduced, same family), equal to the reference package's.  Its other
-two architectures, xlstm-125m and whisper-tiny, come with ROADMAP queue
-1, item 10.
+(reduced, same family), equal to the reference package's.
 """
 
 import importlib
@@ -23,6 +23,8 @@ _ALIASES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "chameleon-34b": "chameleon_34b",
     "jamba-v0.1-52b": "jamba_v01_52b",
+    "xlstm-125m": "xlstm_125m",
+    "whisper-tiny": "whisper_tiny",
 }
 
 

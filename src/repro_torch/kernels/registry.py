@@ -19,9 +19,10 @@ the single entry point the model calls for its op — ``attention``,
 
 The backward through the oracle is the only place a plain version runs
 on the card's main path.  The scan's runs there as one CUDA graph replay
-per call (``ScanBackwardGraphs``): the oracle's recompute and autograd
-through it, captured once per input signature, stream and thread, where
-eager PyTorch would queue some 25 k small kernels a call from Python.
+per call (``ScanBackwardGraphs``, a ``CudaGraphs`` cache): the oracle's
+recompute and autograd through it, captured once per input signature,
+stream and thread, where eager PyTorch would queue some 25 k small
+kernels a call from Python.
 Attention hands the kernel its inputs as
 ``flash_attention.kernel_operands`` makes them: a strided or misaligned
 view copied, a head dim that is not a multiple of 8 zero-padded, so
@@ -165,13 +166,13 @@ def scan_backward_body(tensors: Sequence[torch.Tensor],
     return _vjp_through(_ref.ssm_scan_ref, tensors[:6], tensors[6:], needs)
 
 
-class _GraphedScanBackward:
-    """``scan_backward_body`` for one signature, captured once as a CUDA
-    graph over static input buffers.  A call copies its inputs in,
+class _GraphedCall:
+    """``body(tensors, needs)`` for one signature, captured once as a
+    CUDA graph over static input buffers.  A call copies its inputs in,
     replays on the caller's current stream, and returns clones of the
-    gradients (the next replay overwrites the static outputs)."""
+    outputs (the next replay overwrites the static outputs)."""
 
-    def __init__(self, tensors: Sequence[torch.Tensor],
+    def __init__(self, body: Callable, tensors: Sequence[torch.Tensor],
                  needs: Tuple[bool, ...]):
         dev = tensors[0].device
         self.static_in = [
@@ -180,14 +181,14 @@ class _GraphedScanBackward:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):     # warm-up: cuBLAS handles, caches
-            scan_backward_body(self.static_in, needs)
+            body(self.static_in, needs)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: another worker thread may allocate or wait on its
         # own events while this one captures
         with torch.cuda.graph(self.graph, stream=side,
                               capture_error_mode="thread_local"):
-            self.static_out = scan_backward_body(self.static_in, needs)
+            self.static_out = body(self.static_in, needs)
 
     def __call__(self, tensors: Sequence[torch.Tensor]
                  ) -> Tuple[Optional[torch.Tensor], ...]:
@@ -198,38 +199,64 @@ class _GraphedScanBackward:
                      for g in self.static_out)
 
 
-class ScanBackwardGraphs:
-    """One captured ``scan_backward_body`` per input signature (device,
-    shapes, dtypes, ``needs``), current stream and calling thread, so no
-    two threads or streams ever share a graph's static buffers; captures
-    are serialised by one lock.  A capture that fails raises: the card
-    never falls back to the eager backward."""
+class CudaGraphs:
+    """One captured ``body(tensors, needs) -> tuple of tensors (or
+    None)`` per input signature (device, shapes, dtypes, ``needs``),
+    current stream and calling thread, so no two live threads or streams
+    ever share a graph's static buffers.  A thread that has finished
+    leaves its graphs to the next thread of the same signature and
+    stream (each training session runs new worker threads), so the
+    count does not grow from one session to the next.  Captures are
+    serialised by one lock.  A capture that fails raises: the card never
+    falls back to the eager body.  The scan's backward
+    (``ScanBackwardGraphs``) and the sLSTM's time loop
+    (``models/ssm.py``) each keep one."""
 
-    def __init__(self):
-        self._graphs: Dict[tuple, _GraphedScanBackward] = {}
+    def __init__(self, body: Callable):
+        self.body = body
+        self._graphs: Dict[tuple, _GraphedCall] = {}
         self._lock = threading.Lock()
 
     def __call__(self, tensors: Sequence[torch.Tensor],
-                 needs: Sequence[bool]) -> Tuple[Optional[torch.Tensor], ...]:
+                 needs: Sequence[bool] = ()
+                 ) -> Tuple[Optional[torch.Tensor], ...]:
         dev = tensors[0].device
         needs = tuple(bool(n) for n in needs)
-        key = (dev, tuple((tuple(t.shape), t.dtype) for t in tensors), needs,
-               torch.cuda.current_stream(dev).cuda_stream,
-               threading.get_ident())
-        graph = self._graphs.get(key)
-        if graph is None:
+        sig = (dev, tuple((tuple(t.shape), t.dtype) for t in tensors), needs,
+               torch.cuda.current_stream(dev).cuda_stream)
+        # the autograd engine's device thread gets a (never-ending) dummy
+        # Thread here, so its graphs are never taken over
+        me = threading.current_thread()
+        graph = self._graphs.get(sig + (me.ident,))
+        if graph is None or graph.owner is not me:
             with self._lock:
-                graph = _GraphedScanBackward(tensors, needs)
-                self._graphs[key] = graph
+                graph = self._claim(sig, tensors, needs, me)
         return graph(tensors)
+
+    def _claim(self, sig: tuple, tensors: Sequence[torch.Tensor],
+               needs: Tuple[bool, ...], me: threading.Thread
+               ) -> _GraphedCall:
+        """Under the lock: a finished thread's graph of ``sig`` (first one
+        filed under this thread's ident, which a finished thread's may
+        carry), or a new capture, owned by ``me`` from now on."""
+        key = sig + (me.ident,)
+        graph = self._graphs.pop(key, None)   # idents are unique among
+        if graph is None:                     # live threads: its owner ended
+            done = [k for k, g in self._graphs.items()
+                    if k[:-1] == sig and not g.owner.is_alive()]
+            graph = (self._graphs.pop(done[0]) if done else
+                     _GraphedCall(self.body, tensors, needs))
+        graph.owner = me
+        self._graphs[key] = graph
+        return graph
 
     def __len__(self) -> int:
         return len(self._graphs)
 
     def summary(self) -> list:
         """Each graph's key (needs, stream, thread) and the bytes of the
-        allocator's segments in its private pool, which hold the
-        recompute's per-step intermediates between replays."""
+        allocator's segments in its private pool, which hold the body's
+        intermediates between replays."""
         segments = torch.cuda.memory_snapshot()
         out = []
         for (dev, _, needs, stream, thread), g in self._graphs.items():
@@ -245,10 +272,18 @@ class ScanBackwardGraphs:
         return sum(g["pool_bytes"] for g in self.summary())
 
     def clear(self) -> None:
-        """Drop every graph and its pool (after the last backward of a
+        """Drop every graph and its pool (after the last call of a
         signature; the next call captures again)."""
         with self._lock:
             self._graphs.clear()
+
+
+class ScanBackwardGraphs(CudaGraphs):
+    """The scan backward's graphs: ``scan_backward_body`` captured per
+    signature, stream and thread."""
+
+    def __init__(self):
+        super().__init__(scan_backward_body)
 
 
 #: the process's scan-backward graphs (``_SSMScan.backward`` on the card)

@@ -1,1 +1,2 @@
-"""The dense transformer, its config and parameter trees."""
+"""The model families (transformer, MoE, hybrid, xLSTM, encoder-decoder),
+their config and parameter trees."""

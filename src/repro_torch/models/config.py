@@ -1,10 +1,9 @@
 """Model configuration shared by every architecture family.
 
 A field-for-field copy of the reference package's ``ModelConfig``, so a
-config means the same thing on both sides.  The port reads the
-transformer's, MoE's and hybrid's fields; the others (xLSTM, enc-dec,
-and the reference's mesh-sharding knobs) are kept so configs stay
-identical and later slices can use them.
+config means the same thing on both sides.  The port reads every
+family's fields; the reference's mesh-sharding knobs are kept so
+configs stay identical and the SPMD slice can use them.
 """
 
 from __future__ import annotations
@@ -60,7 +59,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     remat: str = "full"                   # none | full (per-layer recompute)
-    # the reference's chunking knobs (the port reads moe_chunk) and mesh
+    # the reference's chunking knobs (the port reads attn_chunk for
+    # attention over explicit masks, moe_chunk and mamba_chunk) and mesh
     # knobs (not read by the port yet)
     attn_chunk: int = 512
     moe_chunk: int = 256

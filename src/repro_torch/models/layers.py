@@ -1,11 +1,13 @@
-"""Shared neural building blocks (the dense transformer's).
+"""Shared neural building blocks.
 
 Counterpart of ``repro/models/layers.py`` on one device: the worker-step
 hot ops (attention, RMSNorm, fused residual+RMSNorm) route through
 ``repro_torch.kernels.registry`` by ``cfg.kernels``; the projections and
 the MLP products stay ``torch.matmul``, as the reference leaves them to
-XLA.  So does one-token decode attention over a KV cache
-(``_attention_grouped``), which the reference computes in XLA too.
+XLA.  So do one-token decode attention over a KV cache
+(``_attention_grouped``), attention over an explicit mask
+(``masked_attention``: Whisper's), LayerNorm and the GELU MLP, which the
+reference computes in XLA too.
 
 Conventions:
   activations   (batch, seq, d_model)                 bf16/f32
@@ -33,23 +35,36 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     return K.rmsnorm(x, weight, eps=eps, kernels=kernels)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in the reference's order of casts: f32 mean, f32
+    variance of ``x - mean``, ``rsqrt``, then ``* w + b`` in f32, cast
+    back to x's dtype.  Plain PyTorch: the reference computes it in XLA,
+    outside any kernel."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
 def apply_norm(cfg: ModelConfig, x: torch.Tensor,
                w: Dict[str, torch.Tensor]) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            "layernorm families come with ROADMAP queue 1, item 10")
-    return rms_norm(x, w["scale"], kernels=cfg.kernels)
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, w["scale"], kernels=cfg.kernels)
+    return layer_norm(x, w["scale"], w["bias"])
 
 
 def residual_apply_norm(cfg: ModelConfig, delta: torch.Tensor,
                         x: torch.Tensor, w: Dict[str, torch.Tensor],
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm block glue: ``(x + delta, norm(x + delta))`` through the
-    registry's fused residual+RMSNorm op."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            "layernorm families come with ROADMAP queue 1, item 10")
-    return K.residual_rmsnorm(delta, x, w["scale"], kernels=cfg.kernels)
+    """Pre-norm block glue: ``(x + delta, norm(x + delta))``: for
+    rmsnorm the registry's fused residual+RMSNorm op, for layernorm the
+    unfused form."""
+    if cfg.norm == "rmsnorm":
+        return K.residual_rmsnorm(delta, x, w["scale"], kernels=cfg.kernels)
+    s = x + delta
+    return s, layer_norm(s, w["scale"], w["bias"])
 
 
 # ----------------------------------------------------------------- rotary
@@ -127,6 +142,53 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     SPMD slice."""
     return K.attention(q, k, v, causal=causal, window=window,
                        kernels=cfg.kernels)
+
+
+def _attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Attention over full query heads and an explicit (lq, lk) mask,
+    True = attend: q/k/v (b, l, hq, d), k and v already broadcast to hq
+    heads.  The reference's XLA form: scores summed in f32 and divided
+    by sqrt(d) (a tensor divisor, as in ``_attention_grouped``), masked
+    with ``NEG_INF``, softmax in f32, the probabilities rounded to v's
+    dtype before ``P·V`` (summed in f32)."""
+    d = q.shape[-1]
+    scores = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float())
+    scores = scores / torch.full((), math.sqrt(d), dtype=torch.float32,
+                                 device=scores.device)
+    scores = scores.masked_fill(~mask[None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhlm,bmhd->blhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def masked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Attention over an explicit (lq, lk) mask (True = attend), as the
+    reference computes it when no causal structure is asserted (the
+    encoder-decoder's self- and cross-attention): it never reaches the
+    kernel registry.  q (b, lq, hq, d); k/v (b, lk, hkv, d).
+
+    One query (decode) takes the grouped form; otherwise k and v are
+    broadcast to hq heads and, when ``cfg.attn_chunk`` divides lq into
+    more than one chunk, the queries go in chunks of that many rows:
+    the same rows, with the score block bounded to (chunk x lk)."""
+    b, lq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    if lq == 1:
+        out = _attention_grouped(q.reshape(b, lq, hkv, g, d), k, v, mask)
+        return out.reshape(b, lq, hq, d)
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    chunk = cfg.attn_chunk
+    if chunk <= 0 or lq <= chunk or lq % chunk:
+        return _attention_heads(q, k, v, mask)
+    return torch.cat([_attention_heads(q[:, i:i + chunk], k, v,
+                                       mask[i:i + chunk])
+                      for i in range(0, lq, chunk)], dim=1)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -249,15 +311,19 @@ def decode_attention_block(cfg: ModelConfig, x: torch.Tensor,
 # ----------------------------------------------------------------- MLP
 def mlp_block(cfg: ModelConfig, x: torch.Tensor,
               w: Dict[str, torch.Tensor]) -> torch.Tensor:
-    if cfg.act != "silu":
-        raise NotImplementedError(
-            "GELU MLPs (whisper) come with ROADMAP queue 1, item 10")
+    """SwiGLU (``cfg.act == "silu"``) or, for Whisper, the biased GELU
+    MLP.  ``jax.nn.gelu`` is the tanh approximation by default, so the
+    GELU is ``approximate="tanh"`` on f32."""
     b, l, d = x.shape
     x2 = x.reshape(b * l, d)
-    gate = x2 @ w["w_gate"]
-    up = x2 @ w["w_up"]
-    h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return (h @ w["w_down"]).view(b, l, d)
+    if cfg.act == "silu":
+        gate = x2 @ w["w_gate"]
+        up = x2 @ w["w_up"]
+        h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+        return (h @ w["w_down"]).view(b, l, d)
+    h = x2 @ w["w_up"] + w["b_up"]
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return (h @ w["w_down"] + w["b_down"]).view(b, l, d)
 
 
 # ----------------------------------------------------------------- embeddings

@@ -1,15 +1,15 @@
 """Architecture registry: config -> param defs / init / loss / decode.
 
-Counterpart of ``repro/models/registry.py`` for the families the port
-runs:
+Counterpart of ``repro/models/registry.py``, every family of it:
 
   dense | moe | vlm -> transformer.py (llama/qwen/mistral/qwen3/deepseek;
                        chameleon: early-fusion VQ tokens = LM)
+  ssm               -> ssm.py         (xLSTM)
   hybrid            -> hybrid.py      (jamba)
+  audio             -> encdec.py      (whisper backbone, stub frontend)
 
-The reference's ssm (xLSTM) and audio (Whisper) families come with
-ROADMAP queue 1, item 10; its ``state_specs`` (decode state on a mesh)
-with item 11.
+The reference's ``state_specs`` (decode state on a mesh) comes with
+ROADMAP queue 1, item 11.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models import params as P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cross_entropy
@@ -33,8 +33,14 @@ class Family:
     loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]
     #: ``(cfg, params, token, state, index) -> (logits, state)``
     decode_fn: Optional[Callable[..., Any]] = None
-    #: ``(cfg, batch, max_seq, device=None) -> state``
+    #: ``(cfg, batch, max_seq, device=None) -> state`` (the audio
+    #: family's also takes the encoder length, as the reference's)
     init_state: Optional[Callable[..., Any]] = None
+
+
+def _ssm_loss(cfg: ModelConfig, params, batch):
+    logits, aux = ssm.xlstm_forward(cfg, params, batch["tokens"])
+    return cross_entropy(logits, batch["labels"]), {"aux_loss": aux}
 
 
 def _hybrid_loss(cfg: ModelConfig, params, batch):
@@ -42,6 +48,11 @@ def _hybrid_loss(cfg: ModelConfig, params, batch):
     nll = cross_entropy(logits, batch["labels"])
     w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
     return nll + w * aux, {"loss": nll, "aux_loss": aux}
+
+
+def _encdec_loss(cfg: ModelConfig, params, batch):
+    logits, aux = encdec.forward(cfg, params, batch)
+    return cross_entropy(logits, batch["labels"]), {"aux_loss": aux}
 
 
 def _lm_init_state(cfg: ModelConfig, batch: int, max_seq: int,
@@ -56,18 +67,17 @@ FAMILIES: Dict[str, Family] = {
     "dense": _LM,
     "moe": _LM,
     "vlm": _LM,
+    "ssm": Family(ssm.xlstm_param_defs, _ssm_loss, ssm.xlstm_decode,
+                  ssm.xlstm_init_state),
     "hybrid": Family(hybrid.param_defs, _hybrid_loss, hybrid.forward_decode,
                      hybrid.init_state),
+    "audio": Family(encdec.param_defs, _encdec_loss, encdec.forward_decode,
+                    encdec.init_cache),
 }
 
 
 def family(cfg: ModelConfig) -> Family:
-    fam = FAMILIES.get(cfg.family)
-    if fam is None:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (xLSTM "
-            "and Whisper: ROADMAP queue 1, item 10)")
-    return fam
+    return FAMILIES[cfg.family]
 
 
 def param_defs(cfg: ModelConfig) -> Any:

@@ -7,7 +7,8 @@ Counterpart of ``repro/models/transformer.py``: the same parameter tree
 pre-norm blocks of GQA(+SWA) attention, with optional QKV bias and q/k
 norms, and a SwiGLU MLP, or with ``cfg.moe`` an MoE FFN (``moe.py``)
 whose load-balancing loss each layer returns and ``forward`` sums.  The
-reference scans over layers; here a Python loop walks the
+GELU MLP and the layernorm ``norm_defs`` serve the encoder-decoder
+(``encdec.py``).  The reference scans over layers; here a Python loop walks the
 layers over ``unbind`` views of the stacked weights (one stack of the
 per-layer grads in backward, not one full-size scatter per layer).
 ``cfg.remat == "full"`` recomputes each layer in the backward pass
@@ -57,23 +58,34 @@ def attn_defs(cfg: ModelConfig, n: int) -> Dict[str, ParamDef]:
 
 def mlp_defs(cfg: ModelConfig, n: int) -> Dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "silu":
+        return {
+            "w_gate": ParamDef((n, d, f), fan_in_dims=(1,)),
+            "w_up": ParamDef((n, d, f), fan_in_dims=(1,)),
+            "w_down": ParamDef((n, f, d), fan_in_dims=(1,)),
+        }
     return {
-        "w_gate": ParamDef((n, d, f), fan_in_dims=(1,)),
         "w_up": ParamDef((n, d, f), fan_in_dims=(1,)),
+        "b_up": ParamDef((n, f), init="zeros"),
         "w_down": ParamDef((n, f, d), fan_in_dims=(1,)),
+        "b_down": ParamDef((n, d), init="zeros"),
     }
 
 
+def norm_defs(cfg: ModelConfig, n: int) -> Dict[str, ParamDef]:
+    """A stacked norm: ``scale``, and ``bias`` under layernorm."""
+    defs = {"scale": ParamDef((n, cfg.d_model), init="ones")}
+    if cfg.norm == "layernorm":
+        defs["bias"] = ParamDef((n, cfg.d_model), init="zeros")
+    return defs
+
+
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.norm != "rmsnorm" or cfg.act != "silu":
-        raise NotImplementedError(
-            f"{cfg.name}: only the rmsnorm/SwiGLU transformer is ported "
-            "(layernorm and GELU: ROADMAP queue 1, item 10)")
     n = cfg.n_layers
     layer: Dict[str, Any] = {
         "attn": attn_defs(cfg, n),
-        "attn_norm": {"scale": ParamDef((n, cfg.d_model), init="ones")},
-        "mlp_norm": {"scale": ParamDef((n, cfg.d_model), init="ones")},
+        "attn_norm": norm_defs(cfg, n),
+        "mlp_norm": norm_defs(cfg, n),
     }
     if cfg.moe is not None:
         layer["moe"] = moe_lib.moe_defs(cfg, n)
@@ -82,12 +94,21 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     defs: Dict[str, Any] = {
         "embed": ParamDef((cfg.padded_vocab, cfg.d_model), init="embed",
                           fan_in_dims=(1,)),
-        "final_norm": {"scale": ParamDef((cfg.d_model,), init="ones")},
+        "final_norm": _unstack_norm(cfg),
         "layers": layer,
     }
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((cfg.padded_vocab, cfg.d_model),
                                    fan_in_dims=(1,))
+    return defs
+
+
+def _unstack_norm(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """One norm (the final one): ``scale``, and ``bias`` under
+    layernorm."""
+    defs = {"scale": ParamDef((cfg.d_model,), init="ones")}
+    if cfg.norm == "layernorm":
+        defs["bias"] = ParamDef((cfg.d_model,), init="zeros")
     return defs
 
 

@@ -1,8 +1,10 @@
-"""repro_torch's transformer families against the reference's, on the
-CPU: the dense qwen1.5-110b, qwen1.5-32b (QKV bias, head dim 12 in its
-smoke config) and mistral-large-123b, the ``vlm`` chameleon-34b (q/k
-norms) and the MoE transformers qwen3-moe-235b-a22b (q/k norms) and
-deepseek-moe-16b (shared experts).
+"""repro_torch's model families against the reference's, on the CPU:
+the dense qwen1.5-110b, qwen1.5-32b (QKV bias, head dim 12 in its smoke
+config) and mistral-large-123b, the ``vlm`` chameleon-34b (q/k norms),
+the MoE transformers qwen3-moe-235b-a22b (q/k norms) and
+deepseek-moe-16b (shared experts), the recurrent xlstm-125m (``ssm``:
+mLSTM and sLSTM) and the encoder-decoder whisper-tiny (``audio``:
+layernorm, GELU, f32 frames).
 
 Parameters come from the reference's ``registry.init_params(cfg,
 PRNGKey(0))`` and cross through numpy; batches are the shared synthetic
@@ -11,7 +13,7 @@ stream.  The reference runs with ``kernels="xla"``.
 Tolerance 1e-5 (absolute and relative) on the loss, the aux loss and
 every gradient leaf of the f32 smoke configs: the same products in the
 same order, but the matmuls' reductions round differently in the two
-packages.  Counts and packed bytes are exact; the one-worker session's
+packages.  Counts and packed bytes are exact; the one-worker sessions'
 losses agree within 1e-4 after four applied steps.
 """
 
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 import repro.api as japi
+from repro.configs import arch_names as jax_arch_names
 from repro.configs import get_config as jax_full
 from repro.configs import get_smoke_config as jax_smoke
 from repro.data.synthetic import DataConfig as JDataConfig
@@ -44,15 +47,18 @@ torch.set_num_threads(2)
 
 TOL = 1e-5
 ARCHS = ("qwen1.5-110b", "qwen1.5-32b", "mistral-large-123b",
-         "chameleon-34b", "qwen3-moe-235b-a22b", "deepseek-moe-16b")
+         "chameleon-34b", "qwen3-moe-235b-a22b", "deepseek-moe-16b",
+         "xlstm-125m", "whisper-tiny")
 #: published widths cut in depth, as the card trains them: layers, and
-#: the cut's parameter count
+#: the cut's parameter count (xlstm-125m and whisper-tiny uncut)
 CHIP_CUTS = {"qwen1.5-110b": (1, 3_850_405_888),
              "qwen1.5-32b": (3, 3_134_013_440),
              "mistral-large-123b": (2, 3_573_608_448),
              "chameleon-34b": (3, 3_149_980_416),
              "qwen3-moe-235b-a22b": (1, 3_732_418_816),
-             "deepseek-moe-16b": (5, 3_358_742_528)}
+             "deepseek-moe-16b": (5, 3_358_742_528),
+             "xlstm-125m": (12, 81_178_448),
+             "whisper-tiny": (4, 49_049_088)}
 
 
 def _named_shapes(tree, prefix=""):
@@ -66,10 +72,28 @@ def _named_shapes(tree, prefix=""):
     return [(prefix, tuple(tree.shape))]
 
 
+def _torch_batch(batch):
+    """A reference batch as the port's workers see it: integer arrays
+    as ``torch.long``, float ones (Whisper's frames) in their dtype."""
+    return {k: torch.from_numpy(np.asarray(v)) if np.asarray(v).dtype.kind
+            == "f" else torch.from_numpy(np.asarray(v)).long()
+            for k, v in batch.items()}
+
+
 def test_the_port_runs_every_transformer_arch_and_refuses_the_rest():
-    from repro_torch.api.spec import LATER_ARCHS
+    """The port refuses no architecture any more: every one of the
+    reference's builds a CPU session of its smoke config, the model
+    section's defaults (xlstm-125m) included."""
+    assert sorted(arch_names()) == sorted(jax_arch_names())
     assert set(ARCHS) <= set(arch_names())
-    assert LATER_ARCHS == ("xlstm-125m", "whisper-tiny")
+    assert api.ModelSpec().arch == "xlstm-125m"
+    for arch in [None] + sorted(arch_names()):
+        model = api.ModelSpec() if arch is None else api.ModelSpec(arch=arch)
+        spec = _spec(api, model.arch).replace(model=model)
+        with api.build_session(spec, device="cpu", timeout=300.0) as s:
+            n = sum(int(np.prod(shape)) for shape in
+                    s.server.plan.leaf_shapes)
+        assert n == get_smoke_config(model.arch).param_count()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -111,7 +135,7 @@ def test_parameter_names_and_shapes_match_reference(arch):
     assert _named_shapes(registry.abstract_params(cfg)) == theirs
     params = registry.init_params(cfg, seed=0, device="cpu")
     assert _named_shapes(params) == theirs
-    assert ("moe" in params["layers"]) == (cfg.moe is not None)
+    assert ("moe" in params.get("layers", {})) == (cfg.moe is not None)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -138,15 +162,15 @@ def test_loss_aux_and_every_gradient_leaf_match_reference(reference,
     cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
     leaves, treedef = tree_util.flatten(from_numpy_tree(params, "cpu"))
     leaves = [x.requires_grad_() for x in leaves]
-    tbatch = {k: torch.from_numpy(np.asarray(v)).long()
-              for k, v in batch.items()}
     loss, aux = registry.loss_fn(cfg)(tree_util.unflatten(treedef, leaves),
-                                      tbatch)
+                                      _torch_batch(batch))
     grads = torch.autograd.grad(loss, leaves)
     assert abs(float(loss.detach()) - jloss) <= TOL
-    assert abs(float(aux["loss"].detach()) - float(jaux["loss"])) <= TOL
-    assert abs(float(aux["aux_loss"].detach())
-               - float(jaux["aux_loss"])) <= TOL
+    # the reference's parts: the nll and the aux loss where it has an
+    # aux term (the transformers, Jamba), the zero aux loss otherwise
+    assert sorted(aux) == sorted(jaux)
+    for name in jaux:
+        assert abs(float(aux[name].detach()) - float(jaux[name])) <= TOL
     if cfg.moe is not None:
         # the aux loss is in the loss: nll + weight * aux
         assert float(aux["aux_loss"].detach()) > 0.0
@@ -162,7 +186,8 @@ def test_loss_aux_and_every_gradient_leaf_match_reference(reference,
                                    atol=TOL)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "chameleon-34b",
+                                  "xlstm-125m", "whisper-tiny"])
 @pytest.mark.parametrize("n_shards", [1, 4])
 def test_pack_is_byte_identical_to_reference(arch, n_shards):
     params = jregistry.init_params(jax_smoke(arch), jax.random.PRNGKey(0))
@@ -188,10 +213,8 @@ def test_a_worker_step_frees_its_trees_without_the_cycle_collector(arch):
     cfg = dataclasses.replace(get_smoke_config(arch), remat="full",
                               kernels="pallas")
     grads_of = _grads_fn(cfg)
-    batch = {k: torch.from_numpy(np.asarray(v)).long() for k, v in next(
-        jax_batches(jax_smoke(arch), JDataConfig(
-            vocab_size=cfg.vocab_size, seq_len=16, global_batch=2,
-            seed=1))).items()}
+    batch = _torch_batch(next(jax_batches(jax_smoke(arch), JDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=2, seed=1))))
     params = registry.init_params(cfg, seed=0, device="cpu")
     grads_of(params, batch)                  # first use: lazy imports
     gc.collect()
@@ -241,7 +264,18 @@ def test_each_arch_trains_through_a_cpu_session(arch):
 def test_one_worker_bsp_session_matches_reference_step_by_step():
     """deepseek-moe-16b (routed and shared experts, aux loss in the
     gradient): four BSP steps of one worker, loss for loss."""
-    arch, steps = "deepseek-moe-16b", 4
+    _bsp_session_parity("deepseek-moe-16b")
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-tiny"])
+def test_one_worker_bsp_session_of_the_recurrent_and_audio_families(arch):
+    """xlstm-125m (mLSTM, the sLSTM loop's autograd ``Function``) and
+    whisper-tiny (the f32 frames through the worker's batches): four
+    BSP steps of one worker, loss for loss."""
+    _bsp_session_parity(arch)
+
+
+def _bsp_session_parity(arch: str, steps: int = 4) -> None:
     with japi.build_session(_spec(japi, arch)) as s:
         s.run(steps)
         jlosses = _losses(s)

@@ -760,17 +760,20 @@ def test_registry_attention_at_the_prefill_shape_is_one_launch(gen):
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "jamba-v0.1-52b",
                                   "qwen1.5-32b", "chameleon-34b",
-                                  "qwen3-moe-235b-a22b", "deepseek-moe-16b"])
+                                  "qwen3-moe-235b-a22b", "deepseek-moe-16b",
+                                  "xlstm-125m"])
 def test_decoder_with_kernels_matches_plain_formulations(gen, arch):
     """The smoke configs (f32) decoded on the card from one wire, with
     ``kernels='auto'`` (the Hopper kernels) and ``'xla'`` (the plain
     formulations): teacher-forced logits along the plain decoder's
     greedy tokens within 2e-4, and the kernels launched on a KV-cache
     family's prefill and steps (two more norms a layer with q/k
-    norms).  With an int8 KV cache (qwen1.5-32b) a key whose f32 value
-    differs by ulps between the two formulations can round to the next
-    code, so the bound there is the larger of 2e-4 and how far the int8
-    cache moves the plain logits from an f32 cache's."""
+    norms), and on xLSTM's token-by-token steps (its layers' norms and
+    the final one, no other kernel).  With an int8 KV cache
+    (qwen1.5-32b) a key whose f32 value differs by ulps between the two
+    formulations can round to the next code, so the bound there is the
+    larger of 2e-4 and how far the int8 cache moves the plain logits
+    from an f32 cache's."""
     import dataclasses
 
     import numpy as np
@@ -808,6 +811,10 @@ def test_decoder_with_kernels_matches_plain_formulations(gen, arch):
         launched = LAUNCHES.delta(before)
         if kernels == "xla":
             assert not any(launched.values()), launched
+        elif cfg.family == "ssm":
+            assert launched == dict(launched, rmsnorm=(cfg.n_layers + 1)
+                                    * (12 + 5))
+            assert sum(launched.values()) == launched["rmsnorm"]
         elif cfg.family != "hybrid":
             qk = 2 * cfg.n_layers if cfg.qk_norm else 0
             assert launched["flash_attention_fwd"] == cfg.n_layers
@@ -821,3 +828,102 @@ def test_decoder_with_kernels_matches_plain_formulations(gen, arch):
         bound = max(bound, float((logits["xla"] - f32).abs().max()))
     torch.testing.assert_close(logits["auto"], logits["xla"], rtol=bound,
                                atol=bound)
+
+
+# -------------------------------------------------------------------- xLSTM
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1024, 768), (8, 1, 768),
+                                   (3, 5, 768)])
+def test_rmsnorm_at_the_xlstm_width(gen, dtype, shape):
+    """xlstm-125m's norms, width 768 (96 16-byte bf16 vectors: one warp,
+    three a lane): the train step's rows, a decode step's, a ragged
+    count; one launch a call through the registry."""
+    x = _rand(gen, shape, dtype)
+    w = (1.0 + 0.1 * _rand(gen, (shape[-1],), torch.float32)).to(dtype)
+    before = LAUNCHES.rmsnorm
+    got = registry.rmsnorm(x, w, kernels="auto")
+    assert LAUNCHES.rmsnorm == before + 1
+    _assert_norm_close(got, rn.rmsnorm_plain(x, w), dtype)
+
+
+def _slstm_inputs(gen, b, l, heads, hd):
+    """The sLSTM loop's inputs (f32 gates with bias, recurrent weights
+    scaled as the init scales them) and a cotangent of its output."""
+    return (_rand(gen, (b, l, heads, 4 * hd), torch.float32),
+            _rand(gen, (heads, hd, 4 * hd), torch.float32) / math.sqrt(hd),
+            _rand(gen, (b, l, heads, hd), torch.float32))
+
+
+@pytest.mark.parametrize("b,l,heads,hd", [(2, 40, 2, 8),
+                                          (2, 1024, 4, 192)])  # xlstm-125m
+def test_graphed_slstm_loop_is_bitwise_the_eager_loop(gen, b, l, heads, hd):
+    """The sLSTM's forward and backward graphs, two calls each with new
+    inputs (the first captures), bit for bit the eager loop and autograd
+    through it; one graph each."""
+    from repro_torch.models import ssm
+    fwd = registry.CudaGraphs(ssm.slstm_forward_body)
+    bwd = registry.CudaGraphs(ssm.slstm_backward_body)
+    for _ in range(2):
+        gx, wh, dh = _slstm_inputs(gen, b, l, heads, hd)
+        _assert_bitwise(fwd((gx, wh)), (ssm.slstm_loop(gx, wh),))
+        _assert_bitwise(bwd((gx, wh, dh), (True, True)),
+                        registry._vjp_through(ssm.slstm_loop, (gx, wh),
+                                              (dh,), (True, True)))
+    assert len(fwd) == len(bwd) == 1
+    assert fwd.pool_bytes() > 0 and bwd.pool_bytes() > 0
+    fwd.clear()
+    bwd.clear()
+
+
+def test_slstm_function_replays_graphs_and_adds_none_after_the_first(gen):
+    """``slstm_time_loop`` on the card: its output and gradients bit for
+    bit the eager loop's, one forward and one backward graph, and no
+    new graph on later calls of the same signature."""
+    from repro_torch.models import ssm
+    ssm.SLSTM_FORWARD_GRAPHS.clear()
+    ssm.SLSTM_BACKWARD_GRAPHS.clear()
+    for _ in range(3):
+        gx, wh, dh = _slstm_inputs(gen, 2, 64, 2, 16)
+        a = [gx.clone().requires_grad_(), wh.clone().requires_grad_()]
+        out = ssm.slstm_time_loop(*a)
+        got = torch.autograd.grad(out, a, dh)
+        _assert_bitwise((out.detach(),), (ssm.slstm_loop(gx, wh),))
+        _assert_bitwise(got, registry._vjp_through(
+            ssm.slstm_loop, (gx, wh), (dh,), (True, True)))
+        # the backward runs on the autograd engine's device thread
+        assert len(ssm.SLSTM_FORWARD_GRAPHS) == 1
+        assert len(ssm.SLSTM_BACKWARD_GRAPHS) == 1
+    ssm.SLSTM_FORWARD_GRAPHS.clear()
+    ssm.SLSTM_BACKWARD_GRAPHS.clear()
+
+
+def test_graphed_slstm_loop_two_threads_at_once(gen):
+    """Two threads running the loop's forward at once get a graph each
+    and their own outputs, bit for bit."""
+    from repro_torch.models import ssm
+    graphs = registry.CudaGraphs(ssm.slstm_forward_body)
+    cases = [_slstm_inputs(gen, 2, 96, 2, 16)[:2] for _ in range(2)]
+    wants = [(ssm.slstm_loop(*ts),) for ts in cases]
+    results, errors = [None, None], []
+    start = threading.Barrier(2, timeout=120)
+
+    def run(i):
+        try:
+            start.wait()
+            for _ in range(3):
+                got = graphs(cases[i])
+            torch.cuda.current_stream().synchronize()
+            results[i] = got
+        except BaseException as e:   # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert len(graphs) == 2
+    for got, want in zip(results, wants):
+        _assert_bitwise(got, want)
+    graphs.clear()

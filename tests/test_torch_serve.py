@@ -3,7 +3,7 @@ dense prefill and KV-cache decode (f32 and int8 caches, the sliding
 window's ring), the MoE transformers' and qwen1.5-32b's (int8 cache)
 prefill and decode, the Jamba hybrid's decode (Mamba recurrence,
 attention cache, MoE), and the ``Decoder`` over one packed wire for the
-dense, MoE, ``vlm`` and hybrid families.
+dense, MoE, ``vlm``, hybrid and ``ssm`` (xLSTM) families.
 
 Parameters come from the reference's ``registry.init_params(cfg,
 PRNGKey(0))`` and cross through numpy; token ids come from
@@ -378,17 +378,20 @@ def _agreeing_tokens(got, want, ref_logits, tol):
     return excluded
 
 
-@pytest.mark.parametrize("family", ["dense", "hybrid", "moe", "vlm"])
+@pytest.mark.parametrize("family", ["dense", "hybrid", "moe", "vlm",
+                                    "ssm"])
 def test_decoder_matches_reference_decoder(family):
     """Both packages' ``Decoder``s on one wire and the same prompts:
     teacher-forced logits along the reference's greedy tokens, the
     greedy tokens themselves, and a short batch padded and sliced.
     ``moe`` is deepseek-moe-16b's smoke config (routed and shared
-    experts), ``vlm`` chameleon-34b's (q/k norms)."""
-    if family in ("dense", "moe", "vlm"):
+    experts), ``vlm`` chameleon-34b's (q/k norms), ``ssm`` xlstm-125m's
+    (mLSTM and sLSTM recurrences, prefilled token by token)."""
+    if family in ("dense", "moe", "vlm", "ssm"):
         jcfg, cfg = {"dense": _dense,
                      "moe": lambda: _smoke("deepseek-moe-16b"),
-                     "vlm": lambda: _smoke("chameleon-34b")}[family]()
+                     "vlm": lambda: _smoke("chameleon-34b"),
+                     "ssm": lambda: _smoke("xlstm-125m")}[family]()
         assert cfg.family == family
         kw, tol = dict(prompt_len=8, max_new=6, max_batch=4), TOL
     else:

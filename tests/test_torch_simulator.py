@@ -199,9 +199,10 @@ def test_cli_example_validates_and_validate_refuses_with_item(capsys,
     assert cli.main(["--validate", str(good)]) == 0
     assert "engine=ps-threads" in capsys.readouterr().out
     d = json.loads(text)
-    d["model"]["arch"] = "xlstm-125m"
-    bad = tmp_path / "xlstm.json"
+    d["ps"].update(kind="none", shards=0, apply="tree")
+    d["wire"].update(format="tree", delta_pull=False)
+    bad = tmp_path / "spmd.json"
     bad.write_text(json.dumps(d))
     assert cli.main(["--validate", str(bad)]) == 1
-    assert "item 10" in capsys.readouterr().err
+    assert "item 11" in capsys.readouterr().err
     assert cli.main(["--validate", str(tmp_path / "missing.json")]) == 1
