@@ -171,6 +171,21 @@ after an error:
            graph a thread, none added by later steps or sessions); then
            one profiled one-worker xLSTM step, the sLSTM replays as
            groups of their own
+  spmd     the SPMD engine (``ps.kind='none'``,
+           ``repro_torch.launch.train.Trainer``): its smoke parity
+           (DSSP, kernels vs plain); then h2o-danube-1.8b at full width
+           and depth (bf16, remat, seq 1024, global batch 4) with the
+           config's adamw at lr 1e-4, DSSP [1, 4], 8 steps, the
+           controller told of a collective 2.5 times the previous step's
+           measured time: losses finite, the first batch's loss lower
+           after the steps than before, every delay in
+           [1, 4] with the warm steps' mean above 1, 48
+           ``flash_attention_fwd``, 48 ``residual_rmsnorm`` and 49
+           ``rmsnorm`` launches a step, the warm step time and the peak;
+           a profile of two SSP steps (the ring's copy and the optimizer
+           as groups of their own); then the four examples
+           (``repro_torch.examples``) as processes on the card at their
+           smoke sizes, all at once: each exits 0 with its closing line
 
 Each phase boundary prints the script's elapsed seconds.  The last two
 lines of standard output are the JSON kernel table and the contract
@@ -1063,13 +1078,16 @@ def hybrid_config():
 
 
 def check_parity(torch, api, label: str, spec_of, tol: float = 1e-4):
-    """A smoke config on the card, 1 worker, 4 BSP steps: kernels vs
-    plain formulations.  ``spec_of(kernels)`` gives the run's spec."""
+    """A smoke config on the card, 4 steps (1 worker, BSP, on the PS
+    engines; the SPMD engine's own sync): kernels vs plain
+    formulations.  ``spec_of(kernels)`` gives the run's spec."""
     runs = {}
     for kernels in ("auto", "xla"):
         with api.build_session(spec_of(kernels)) as s:
             s.run(4)
-            runs[kernels] = [l for _, _, l in s.server.metrics.loss_trajectory]
+            runs[kernels] = (
+                s.trainer.log.losses if s.engine == "spmd" else
+                [l for _, _, l in s.server.metrics.loss_trajectory])
     diff = max(abs(a - b) for a, b in zip(runs["auto"], runs["xla"]))
     say({"phase": "parity", "run": label, "losses_kernels": runs["auto"],
          "losses_plain": runs["xla"], "max_abs_diff": diff, "tol": tol})
@@ -1995,6 +2013,194 @@ def run_families(torch, api):
     return total
 
 
+# --------------------------------------------------------------------- spmd
+#: the SPMD phase's run: 8 steps of adamw at a learning rate at which
+#: the loss on the first batch falls (recomputed after the steps, with
+#: the ring's warm-up steps at lr_scale 0 and each update damped by
+#: 1/(1 + delay)); each step's own loss is on a new batch, and the
+#: batches' losses at init spread more than 8 steps move them
+SPMD_STEPS = 8
+SPMD_LR = 1e-4
+#: the collective the controller is told of: this many times the
+#: previous step's measured time (0 before the first step)
+SPMD_COLLECTIVE_FACTOR = 2.5
+#: the last line each example prints (``repro_torch.examples``)
+EXAMPLE_CLOSING = {
+    "quickstart": "on a pod the delay hides the gradient all-reduce.",
+    "heterogeneous_ps": "while keeping staleness bounded (<= s_U) unlike "
+                        "ASP.",
+    "train_lm": "rerun with --resume",
+    "serve_decode": "OK: train-and-serve over one live parameter server "
+                    "works.",
+}
+EXAMPLE_TIMEOUT_S = 300
+
+
+def spmd_spec(api, *, full: bool, sync: str = "dssp",
+              kernels: str = "auto"):
+    """h2o-danube-1.8b on the SPMD engine (``ps.kind='none'``): the
+    config's optimizer (adamw) at ``SPMD_LR``, DSSP [1, 4]; full width
+    and depth, bf16, remat, seq 1024, global batch 4 (seq 64, f32 at
+    smoke size)."""
+    return api.RunSpec(
+        model=api.ModelSpec(arch="h2o-danube-1.8b", smoke=not full,
+                            kernels=kernels),
+        data=api.DataSpec(seq_len=1024 if full else 64, global_batch=4),
+        optimizer=api.OptimizerSpec(lr=SPMD_LR),
+        sync=api.SyncSpec(mode=sync, s_lower=1, s_upper=4))
+
+
+def run_spmd(torch, api, per_step):
+    """``SPMD_STEPS`` steps of the full-width SPMD run through
+    ``build_session``, its controller told of a collective
+    ``SPMD_COLLECTIVE_FACTOR`` times the previous step's measured time
+    (the reference's ``collective_time_fn`` hook, read from the
+    trainer's log): every loss finite, the first batch's loss lower
+    after the steps than at the first step,
+    every delay in [s_lower, s_upper] and the warm steps' mean delay
+    above s_lower, each kernel's launches exactly ``per_step`` a step,
+    the peak below 80 GB.  Returns the record, with the launches."""
+    from repro_torch.api.session import batch_tensors
+    from repro_torch.data.synthetic import batches
+    from repro_torch.models import registry
+    from repro_torch.perfcount import LAUNCHES
+    spec = spmd_spec(api, full=True)
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    step_times = []       # the trainer's log, once the session starts
+
+    def collective_time() -> float:
+        return SPMD_COLLECTIVE_FACTOR * step_times[-1] if step_times else 0.0
+
+    session = api.build_session(spec, collective_time_fn=collective_time)
+    session.start()
+    step_times = session.trainer.log.step_times
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    t0 = time.monotonic()
+    m = session.run(SPMD_STEPS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = LAUNCHES.snapshot()
+    trainer = session.trainer
+    losses, delays = list(trainer.log.losses), list(trainer.log.delays)
+    step_s = list(trainer.log.step_times)
+    params = registry.count_params(trainer.cfg)
+    # the first batch again, with the trained parameters: the steps'
+    # losses are each on another batch, whose spread at init exceeds what
+    # 8 steps move
+    first = batch_tensors(next(batches(trainer.cfg, trainer.data_cfg)),
+                          trainer.device)
+    with torch.no_grad():
+        first_after = float(trainer.loss_fn(trainer.params, first)[0])
+    session.close()
+    del session, trainer
+
+    lo, hi = spec.sync.s_lower, spec.sync.s_upper
+    if (len(losses) != SPMD_STEPS or not all(map(math.isfinite, losses))
+            or not first_after < losses[0]):
+        fail(f"spmd: losses {losses} (finite), the first batch's "
+             f"{losses[0]} -> {first_after} after the steps (must fall); "
+             f"delays {delays}")
+    warm_delay = statistics.mean(delays[1:])
+    if not all(lo <= d <= hi for d in delays) or not warm_delay > lo:
+        fail(f"spmd: delays {delays}: each in [{lo}, {hi}], the warm "
+             f"steps' mean above {lo}")
+    expected = {name: per_step.get(name, 0) * SPMD_STEPS
+                for name in launches}
+    if launches != expected:
+        fail(f"spmd: launches {launches} != expected {expected}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not peak_gb < 80.0:
+        fail(f"spmd: peak memory {peak_gb} GB")
+    rec = {"phase": "spmd", "steps": SPMD_STEPS, "params": params,
+           "optimizer": "adamw", "lr": SPMD_LR, "losses": losses,
+           "first_batch_loss_after": first_after,
+           "delays": delays, "mean_delay": m["mean_delay"],
+           "warm_mean_delay": warm_delay, "step_s": step_s,
+           "warm_step_s": statistics.mean(step_s[1:]),
+           "warm_step_s_median": statistics.median(step_s[1:]),
+           "wall_s": wall, "launches": launches,
+           "launches_per_step": {k: v / SPMD_STEPS
+                                 for k, v in launches.items()},
+           "max_memory_allocated_gb": peak_gb,
+           "max_memory_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    say(rec)
+    return rec
+
+
+def run_examples(src: str):
+    """The four examples of ``repro_torch.examples`` as processes on the
+    card at their smoke sizes, all started together (train_lm's
+    ``--resume`` run after its first): each must exit 0 and end with its
+    closing line."""
+    import shutil
+    import threading
+    ckpt = os.path.join(ROOT, "build", "train_lm")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, src))
+    chains = {
+        "quickstart": [["--smoke"]],
+        "heterogeneous_ps": [["--smoke"]],
+        "train_lm": [["--preset", "tiny", "--steps", "10",
+                      "--checkpoint-dir", ckpt],
+                     ["--preset", "tiny", "--steps", "10",
+                      "--checkpoint-dir", ckpt, "--resume"]],
+        "serve_decode": [[]],
+    }
+    results = {}
+
+    def run_chain(name, runs):
+        for args in runs:
+            t0 = time.monotonic()
+            try:
+                out = subprocess.run(
+                    [sys.executable, "-m", f"repro_torch.examples.{name}",
+                     *args], env=env, cwd=ROOT, capture_output=True,
+                    text=True, timeout=EXAMPLE_TIMEOUT_S)
+                rc, stdout, stderr = out.returncode, out.stdout, out.stderr
+            except subprocess.TimeoutExpired as e:
+                rc, stdout, stderr = "timeout", str(e.stdout), str(e.stderr)
+            lines = [l for l in stdout.splitlines() if l.strip()]
+            results.setdefault(name, []).append(
+                {"args": args, "rc": rc, "seconds": time.monotonic() - t0,
+                 "last_line": lines[-1] if lines else "",
+                 "stderr_tail": stderr[-1500:] if rc != 0 else ""})
+            if rc != 0:
+                return
+
+    threads = [threading.Thread(target=run_chain, args=(n, r))
+               for n, r in chains.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    say({"phase": "examples", "runs": results})
+    for name, runs in chains.items():
+        got = results.get(name, [])
+        if len(got) != len(runs) or any(
+                r["rc"] != 0 or not r["last_line"].strip().endswith(
+                    EXAMPLE_CLOSING[name]) for r in got):
+            fail(f"example {name}: {got}")
+
+
+def run_spmd_phase(torch, api, src: str):
+    """(a) the SPMD smoke parity, (b) the full-width run and a profile
+    of two SSP steps of it (a fixed delay of 1: the ring's copy and the
+    optimizer each a group), (c) the examples.  Returns the launches."""
+    from repro_torch.configs import get_config
+    check_parity(torch, api, "spmd h2o-danube smoke", lambda kernels:
+                 spmd_spec(api, full=False, kernels=kernels))
+    # 24 layers, remat: 48, 48 and 49 launches a step
+    rec = run_spmd(torch, api, arch_launches(get_config("h2o-danube-1.8b")))
+    free_device_memory(torch)
+    profile_step(torch, api, "spmd", spmd_spec(api, full=True, sync="ssp"))
+    free_device_memory(torch)
+    run_examples(src)
+    return rec["launches"]
+
+
 # ----------------------------------------------------------------------- ft
 #: the reference's recovery bound for a per-shard pause (its chaos test's
 #: assertion on ``snapshot_shard`` spans): printed beside the pauses
@@ -2439,14 +2645,22 @@ SLSTM_BACKWARD_GROUP = ("sLSTM loop backward (recompute and autograd "
                         "through the loop, one CUDA graph replay)")
 
 
+SPMD_RING_GROUP = "SPMD gradient ring (push_pop: the slot copy)"
+SPMD_OPTIMIZER_GROUP = "SPMD optimizer (adamw, plain PyTorch)"
+
+
 def range_groups():
-    """Profiler ranges whose device spans hold a graph replay, each with
-    its group: (range name, group)."""
+    """Profiler ranges whose device spans form a group of their own
+    (a graph replay's, or the SPMD step's ring and optimizer), each
+    with its group: (range name, group)."""
     from repro_torch.kernels.registry import SSM_SCAN_BACKWARD
+    from repro_torch.launch.train import OPTIMIZER_RANGE, RING_RANGE
     from repro_torch.models.ssm import SLSTM_BACKWARD, SLSTM_FORWARD
     return ((SSM_SCAN_BACKWARD, PLAIN_SCAN_BACKWARD),
             (SLSTM_FORWARD, SLSTM_FORWARD_GROUP),
-            (SLSTM_BACKWARD, SLSTM_BACKWARD_GROUP))
+            (SLSTM_BACKWARD, SLSTM_BACKWARD_GROUP),
+            (RING_RANGE, SPMD_RING_GROUP),
+            (OPTIMIZER_RANGE, SPMD_OPTIMIZER_GROUP))
 
 
 def kernel_function(name: str) -> str:
@@ -2800,6 +3014,10 @@ def main(argv=None) -> None:
     mark("families")
     # -- the recurrent and audio families ----------------------------------
     for name, n in run_families(torch, api).items():
+        launches[name] += n
+    mark("spmd")
+    # -- the SPMD engine, its parity and the examples -----------------------
+    for name, n in run_spmd_phase(torch, api, args.src).items():
         launches[name] += n
 
     replaces = {

@@ -4,14 +4,12 @@
     python -m repro_torch.api --validate run.json    # lint a spec file
     python -m repro_torch.api --example              # a ready-to-edit spec
 
-Counterpart of ``repro/api/__main__.py``.  ``--dump-schema`` prints
-``dump_schema()``, which equals the shared ``schema.json``;
-``--validate`` also refuses what the port has not ported yet (each
-message names its ROADMAP item).  ``--example`` prints the port's main
-path (DSSP, sharded server, fused apply, packed wire with delta pulls,
-h2o-danube-1.8b's smoke config): the reference's example is
-``RunSpec()``, whose default ``ps.kind='none'`` (the SPMD pipeline)
-comes with item 11.
+Counterpart of ``repro/api/__main__.py``, with its output:
+``--dump-schema`` prints ``dump_schema()``, which equals the shared
+``schema.json``; ``--example`` prints the reference's example,
+``RunSpec()`` (the SPMD engine: ``ps.kind='none'``, DSSP over
+xlstm-125m's smoke config); ``--validate`` accepts what the reference
+accepts and prints the engine the spec selects.
 """
 
 from __future__ import annotations
@@ -20,16 +18,7 @@ import argparse
 import json
 import sys
 
-from repro_torch.api.spec import (ModelSpec, RunSpec, ServerSpec, SpecError,
-                                  WireSpec, dump_schema)
-
-
-def example_spec() -> RunSpec:
-    """The port's main path at smoke size."""
-    return RunSpec(model=ModelSpec(arch="h2o-danube-1.8b"),
-                   ps=ServerSpec(kind="sharded", shards=4, workers=2,
-                                 apply="fused"),
-                   wire=WireSpec(format="packed", delta_pull=True))
+from repro_torch.api.spec import RunSpec, SpecError, dump_schema
 
 
 def main(argv=None) -> int:
@@ -42,15 +31,14 @@ def main(argv=None) -> int:
                        help="parse + validate a spec file; exit 1 with "
                             "the SpecError message if invalid")
     group.add_argument("--example", action="store_true",
-                       help="print the main path's RunSpec as editable "
-                            "JSON")
+                       help="print a default RunSpec as editable JSON")
     args = ap.parse_args(argv)
 
     if args.dump_schema:
         print(json.dumps(dump_schema(), indent=2, sort_keys=True))
         return 0
     if args.example:
-        print(example_spec().to_json())
+        print(RunSpec().to_json())
         return 0
     try:
         with open(args.validate) as f:

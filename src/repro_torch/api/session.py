@@ -1,8 +1,11 @@
 """``build_session(spec) -> TrainingSession`` — the single wiring path.
 
-Counterpart of ``repro/api/session.py`` for the engines the port has so
-far:
+Counterpart of ``repro/api/session.py``, with its three engines:
 
+  * ``spmd`` (``ps.kind='none'``): the delayed-gradient pipeline of
+    ``repro_torch.launch.train.Trainer`` on one device — loss and
+    backward, the gradient ring, the optimizer (sgd, momentum, adamw,
+    adafactor), the Algorithm-2 delay controller, checkpoints;
   * ``ps-threads``: W worker threads pushing the packed or the tree
     wire into an in-heap ``ShardedParameterServer`` or monolithic
     ``ParameterServer``, with coalesced applies and wire compression as
@@ -13,7 +16,7 @@ far:
     ``external_workers=True``, an endpoint the caller's own clients
     drive (``session.address()``), over inproc too.
 
-Both engines arm ``spec.obs`` (the server-side recorder, a metrics
+Both PS engines arm ``spec.obs`` (the server-side recorder, a metrics
 sampler, worker ``MSG_TRACE`` flushes and spills merged into one trace,
 exported on close) and ``spec.ft`` (snapshots, resume-before-serve, a
 final snapshot on close; on ``ps-transport`` also the live-reshard
@@ -498,18 +501,23 @@ def packed_step(cfg, plan, device: torch.device, current_plan=None):
     return step
 
 
-def worker_batches(cfg, data_cfg, w: int, device: torch.device) -> Iterator:
-    """Worker ``w``'s data stream (seed ``data_cfg.seed + 1 + w``, as in
-    the reference), as tensors on ``device``: integer arrays (tokens,
+def batch_tensors(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """One numpy batch as tensors on ``device``: integer arrays (tokens,
     labels) as ``torch.long``, floating ones (Whisper's f32 ``frames``)
     in their own dtype, as the reference's ``jnp.asarray`` keeps it."""
+    return {k: torch.from_numpy(v).to(
+                device=device,
+                dtype=None if v.dtype.kind == "f" else torch.long)
+            for k, v in batch.items()}
+
+
+def worker_batches(cfg, data_cfg, w: int, device: torch.device) -> Iterator:
+    """Worker ``w``'s data stream (seed ``data_cfg.seed + 1 + w``, as in
+    the reference), as tensors on ``device`` (``batch_tensors``)."""
     from repro_torch.data.synthetic import batches as data_batches
     wcfg = dataclasses.replace(data_cfg, seed=data_cfg.seed + 1 + w)
     for b in data_batches(cfg, wcfg):
-        yield {k: torch.from_numpy(v).to(
-                   device=device,
-                   dtype=None if v.dtype.kind == "f" else torch.long)
-               for k, v in b.items()}
+        yield batch_tensors(b, device)
 
 
 # ===================================================================
@@ -574,6 +582,80 @@ def _serve_threads(session) -> tuple:
         t.start()
         threads.append(t)
     return threads, results
+
+
+# ===================================================================
+# engine: SPMD delayed-gradient pipeline
+# ===================================================================
+@register_engine("spmd")
+class SpmdSession(TrainingSession):
+    """The delayed-gradient pipeline (``repro_torch.launch.train.
+    Trainer``): one process on one device, the DSSP delay re-tuned per
+    step by the Algorithm-2 controller."""
+
+    OVERRIDES = frozenset({
+        "verbose", "device", "model_config", "data_config",
+        "checkpoint_dir", "save_every", "resume", "collective_time_fn",
+        "rules",
+    })
+
+    trainer = None
+    resumed = False
+    obs_rig = None
+
+    def __init__(self, spec: RunSpec, **overrides):
+        super().__init__(spec, **overrides)
+        if overrides.get("rules") is not None:
+            raise SpecError(
+                "rules= places the run on a device mesh; the port's SPMD "
+                "engine runs on one device and has no mesh rules yet "
+                "(ROADMAP queue 1, item 11)")
+
+    def _start(self) -> None:
+        from repro_torch.launch.train import Trainer
+        spec = self.spec
+        if spec.obs.trace:
+            self.obs_rig = _ObsRig(spec.obs)
+            self.obs_rig.start()  # one process: no PS counters to sample
+        cfg, data_cfg = _model_setup(spec, self._ov.get("model_config"))
+        data_cfg = self._ov.get("data_config") or data_cfg
+        damping = spec.optimizer.staleness_damping
+        self.trainer = Trainer(
+            cfg, data_cfg, sync=spec.sync.mode,
+            s_lower=spec.sync.s_lower, s_upper=spec.sync.s_upper,
+            lr=spec.optimizer.lr, optimizer=spec.optimizer.name,
+            compressor=spec.wire.compression,
+            checkpoint_dir=self._ov.get("checkpoint_dir"),
+            save_every=self._ov.get("save_every", 50),
+            collective_time_fn=self._ov.get("collective_time_fn"),
+            staleness_damping=True if damping is None else damping,
+            device=self.device)
+        if self._ov.get("resume"):
+            self.resumed = self.trainer.resume()
+
+    def _run(self, steps: int) -> None:
+        self.trainer.train(steps, verbose=self.verbose)
+        if self.obs_rig is not None:
+            self.obs_rig.finish()
+
+    def metrics(self) -> Dict[str, Any]:
+        log = self.trainer.log if self.trainer else None
+        losses = log.losses if log else []
+        out = {
+            "engine": self.engine,
+            "steps": len(losses),
+            "first_loss": losses[0] if losses else None,
+            "final_loss": losses[-1] if losses else None,
+            "mean_delay": (sum(log.delays) / len(log.delays)
+                           if log and log.delays else 0.0),
+        }
+        if self.obs_rig is not None and self.obs_rig.summary is not None:
+            out["obs"] = self.obs_rig.summary
+        return out
+
+    def _close(self) -> None:
+        if self.obs_rig is not None:
+            self.obs_rig.finish()
 
 
 # ===================================================================

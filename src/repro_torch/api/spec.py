@@ -3,11 +3,8 @@
 The port's copy of the reference package's ``RunSpec``: the same
 sections, fields, defaults, choices and validation, and the same JSON
 (``dump_schema`` equals the checked-in ``schema.json``), so one spec
-file drives either package.  On top of the reference's rules the port
-refuses, with a ``SpecError`` naming the ROADMAP item that ports it,
-the one value whose code path is not ported yet, ``ps.kind='none'``
-(the SPMD pipeline; ``_require_ported``).  Every architecture of the
-reference is accepted.
+file drives either package.  The port accepts every spec the reference
+accepts, ``RunSpec()`` (the SPMD engine, ``ps.kind='none'``) included.
 
 ``RunSpec`` describes *what* to train and *how* the distributed pieces
 fit together — model, data, optimizer, synchronization paradigm, server
@@ -645,7 +642,6 @@ class RunSpec:
                      "parameter server steps SGD/momentum (workers send "
                      "raw gradients); rich optimizers run on the SPMD "
                      "engine (ps.kind='none')")
-        _require_ported(self)
 
     # ------------------------------------------------------------ dicts
     def to_dict(self) -> Dict[str, Any]:
@@ -702,17 +698,6 @@ class RunSpec:
         if self.transport.serves_endpoint:
             return "ps-transport"
         return "ps-threads"
-
-
-def _later(what: str, item: str) -> str:
-    return (f"{what} is not ported to repro_torch yet (ROADMAP queue 1, "
-            f"{item}); run it on the reference package")
-
-
-def _require_ported(spec: "RunSpec") -> None:
-    """Refuse every value whose code path a later slice ports."""
-    _require(spec.ps.kind != "none",
-             _later("ps.kind='none'", "item 11 (the SPMD pipeline)"))
 
 
 def _sub_from_dict(sub_cls, section: str, sub: Any):

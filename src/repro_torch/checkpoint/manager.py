@@ -55,6 +55,9 @@ def _keystr_walk(node, path: str, out: List[Tuple[str, Any]]) -> None:
     if isinstance(node, dict):
         for k in sorted(node):
             _keystr_walk(node[k], f"{path}[{k!r}]", out)
+    elif tree_util.is_namedtuple(node):
+        for name, x in zip(node._fields, node):
+            _keystr_walk(x, f"{path}.{name}", out)
     elif isinstance(node, (list, tuple)):
         for i, x in enumerate(node):
             _keystr_walk(x, f"{path}[{i}]", out)
@@ -65,7 +68,8 @@ def _keystr_walk(node, path: str, out: List[Tuple[str, Any]]) -> None:
 def keystr_names(tree: Any) -> List[Tuple[str, Any]]:
     """``(name, leaf)`` in flatten order, each name as
     ``jax.tree_util.keystr`` gives it: ``['key']`` per dict level,
-    ``[i]`` per list or tuple level.  (A module-level walk: a recursive
+    ``.field`` per ``NamedTuple`` level, ``[i]`` per list or tuple
+    level.  (A module-level walk: a recursive
     closure would hold the leaves in a reference cycle.)"""
     out: List[Tuple[str, Any]] = []
     _keystr_walk(tree, "", out)

@@ -19,7 +19,7 @@ once from the encoder output; ``forward_decode`` decodes one token over
 a self-attention KV ring cache, updated in place.  The serving engine
 refuses the audio family in both packages (its prompts are tokens, not
 frames).  The reference's ``cache_specs`` places the cache on a mesh; it
-comes with the SPMD slice (ROADMAP queue 1, item 11).
+comes with the device mesh (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ Decode (``init_state``, ``forward_decode``) is the reference's: one
 token through every group, the attention slot over its KV cache and
 each Mamba slot one recurrence step (``ssm.mamba_decode``), the state
 updated in place and returned.  The reference's ``state_specs`` places
-the state on a mesh; it comes with the SPMD slice (ROADMAP queue 1,
+the state on a mesh; it comes with the device mesh (ROADMAP queue 1,
 item 11).
 """
 

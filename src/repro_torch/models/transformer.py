@@ -19,7 +19,7 @@ Serving (``forward_prefill``, ``init_cache``, ``forward_decode``) is the
 reference's, with one difference of form: decode updates the cache
 tensors in place and returns the same dict (the reference's scan
 returns new arrays).  The reference's ``cache_specs`` places the cache
-on a mesh; it comes with the SPMD slice (ROADMAP queue 1, item 11).
+on a mesh; it comes with the device mesh (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations

@@ -33,7 +33,6 @@ from repro_torch.kernels.fused_update import fused_update, fused_update_batched
 from repro_torch.obs.trace import TRACE
 from repro_torch.perfcount import WIRE
 from repro_torch.ps.metrics import RunMetrics
-from repro_torch.ps.sharded.plan import build_shard_plan
 
 Params = Any  # tree of tensors
 Grads = Any
@@ -219,6 +218,8 @@ class ParameterServer(ParameterServerProtocol):
                                     if coalesce > 1 else 0.0))
         self.device = tree_util.leaves(params)[0].device
         if apply_mode == "packed":
+            # the sharded package imports this module: import it late
+            from repro_torch.ps.sharded.plan import build_shard_plan
             self.plan = build_shard_plan(params, 1)
             self._wire_p = self.plan.pack(params)
             self._wire_m = torch.zeros_like(self._wire_p)

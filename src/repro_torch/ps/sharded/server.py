@@ -963,6 +963,9 @@ class ShardedParameterServer(ParameterServerProtocol):
     def shard_versions(self) -> List[int]:
         return [st.version for st in self.shards]
 
+    def shard_metrics(self) -> List[RunMetrics]:
+        return [st.metrics for st in self.shards]
+
     def staleness_profile(self) -> Dict[int, Dict[int, int]]:
         """shard -> worker -> current gap."""
         out = {}

@@ -5,7 +5,9 @@ The reference package keeps its parameters in a pytree of nested dicts;
 packed wire layout numbers leaves in exactly that order.  These helpers
 give the same order for the port's dicts of tensors, so a plan built on
 either side lays out the same bytes.  Lists and tuples are nodes too,
-visited in order (a shard's piece list is one).
+visited in order (a shard's piece list is one), and so are
+``NamedTuple``s, field by field (an optimizer's or the DSSP ring's
+state), as ``jax.tree_util`` visits them.
 """
 
 from __future__ import annotations
@@ -15,9 +17,15 @@ from typing import Any, Callable, List, Tuple
 Tree = Any
 
 
+def is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def _walk(node, leaves: List[Any]):
     if isinstance(node, dict):
         return {k: _walk(node[k], leaves) for k in sorted(node)}
+    if is_namedtuple(node):
+        return type(node)(*[_walk(x, leaves) for x in node])
     if isinstance(node, (list, tuple)):
         return type(node)(_walk(x, leaves) for x in node)
     leaves.append(node)
@@ -43,6 +51,8 @@ def leaves(tree: Tree) -> List[Any]:
 def _build(node, it):
     if isinstance(node, dict):
         return {k: _build(node[k], it) for k in sorted(node)}
+    if is_namedtuple(node):
+        return type(node)(*[_build(x, it) for x in node])
     if isinstance(node, (list, tuple)):
         return type(node)(_build(x, it) for x in node)
     return next(it)

@@ -927,3 +927,60 @@ def test_graphed_slstm_loop_two_threads_at_once(gen):
     for got, want in zip(results, wants):
         _assert_bitwise(got, want)
     graphs.clear()
+
+
+# ------------------------------------------------------------ SPMD engine
+def test_spmd_session_with_kernels_matches_plain_formulations(gen):
+    """One SPMD session at smoke size (h2o-danube-1.8b, DSSP, adamw) on
+    the card, kernels vs plain formulations: losses within 1e-4, and
+    the kernels launched on the kernels' run."""
+    from repro_torch import api
+
+    losses = {}
+    for kernels in ("auto", "xla"):
+        spec = api.RunSpec(
+            model=api.ModelSpec(arch="h2o-danube-1.8b", kernels=kernels),
+            data=api.DataSpec(seq_len=64, global_batch=4),
+            optimizer=api.OptimizerSpec(name="adamw", lr=1e-3),
+            sync=api.SyncSpec(mode="dssp", s_lower=1, s_upper=4))
+        LAUNCHES.reset()
+        with api.build_session(spec) as session:
+            session.run(6)
+            losses[kernels] = session.trainer.log.losses
+        launched = LAUNCHES.snapshot()
+        if kernels == "auto":
+            assert launched["rmsnorm"] > 0
+            assert launched["flash_attention_fwd"] > 0
+    assert len(losses["auto"]) == 6
+    assert max(abs(a - b) for a, b in zip(losses["auto"],
+                                          losses["xla"])) <= 1e-4
+
+
+def test_adamw_update_of_a_bf16_tree_on_the_card_matches_the_cpu(gen):
+    """Three adamw updates (staleness 2, damping, weight decay) of a bf16
+    tree on the card against the same updates on the CPU: every
+    parameter within one bf16 ulp, every moment within 1e-6 of its
+    magnitude."""
+    from repro_torch import tree as tree_util
+    from repro_torch.optim.optimizers import adamw
+
+    shapes = {"v": (4099,), "m": (3, 257, 130), "e": (6000, 64)}
+    params = {k: _rand(gen, s, torch.bfloat16) for k, s in shapes.items()}
+    grads = [{k: _rand(gen, s, torch.bfloat16) for k, s in shapes.items()}
+             for _ in range(3)]
+    opt = adamw(1e-2, weight_decay=0.1, staleness_damping=True)
+    dev = {k: v.clone() for k, v in params.items()}
+    cpu = {k: v.cpu() for k, v in params.items()}
+    ds, cs = opt.init(dev), opt.init(cpu)
+    for g in grads:
+        dev, ds = opt.update(g, ds, dev, staleness=2,
+                             lr_scale=torch.tensor(1.0))
+        cpu, cs = opt.update({k: v.cpu() for k, v in g.items()}, cs, cpu,
+                             staleness=2, lr_scale=torch.tensor(1.0))
+    for k in shapes:
+        a, b = dev[k].float().cpu(), cpu[k].float()
+        assert torch.all((a - b).abs() <= b.abs() * 2.0 ** -7 + 1e-30), k
+    assert int(ds.count) == int(cs.count) == 3
+    for a, b in zip(tree_util.leaves(ds.mu) + tree_util.leaves(ds.nu),
+                    tree_util.leaves(cs.mu) + tree_util.leaves(cs.nu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-12)

@@ -57,7 +57,14 @@ def test_every_repro_torch_module_imports_without_jax_or_repro():
                 "repro_torch.ft.snapshot", "repro_torch.ft.faults",
                 "repro_torch.ft.server_proc", "repro_torch.ft.reshard",
                 "repro_torch.serve", "repro_torch.serve.batching",
-                "repro_torch.serve.replica", "repro_torch.serve.engine"}
+                "repro_torch.serve.replica", "repro_torch.serve.engine",
+                "repro_torch.launch.train", "repro_torch.launch.serve",
+                "repro_torch.core.dssp_spmd",
+                "repro_torch.optim.optimizers",
+                "repro_torch.examples.quickstart",
+                "repro_torch.examples.heterogeneous_ps",
+                "repro_torch.examples.train_lm",
+                "repro_torch.examples.serve_decode"}
     assert expected <= set(res["modules"])
 
 

@@ -117,26 +117,26 @@ def test_spec_json_round_trips_and_schema_is_the_reference_schema():
         api.dump_schema()))
 
 
-@pytest.mark.parametrize("section,field,value,item", [
-    ("ps", "kind", "none", "item 11"),
-    ("model", "arch", "xlstm-125m", None),
+@pytest.mark.parametrize("section,field,value,engine", [
+    ("ps", "kind", "none", "spmd"),
+    ("model", "arch", "xlstm-125m", "ps-threads"),
 ])
 def test_later_slices_raise_spec_errors_naming_their_item(section, field,
-                                                         value, item):
-    """A value the reference accepts: refused with the ROADMAP item that
-    ports its path, or (``item`` None: a ported path) accepted alike."""
+                                                         value, engine):
+    """A value the reference accepts is accepted alike, with the same
+    JSON and engine: no path is refused as unported any more (the SPMD
+    engine, ``ps.kind='none'``, was the last)."""
     d = _spec(api, workers=2, sync="dssp").to_dict()
     d[section][field] = value
     if (section, field) == ("ps", "kind"):
         d["ps"].update(shards=0, apply="tree")
         d["wire"].update(format="tree", delta_pull=False)
-    japi.RunSpec.from_dict(d)              # valid for the reference ...
-    if item is None:                       # ... and for the port
-        assert api.RunSpec.from_dict(d).to_json() == \
-            japi.RunSpec.from_dict(d).to_json()
-        return
-    with pytest.raises(api.SpecError, match=item):
-        api.RunSpec.from_dict(d)           # ... refused, with its item
+    ref = japi.RunSpec.from_dict(d)        # valid for the reference ...
+    port = api.RunSpec.from_dict(d)        # ... and for the port
+    assert port.to_json() == ref.to_json()
+    assert port.engine == ref.engine == engine
+    assert api.RunSpec().to_json() == japi.RunSpec().to_json()
+    assert api.RunSpec().engine == "spmd"
 
 
 def _item8_spec(section, field, value, tmp_path) -> dict:

@@ -19,6 +19,7 @@ import pathlib
 
 import pytest
 
+import repro.api as japi
 from repro.core import policies as jpolicies
 from repro.obs.trace import TRACE as JTRACE
 from repro.ps import simulator as jsim
@@ -192,17 +193,29 @@ def test_cli_dump_schema_is_the_shared_schema(capsys):
 
 def test_cli_example_validates_and_validate_refuses_with_item(capsys,
                                                               tmp_path):
+    """``--example`` prints the reference's example (``RunSpec()``, the
+    SPMD engine), which validates; the port's main path (sharded server,
+    packed wire) validates too; a spec the reference refuses (asp on the
+    SPMD pipeline) and a missing file exit 1."""
     assert cli.main(["--example"]) == 0
     text = capsys.readouterr().out
-    good = tmp_path / "main.json"
+    assert json.loads(text) == json.loads(japi.RunSpec().to_json())
+    good = tmp_path / "spmd.json"
     good.write_text(text)
     assert cli.main(["--validate", str(good)]) == 0
+    assert "engine=spmd" in capsys.readouterr().out
+    d = json.loads(text)
+    d["model"]["arch"] = "h2o-danube-1.8b"
+    d["ps"].update(kind="sharded", shards=4, workers=2, apply="fused")
+    d["wire"].update(format="packed", delta_pull=True)
+    main = tmp_path / "main.json"
+    main.write_text(json.dumps(d))
+    assert cli.main(["--validate", str(main)]) == 0
     assert "engine=ps-threads" in capsys.readouterr().out
     d = json.loads(text)
-    d["ps"].update(kind="none", shards=0, apply="tree")
-    d["wire"].update(format="tree", delta_pull=False)
-    bad = tmp_path / "spmd.json"
+    d["sync"]["mode"] = "asp"
+    bad = tmp_path / "asp.json"
     bad.write_text(json.dumps(d))
     assert cli.main(["--validate", str(bad)]) == 1
-    assert "item 11" in capsys.readouterr().err
+    assert "asp" in capsys.readouterr().err.lower()
     assert cli.main(["--validate", str(tmp_path / "missing.json")]) == 1

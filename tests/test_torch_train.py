@@ -1,0 +1,319 @@
+"""The port's SPMD trainer (``repro_torch.launch.train``) and its CLIs
+against the reference's.
+
+* Trainer parity: h2o-danube-1.8b's smoke config (f32), the same
+  parameters (the reference's init, carried across) and batches, an
+  explicit delay sequence with ``s_upper=3``: the optimizer state and,
+  with momentum, per-step losses and the final parameters within 1e-5
+  of the reference's jitted step, for bsp, ssp and dssp; with adamw
+  the losses within 2e-5 and the parameters within 1e-5 but for at
+  most 1e-4 of the elements, each within 2 lr (Adam's normalisation of
+  gradients far below its eps; ROADMAP queue 3).
+* ``build_session`` on the SPMD spec equals a direct ``Trainer`` bit
+  for bit (SSP: a fixed delay).
+* Each sync converges, and so does int8 compression; asp is refused.
+* A restart is bit-exact on the CPU; the port resumes from a checkpoint
+  the reference's ``Trainer`` wrote, and its next losses agree with the
+  reference's own continuation within 1e-5.
+* The CLIs: ``--dump-spec`` and ``spec_from_flags`` give the
+  reference's JSON; ``main`` runs to its end on the SPMD and on the
+  ``--ps-shards 2`` branch with ``--device cpu``; ``--spec`` refuses
+  wiring flags; ``launch.serve``'s ``build_spec`` equals the
+  reference's; without ``--device`` and CUDA both CLIs raise.
+"""
+
+from __future__ import annotations
+
+import shutil
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke
+from repro.data.synthetic import DataConfig as JDataConfig
+from repro.launch import serve as jserve
+from repro.launch import train as jtrain
+from repro_torch import api
+from repro_torch import tree as tree_util
+from repro_torch.api.session import batch_tensors
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.synthetic import DataConfig, batches
+from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
+from repro_torch.models.params import from_numpy_tree
+
+torch.set_num_threads(2)
+
+ARCH = "h2o-danube-1.8b"
+DELAYS = [0, 1, 1, 2, 3, 3, 2, 1]
+
+
+def _data(cfg, seq=32, batch=4):
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+
+
+def _jdata(cfg, seq=32, batch=4):
+    return JDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                       global_batch=batch)
+
+
+def _port_trainer(sync="dssp", arch=ARCH, tmp=None, lr=5e-3, **kw):
+    cfg = get_smoke_config(arch)
+    return ttrain.Trainer(cfg, _data(cfg), sync=sync, lr=lr,
+                          checkpoint_dir=str(tmp) if tmp else None,
+                          save_every=5, device="cpu", **kw)
+
+
+def _assert_trees_close(port_tree, ref_tree, tol):
+    a = tree_util.leaves(port_tree)
+    b = jax.tree_util.tree_leaves(ref_tree)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.detach().float().numpy(),
+                                   np.asarray(y, np.float32), atol=tol,
+                                   rtol=0)
+
+
+# ---------------------------------------------------------------- parity
+@pytest.mark.parametrize("optimizer", ["adamw", "momentum"])
+@pytest.mark.parametrize("sync", ["bsp", "ssp", "dssp"])
+def test_trainer_steps_match_the_reference_jitted_step(sync, optimizer):
+    jcfg = jax_smoke(ARCH)
+    ref = jtrain.Trainer(jcfg, _jdata(jcfg), sync=sync, s_lower=1,
+                         s_upper=3, lr=1e-3, optimizer=optimizer)
+    port = _port_trainer(sync, s_lower=1, s_upper=3, lr=1e-3,
+                         optimizer=optimizer)
+    port.params = from_numpy_tree(ref.params, "cpu")
+    it = batches(get_smoke_config(ARCH), _data(get_smoke_config(ARCH)))
+    jl, tl = [], []
+    for delay in DELAYS:
+        b = next(it)
+        (ref.params, ref.opt_state, ref.pipeline, ref.err_state,
+         loss) = ref._jit_step(ref.params, ref.opt_state, ref.pipeline,
+                               ref.err_state,
+                               {k: jnp.asarray(v) for k, v in b.items()},
+                               jnp.int32(delay))
+        jl.append(float(loss))
+        tl.append(float(port.step(batch_tensors(b, "cpu"), delay)))
+    _assert_trees_close(port.opt_state, ref.opt_state, 1e-5)
+    if optimizer == "momentum":
+        np.testing.assert_allclose(tl, jl, atol=1e-5, rtol=0)
+        _assert_trees_close(port.params, ref.params, 1e-5)
+        return
+    # Adam divides each moment by its own RMS: where a gradient element
+    # is far below eps (1e-8) and the sum of cancelling terms, the two
+    # packages' summation orders give it different values, and that
+    # element's update differs by up to about lr (ROADMAP queue 3).
+    # Measured: 3-5 of 119,104 elements beyond 1e-5, the largest 0.96
+    # lr; the later losses then differ by up to 1.2e-5 (of 6.0).
+    np.testing.assert_allclose(tl, jl, atol=2e-5, rtol=0)
+    beyond, total = 0, 0
+    for x, y in zip(tree_util.leaves(port.params),
+                    jax.tree_util.tree_leaves(ref.params)):
+        err = np.abs(x.numpy() - np.asarray(y, np.float32))
+        assert err.max() <= 2 * 1e-3
+        beyond += int((err > 1e-5).sum())
+        total += err.size
+    assert beyond <= 1e-4 * total
+
+
+def test_session_matches_a_direct_trainer_bitwise():
+    """The port of test_api.py::test_spmd_session_matches_direct_trainer."""
+    spec = api.RunSpec(model=api.ModelSpec(arch="xlstm-125m"),
+                       data=api.DataSpec(seq_len=16, global_batch=4),
+                       optimizer=api.OptimizerSpec(lr=5e-3),
+                       sync=api.SyncSpec(mode="ssp", s_lower=1, s_upper=3))
+    assert spec.engine == "spmd"
+    with api.build_session(spec, device="cpu") as session:
+        m = session.run(5)
+    assert m["engine"] == "spmd" and m["steps"] == 5
+
+    cfg = get_smoke_config("xlstm-125m")
+    trainer = ttrain.Trainer(cfg, _data(cfg, seq=16), sync="ssp",
+                             s_lower=1, s_upper=3, lr=5e-3, device="cpu")
+    log = trainer.train(5)
+    assert m["final_loss"] == log.losses[-1]
+    assert m["first_loss"] == log.losses[0]
+    assert m["mean_delay"] == 1.0
+
+
+def test_session_refuses_mesh_rules_and_unknown_overrides():
+    spec = api.RunSpec()
+    with pytest.raises(api.SpecError, match="item 11"):
+        api.build_session(spec, device="cpu", rules=object())
+    with pytest.raises(api.SpecError, match="params"):
+        api.build_session(spec, device="cpu", params={})
+
+
+# ------------------------------------------------------------- training
+@pytest.mark.parametrize("sync", ["bsp", "ssp", "dssp"])
+def test_trainer_converges_under_each_sync(sync):
+    t = _port_trainer(sync, s_lower=0 if sync == "bsp" else 1, s_upper=3)
+    log = t.train(40)
+    assert log.losses[-1] < log.losses[0] * 0.98
+    if sync == "dssp":
+        assert all(1 <= d <= 3 for d in log.delays[1:])
+
+
+def test_gradient_compression_still_converges():
+    t = _port_trainer("dssp", compressor="int8")
+    log = t.train(40)
+    assert log.losses[-1] < log.losses[0] * 0.98
+
+
+def test_asp_is_refused():
+    with pytest.raises(ValueError, match="asp"):
+        _port_trainer("asp")
+
+
+def test_delay_zero_equals_bsp_bitwise():
+    """push_pop(delay=0) reproduces BSP exactly."""
+    a = _port_trainer("bsp", staleness_damping=False)
+    b = _port_trainer("ssp", s_lower=0, s_upper=2, staleness_damping=False)
+    it = batches(a.cfg, a.data_cfg)
+    for _ in range(5):
+        batch = batch_tensors(next(it), "cpu")
+        a.step(batch, 0)
+        b.step(batch, 0)
+    for x, y in zip(tree_util.leaves(a.params), tree_util.leaves(b.params)):
+        assert torch.equal(x, y)
+
+
+def test_trainer_restart_is_bit_exact(tmp_path):
+    t1 = _port_trainer("dssp", tmp=tmp_path / "a")
+    log1 = t1.train(12)
+    t2 = _port_trainer("dssp", tmp=tmp_path / "b")
+    t2.train(5)
+    t2.ckpt.wait()
+    t3 = _port_trainer("dssp", tmp=tmp_path / "b")
+    assert t3.resume()
+    assert t3.step_idx == 5
+    log3 = t3.train(7)
+    assert log3.losses[-1] == log1.losses[-1]
+    assert log3.losses == log1.losses[5:]
+    for x, y in zip(tree_util.leaves(t1.params), tree_util.leaves(t3.params)):
+        assert torch.equal(x, y)
+    for x, y in zip(tree_util.leaves(t1.opt_state),
+                    tree_util.leaves(t3.opt_state)):
+        assert torch.equal(x, y)
+
+
+def test_port_resumes_a_reference_checkpoint(tmp_path):
+    jcfg = jax_smoke(ARCH)
+    ref = jtrain.Trainer(jcfg, _jdata(jcfg), sync="dssp", s_lower=1,
+                         s_upper=3, lr=1e-3,
+                         checkpoint_dir=str(tmp_path / "ref"), save_every=5)
+    ref.train(5)
+    ref.ckpt.wait()
+    shutil.copytree(tmp_path / "ref", tmp_path / "port")
+    port = _port_trainer("dssp", tmp=tmp_path / "port", s_lower=1,
+                         s_upper=3, lr=1e-3)
+    assert port.resume()
+    assert port.step_idx == 5
+    _assert_trees_close(port.params, ref.params, 0.0)    # bit for bit
+    _assert_trees_close(port.opt_state, ref.opt_state, 0.0)
+    _assert_trees_close(port.pipeline, ref.pipeline, 0.0)
+    want = ref.train(4).losses[5:]
+    got = port.train(4).losses
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------------ CLIs
+FLAG_SETS = [
+    [],
+    ["--arch", "h2o-danube-1.8b", "--sync", "ssp", "--optimizer", "adamw",
+     "--s-lower", "1", "--s-upper", "4", "--compress", "int8"],
+    ["--ps-shards", "2", "--ps-workers", "3", "--sync", "asp",
+     "--ps-coalesce", "2", "--delta-pull"],
+    ["--transport", "tcp", "--ckpt-dir", "snaps", "--resume",
+     "--trace", "run.jsonl", "--full"],
+]
+
+
+@pytest.mark.parametrize("flags", FLAG_SETS,
+                         ids=["default", "spmd", "ps", "transport"])
+def test_dump_spec_is_the_reference_json(flags, capsys, monkeypatch):
+    ttrain.main(flags + ["--dump-spec"])
+    port = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["train"] + flags + ["--dump-spec"])
+    jtrain.main()
+    assert port == capsys.readouterr().out
+    assert api.RunSpec.from_json(port).to_json() + "\n" == port
+
+
+def test_spec_from_flags_is_the_reference_spec():
+    for kw in ({"arch": ARCH}, {"arch": ARCH, "ps_shards": 4,
+                                "ps_wire": "packed"},
+               {"arch": "jamba-v0.1-52b", "sync": "bsp", "seq": 32}):
+        assert (ttrain.spec_from_flags(**kw).to_json()
+                == jtrain.spec_from_flags(**kw).to_json())
+    with pytest.raises(ValueError, match="ps-coalesce"):
+        ttrain.spec_from_flags(arch=ARCH, ps_coalesce=2)
+
+
+def test_spec_file_refuses_wiring_flags(tmp_path, capsys):
+    path = tmp_path / "run.json"
+    path.write_text(api.RunSpec().to_json())
+    with pytest.raises(SystemExit):
+        ttrain.main(["--spec", str(path), "--sync", "bsp"])
+    assert "--sync" in capsys.readouterr().err
+    ttrain.main(["--spec", str(path), "--device", "cpu", "--dump-spec"])
+    assert api.RunSpec.from_json(capsys.readouterr().out) == api.RunSpec()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--arch", ARCH, "--sync", "dssp"],
+    ["--arch", ARCH, "--ps-shards", "2", "--ps-workers", "2"],
+], ids=["spmd", "ps-shards"])
+def test_cli_runs_to_its_end_on_the_cpu(flags, capsys, tmp_path):
+    ttrain.main(flags + ["--device", "cpu", "--steps", "3", "--batch", "4",
+                         "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "final loss" in out
+    if "--ps-shards" not in flags:
+        assert "mean delay" in out
+        ttrain.main(flags + ["--device", "cpu", "--steps", "2",
+                             "--checkpoint-dir", str(tmp_path),
+                             "--save-every", "1"])
+        ttrain.main(flags + ["--device", "cpu", "--steps", "1",
+                             "--checkpoint-dir", str(tmp_path), "--resume"])
+        assert "resume: ok, at step 2" in capsys.readouterr().out
+
+
+def test_serve_build_spec_is_the_reference_spec():
+    parser = tserve.build_parser()
+    for flags in ([], ["--transport", "shmem", "--sync", "ssp",
+                       "--replicas", "1", "--trace", "t.json",
+                       "--max-batch", "2"]):
+        args = parser.parse_args(flags)
+        assert (tserve.build_spec(args).to_json()
+                == jserve.build_spec(args).to_json())
+        assert tserve.build_spec(args).engine == "ps-transport"
+
+
+def test_clis_raise_without_a_device_when_there_is_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the CLIs would run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--steps", "1"])
+
+
+def test_session_traces_each_step_when_obs_is_on(tmp_path):
+    """``obs.trace``: one ``compute_step`` span a step, the summary in
+    ``metrics()["obs"]`` and the trace written where the spec says."""
+    path = tmp_path / "run.jsonl"
+    spec = api.RunSpec(model=api.ModelSpec(arch=ARCH),
+                       data=api.DataSpec(seq_len=16, global_batch=2),
+                       obs=api.ObsSpec(trace=True, trace_path=str(path)))
+    with api.build_session(spec, device="cpu") as session:
+        m = session.run(3)
+    assert m["obs"]["event_counts"]["compute_step"] == 3
+    assert m["obs"]["workers"] == [0]
+    assert len(path.read_text().splitlines()) == m["obs"]["events"]
