@@ -186,6 +186,27 @@ after an error:
            as groups of their own); then the four examples
            (``repro_torch.examples``) as processes on the card at their
            smoke sizes, all at once: each exits 0 with its closing line
+  mesh     the device mesh (``repro_torch.launch.mesh``, ``launch.steps``):
+           a one-rank NCCL group and its (1, 1) mesh on (data, model);
+           the spmd phase's full-width run with ``rules_for_mesh``
+           (h2o-danube's role 'dp': the reference's plain mesh attention,
+           no flash kernel) through the mesh step (``make_train_fn``,
+           what ``build_train_step`` builds): its checks, with per step
+           the rules-free step's ``rmsnorm`` and ``residual_rmsnorm``
+           launches and 0 ``flash_attention_fwd``, each step's gathered
+           parameters the stored tensors (same ``data_ptr``) and no
+           collective or block copy from the session's start on; the
+           warm step, peak and (a profile of two SSP steps) idle share
+           beside the rules-free run's; then four ranks sharing the card
+           over gloo (CUDA tensors; NCCL refuses two ranks on one
+           device) on (2, 2) and (2, 1, 2) (pod, data, model) meshes: 4
+           steps of ``build_train_step`` at the smoke config (f32,
+           momentum, DSSP), gathered parameters and losses within 1e-5 of
+           the same bundle on the one-rank mesh, each rank's norm
+           launches exact, collectives run; on the pod mesh, local SGD
+           with k from ``DsspScheduleController.period`` of a changing
+           pod slowdown (at least two periods, each in [1, 4]): the pods'
+           replicas equal bit for bit after each sync, apart before it
 
 Each phase boundary prints the script's elapsed seconds.  The last two
 lines of standard output are the JSON kernel table and the contract
@@ -2050,16 +2071,20 @@ def spmd_spec(api, *, full: bool, sync: str = "dssp",
         sync=api.SyncSpec(mode=sync, s_lower=1, s_upper=4))
 
 
-def run_spmd(torch, api, per_step):
+def run_spmd(torch, api, per_step, *, label: str = "spmd", on_start=None,
+             **overrides):
     """``SPMD_STEPS`` steps of the full-width SPMD run through
-    ``build_session``, its controller told of a collective
+    ``build_session`` (``overrides`` passed on: ``rules=`` for the mesh
+    phase), its controller told of a collective
     ``SPMD_COLLECTIVE_FACTOR`` times the previous step's measured time
     (the reference's ``collective_time_fn`` hook, read from the
     trainer's log): every loss finite, the first batch's loss lower
     after the steps than at the first step,
     every delay in [s_lower, s_upper] and the warm steps' mean delay
     above s_lower, each kernel's launches exactly ``per_step`` a step,
-    the peak below 80 GB.  Returns the record, with the launches."""
+    the peak below 80 GB.  ``on_start(session)`` runs once the session
+    has started, before the steps.  Returns the record, with the
+    launches."""
     from repro_torch.api.session import batch_tensors
     from repro_torch.data.synthetic import batches
     from repro_torch.models import registry
@@ -2072,9 +2097,12 @@ def run_spmd(torch, api, per_step):
     def collective_time() -> float:
         return SPMD_COLLECTIVE_FACTOR * step_times[-1] if step_times else 0.0
 
-    session = api.build_session(spec, collective_time_fn=collective_time)
+    session = api.build_session(spec, collective_time_fn=collective_time,
+                                **overrides)
     session.start()
     step_times = session.trainer.log.step_times
+    if on_start is not None:
+        on_start(session)
     torch.cuda.synchronize()
     LAUNCHES.reset()
     t0 = time.monotonic()
@@ -2091,7 +2119,8 @@ def run_spmd(torch, api, per_step):
     # 8 steps move
     first = batch_tensors(next(batches(trainer.cfg, trainer.data_cfg)),
                           trainer.device)
-    with torch.no_grad():
+    from repro_torch.models.sharding import use_rules
+    with torch.no_grad(), use_rules(trainer.rules):
         first_after = float(trainer.loss_fn(trainer.params, first)[0])
     session.close()
     del session, trainer
@@ -2099,21 +2128,21 @@ def run_spmd(torch, api, per_step):
     lo, hi = spec.sync.s_lower, spec.sync.s_upper
     if (len(losses) != SPMD_STEPS or not all(map(math.isfinite, losses))
             or not first_after < losses[0]):
-        fail(f"spmd: losses {losses} (finite), the first batch's "
+        fail(f"{label}: losses {losses} (finite), the first batch's "
              f"{losses[0]} -> {first_after} after the steps (must fall); "
              f"delays {delays}")
     warm_delay = statistics.mean(delays[1:])
     if not all(lo <= d <= hi for d in delays) or not warm_delay > lo:
-        fail(f"spmd: delays {delays}: each in [{lo}, {hi}], the warm "
+        fail(f"{label}: delays {delays}: each in [{lo}, {hi}], the warm "
              f"steps' mean above {lo}")
     expected = {name: per_step.get(name, 0) * SPMD_STEPS
                 for name in launches}
     if launches != expected:
-        fail(f"spmd: launches {launches} != expected {expected}")
+        fail(f"{label}: launches {launches} != expected {expected}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not peak_gb < 80.0:
-        fail(f"spmd: peak memory {peak_gb} GB")
-    rec = {"phase": "spmd", "steps": SPMD_STEPS, "params": params,
+        fail(f"{label}: peak memory {peak_gb} GB")
+    rec = {"phase": label, "steps": SPMD_STEPS, "params": params,
            "optimizer": "adamw", "lr": SPMD_LR, "losses": losses,
            "first_batch_loss_after": first_after,
            "delays": delays, "mean_delay": m["mean_delay"],
@@ -2188,7 +2217,8 @@ def run_examples(src: str):
 def run_spmd_phase(torch, api, src: str):
     """(a) the SPMD smoke parity, (b) the full-width run and a profile
     of two SSP steps of it (a fixed delay of 1: the ring's copy and the
-    optimizer each a group), (c) the examples.  Returns the launches."""
+    optimizer each a group), (c) the examples.  Returns the full-width
+    run's record, with its launches."""
     from repro_torch.configs import get_config
     check_parity(torch, api, "spmd h2o-danube smoke", lambda kernels:
                  spmd_spec(api, full=False, kernels=kernels))
@@ -2198,6 +2228,252 @@ def run_spmd_phase(torch, api, src: str):
     profile_step(torch, api, "spmd", spmd_spec(api, full=True, sync="ssp"))
     free_device_memory(torch)
     run_examples(src)
+    return rec
+
+
+# --------------------------------------------------------------------- mesh
+#: the four-rank rehearsal: ranks sharing the card over gloo (NCCL
+#: refuses two ranks on one device), the smoke config (f32), these
+#: meshes, this many steps of ``build_train_step`` at these delays
+MESH_SHAPES = (((2, 2), ("data", "model")),
+               ((2, 1, 2), ("pod", "data", "model")))
+MESH_DELAYS = (0, 1, 2, 1)
+MESH_LR = 1e-3
+MESH_TOL = 1e-5
+MESH_RANKS = 4
+MESH_RANK_TIMEOUT_S = 300.0
+#: every rank's tensors, the one-rank group's and the four ranks'
+MESH_DEVICE = "cuda:0"
+#: the slow pod's step time over the fast one's, a round each: local
+#: SGD's period k = ``DsspScheduleController(1, 4).period`` of them
+#: (2, 4, 3, 4, 2, 3 rounds' steps)
+POD_SLOWDOWNS = (1.0, 1.5, 2.0, 3.0, 1.3, 1.7)
+
+
+def mesh_bundle_run(torch, mesh):
+    """``build_train_step`` on ``mesh`` for the h2o-danube smoke config
+    (f32), DSSP with damped momentum at ``MESH_DELAYS``, from the seed-0
+    parameters on ``MESH_DEVICE``: the losses, this rank's launches, and
+    the gathered parameters as numpy."""
+    from repro_torch import tree as tree_util
+    from repro_torch.api.session import batch_tensors
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import dssp_spmd
+    from repro_torch.data.synthetic import DataConfig, batches
+    from repro_torch.launch.mesh import gather, place
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import registry
+    from repro_torch.optim import make_optimizer
+    from repro_torch.perfcount import LAUNCHES
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    opt = make_optimizer("momentum", MESH_LR, staleness_damping=True)
+    bundle = build_train_step(cfg, mesh, ShapeSpec("smoke", 64, 4, "train"),
+                              sync="dssp", s_upper=3, optimizer=opt)
+    p_sh, _, _, b_sh, _ = bundle.in_shardings
+    device = MESH_DEVICE
+    params = place(registry.init_params(cfg, seed=0, device=device), p_sh,
+                   mesh)
+    state = opt.init(params)
+    pipe = dssp_spmd.init_pipeline(params, 4)
+    it = batches(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                 global_batch=4))
+    LAUNCHES.reset()
+    losses = []
+    for d in MESH_DELAYS:
+        batch = place(batch_tensors(next(it), device), b_sh, mesh)
+        params, state, pipe, m = bundle.fn(params, state, pipe, batch, d)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    return {"losses": losses, "launches": LAUNCHES.snapshot(),
+            "params": [x.float().cpu().numpy() for x in
+                       tree_util.leaves(gather(params, p_sh, mesh))]}
+
+
+def mesh_rank(rank: int, world: int, shape, axes):
+    """One rank of the four-rank rehearsal on the card (gloo, CUDA
+    tensors): the bundle run on ``shape``; on a mesh with 'pod', local
+    SGD with k from ``DsspScheduleController.period`` of
+    ``POD_SLOWDOWNS``: the pods' replicas equal bit for bit after each
+    sync and apart before it."""
+    import torch
+    from repro_torch.core.dssp_spmd import (DsspScheduleController,
+                                            cross_pod_sync, local_sgd_step)
+    from repro_torch.launch.mesh import all_gather_cat, make_mesh
+    from repro_torch.models.sharding import PartitionSpec
+    from repro_torch.perfcount import MESH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(shape, axes)
+    MESH.reset()
+    out = mesh_bundle_run(torch, mesh)
+    out["mesh"] = MESH.snapshot()
+    if rank != 0:
+        out["params"] = None
+    if "pod" not in axes:
+        return out
+    device = MESH_DEVICE
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((2, 256, 16), generator=gen, device=device)
+    y = x @ torch.randn((16, 1), generator=gen, device=device)
+    pod = mesh.get_local_rank("pod")
+    xb, yb = x[pod], y[pod]
+    group = mesh.get_group("pod")
+    drifted, synced = [], []
+
+    def train_step(w, opt_state, pipeline, batch, delay):
+        live = w.detach().requires_grad_()
+        g, = torch.autograd.grad(
+            torch.mean((batch[0] @ live - batch[1]) ** 2) / 2, live)
+        with torch.no_grad():
+            w.sub_(0.1 * g)
+        return w, opt_state, pipeline, {}
+
+    def replicas_equal(w):
+        both = all_gather_cat(w[None], group, 0)
+        return bool(torch.equal(both[0], both[1]))
+
+    def sync(w):
+        drifted.append(not replicas_equal(w))
+        w = cross_pod_sync(w, mesh, PartitionSpec("pod", None, None))
+        synced.append(replicas_equal(w))
+        return w
+
+    step = local_sgd_step(train_step, sync)
+    ctrl = DsspScheduleController(1, 4)
+    w = torch.zeros((16, 1), device=device)
+    periods = []
+    for slow in POD_SLOWDOWNS:
+        k = ctrl.period([1.0, slow])
+        periods.append(k)
+        for i in range(k):
+            w, _, _, _ = step(w, (), (), (xb, yb), 0, i == k - 1)
+    out["local_sgd"] = {"periods": periods, "drifted": drifted,
+                        "synced_equal": synced}
+    return out
+
+
+def run_mesh_phase(torch, api, spmd_rec):
+    """(a) a one-rank NCCL mesh (1, 1) on (data, model) at full width:
+    ``build_session`` with ``rules_for_mesh`` on the spmd engine, the
+    spmd phase's run (``run_spmd``) through the mesh step
+    (``launch.steps.make_train_fn``, the function ``build_train_step``
+    builds): its checks, per step the rules-free step's ``rmsnorm`` and
+    ``residual_rmsnorm`` launches and no flash attention, each step's
+    gathered parameters the stored tensors themselves (same
+    ``data_ptr``) and, from the session's start on, no collective and
+    no block copy (``perfcount.MESH``);
+    a profile of two SSP steps (idle share); then the smoke bundle on
+    that mesh, the one-rank answer for (b).  (b) four ranks sharing the
+    card over gloo on (2, 2) and on (2, 1, 2) (pod, data, model): the
+    bundle's gathered parameters within ``MESH_TOL`` of (a)'s, each
+    rank's norm launches, and local SGD's syncs and periods.  Returns
+    the launches of (a)'s full-width run."""
+    import torch.distributed as dist
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.sharding import rules_for_mesh
+    from repro_torch.perfcount import MESH
+    t0 = time.monotonic()
+    cfg = get_config("h2o-danube-1.8b")
+    # a one-rank NCCL group on an in-process store: no port to pick
+    mesh_lib.start_group(0, 1, backend="nccl")
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+        rules = rules_for_mesh(mesh, sp=cfg.sequence_parallel,
+                               role=cfg.model_axis_role)
+        per_step = {name: n for name, n in
+                    spmd_rec["launches_per_step"].items()
+                    if name in ("rmsnorm", "residual_rmsnorm")}
+        stored, seen = [], []
+        local_grads = steps_lib._local_grads
+
+        def on_start(session):
+            stored.extend(x.data_ptr() for x in
+                          tree_util.leaves(session.trainer.params))
+
+        def watched(loss_fn, params, *args):
+            # the tensors the mesh step's loss reads
+            seen.append([x.data_ptr() for x in tree_util.leaves(params)])
+            return local_grads(loss_fn, params, *args)
+
+        MESH.reset()        # placing the parameters counts too
+        steps_lib._local_grads = watched
+        try:
+            rec = run_spmd(torch, api, per_step, label="mesh",
+                           on_start=on_start, rules=rules)
+        finally:
+            steps_lib._local_grads = local_grads
+        traffic = MESH.snapshot()
+        if (len(seen) != SPMD_STEPS or any(s != stored for s in seen)
+                or any(traffic.values())):
+            fail(f"mesh: {len(seen)} mesh steps of {SPMD_STEPS}, "
+                 f"{sum(s != stored for s in seen)} computing with copies, "
+                 f"collectives and copies {traffic} on a one-rank mesh")
+        free_device_memory(torch)
+        prof = profile_step(torch, api, "mesh",
+                            spmd_spec(api, full=True, sync="ssp"),
+                            rules=rules)
+        free_device_memory(torch)
+        one = mesh_bundle_run(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    say({"phase": "mesh one-rank", "attention": rules.attn_mode,
+         "role": cfg.model_axis_role, "collectives": traffic,
+         "mesh_steps": len(seen),
+         "warm_step_s": rec["warm_step_s"],
+         "rules_free_warm_step_s": spmd_rec["warm_step_s"],
+         "max_memory_allocated_gb": rec["max_memory_allocated_gb"],
+         "rules_free_max_memory_allocated_gb":
+             spmd_rec["max_memory_allocated_gb"],
+         "max_memory_reserved_gb": rec["max_memory_reserved_gb"],
+         "idle_share": (prof or {}).get("idle_share", "not measured"),
+         "smoke_bundle_losses": one["losses"]})
+
+    # -- four ranks on the card over gloo --------------------------------
+    work = os.path.join(ROOT, "build", "mesh")
+    os.makedirs(work, exist_ok=True)
+    smoke_per_step = {"rmsnorm": 3, "residual_rmsnorm": 2}   # 2 layers
+    for shape, axes in MESH_SHAPES:
+        t1 = time.monotonic()
+        outs = mesh_lib.run_ranks(mesh_rank, MESH_RANKS, work,
+                                  args=(shape, axes),
+                                  timeout=MESH_RANK_TIMEOUT_S, threads=2)
+        err = max(float(abs(a - b).max())
+                  for a, b in zip(outs[0]["params"], one["params"]))
+        loss_err = max(abs(a - b) for out in outs
+                       for a, b in zip(out["losses"], one["losses"]))
+        rec4 = {"phase": "mesh four ranks", "mesh": dict(zip(axes, shape)),
+                "seconds": time.monotonic() - t1,
+                "max_abs_param_err": err, "max_abs_loss_err": loss_err,
+                "tol": MESH_TOL,
+                "launches": [o["launches"] for o in outs],
+                "collectives": [o["mesh"] for o in outs],
+                "local_sgd": outs[0].get("local_sgd")}
+        say(rec4)
+        if not (err <= MESH_TOL and loss_err <= MESH_TOL):
+            fail(f"mesh {shape}: parameters {err} / losses {loss_err} "
+                 f"from the one-rank run (tol {MESH_TOL})")
+        for rank, o in enumerate(outs):
+            want = {k: n * len(MESH_DELAYS)
+                    for k, n in smoke_per_step.items()}
+            got = {k: o["launches"][k] for k in want}
+            if got != want or o["launches"]["flash_attention_fwd"]:
+                fail(f"mesh {shape} rank {rank}: launches {o['launches']} "
+                     f"(want {want}, no flash attention)")
+            if not (o["mesh"]["all_gather"] and o["mesh"]["all_reduce"]):
+                fail(f"mesh {shape} rank {rank}: no collective ran "
+                     f"({o['mesh']})")
+            sgd = o.get("local_sgd")
+            if sgd is not None and not (
+                    all(sgd["synced_equal"]) and all(sgd["drifted"])
+                    and len(sgd["drifted"]) == len(POD_SLOWDOWNS)
+                    and len(set(sgd["periods"])) >= 2
+                    and all(1 <= k <= 4 for k in sgd["periods"])):
+                fail(f"mesh {shape} rank {rank}: local SGD {sgd} (at "
+                     f"least two periods, each in [1, 4])")
+    say({"phase": "mesh", "seconds": time.monotonic() - t0})
     return rec["launches"]
 
 
@@ -3017,7 +3293,12 @@ def main(argv=None) -> None:
         launches[name] += n
     mark("spmd")
     # -- the SPMD engine, its parity and the examples -----------------------
-    for name, n in run_spmd_phase(torch, api, args.src).items():
+    spmd = run_spmd_phase(torch, api, args.src)
+    for name, n in spmd["launches"].items():
+        launches[name] += n
+    mark("mesh")
+    # -- the device mesh: one rank at full width, four over gloo ----------
+    for name, n in run_mesh_phase(torch, api, spmd).items():
         launches[name] += n
 
     replaces = {

@@ -590,8 +590,10 @@ def _serve_threads(session) -> tuple:
 @register_engine("spmd")
 class SpmdSession(TrainingSession):
     """The delayed-gradient pipeline (``repro_torch.launch.train.
-    Trainer``): one process on one device, the DSSP delay re-tuned per
-    step by the Algorithm-2 controller."""
+    Trainer``): one process on one device, or with ``rules=`` (mesh rules,
+    ``models.sharding.rules_for_mesh``) one of the processes of a device
+    mesh; the DSSP delay re-tuned per step by the Algorithm-2
+    controller."""
 
     OVERRIDES = frozenset({
         "verbose", "device", "model_config", "data_config",
@@ -602,14 +604,6 @@ class SpmdSession(TrainingSession):
     trainer = None
     resumed = False
     obs_rig = None
-
-    def __init__(self, spec: RunSpec, **overrides):
-        super().__init__(spec, **overrides)
-        if overrides.get("rules") is not None:
-            raise SpecError(
-                "rules= places the run on a device mesh; the port's SPMD "
-                "engine runs on one device and has no mesh rules yet "
-                "(ROADMAP queue 1, item 11)")
 
     def _start(self) -> None:
         from repro_torch.launch.train import Trainer
@@ -628,6 +622,7 @@ class SpmdSession(TrainingSession):
             checkpoint_dir=self._ov.get("checkpoint_dir"),
             save_every=self._ov.get("save_every", 50),
             collective_time_fn=self._ov.get("collective_time_fn"),
+            rules=self._ov.get("rules"),
             staleness_damping=True if damping is None else damping,
             device=self.device)
         if self._ov.get("resume"):

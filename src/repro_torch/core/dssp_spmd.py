@@ -15,18 +15,23 @@ Theorem 2 carries over:
   and collective times into the delay ``d`` (and, for pods, the
   cross-pod period ``k``) with the paper's simulated-timestamp argmin.
 
+* **Dynamic-period cross-pod averaging** (local SGD).  Pods are the
+  paper's workers: every pod takes ``k`` local steps between cross-pod
+  averages, ``k ∈ [s_L, s_U]`` from ``DsspScheduleController.period``.
+  ``cross_pod_sync`` averages each rank's blocks over the mesh's 'pod'
+  axis (``torch.distributed``: one process per device, see
+  ``launch/mesh.py``); ``local_sgd_step`` calls it when the host says so.
+
 The ring lives on the device and is written in place (the reference's
 jitted step donates it); its ``step`` counter is an int32 0-d tensor on
-the host, so choosing a slot never waits on the device.  The mesh half
-of the reference module (``pipeline_specs``, ``cross_pod_sync``,
-``local_sgd_step``) needs a multi-device mesh and is not ported yet
-(ROADMAP queue 1, item 11).
+the host, so choosing a slot never waits on the device.  On a mesh each
+rank's ring holds its block of every gradient (``pipeline_specs``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
@@ -51,6 +56,16 @@ def init_pipeline(grads_like: Tree, depth: int) -> PipelineState:
                               device=g.device), grads_like)
     return PipelineState(buffer=buf,
                          step=torch.zeros((), dtype=torch.int32))
+
+
+def pipeline_specs(grad_specs: Tree, depth: int) -> PipelineState:
+    """Buffer shards like the gradient with an unsharded ring dim."""
+    from repro_torch.models.sharding import PartitionSpec as P
+    from repro_torch.models.sharding import is_spec
+
+    buf = tree_util.tree_map(lambda spec: P(None, *spec), grad_specs,
+                             is_leaf=is_spec)
+    return PipelineState(buffer=buf, step=P())
 
 
 def push_pop(state: PipelineState, grads: Tree, delay,
@@ -133,3 +148,45 @@ class DsspScheduleController:
         sim_slow = simulate_push_times(0.0, slow, r_max, lead=1)
         r = optimal_extra_iterations(sim_fast, sim_slow)
         return int(min(self.s_upper, max(self.s_lower, self.s_lower + r)))
+
+
+# --------------------------------------------------- cross-pod local SGD
+def cross_pod_sync(tree: Tree, mesh, specs: Tree) -> Tree:
+    """Average ``tree`` across the mesh's 'pod' axis, in place, and
+    return it.
+
+    ``tree`` holds this rank's blocks under ``specs`` (the reference's
+    ``shard_map`` in/out specs, e.g. per-pod replicas stacked on a
+    leading dim split over 'pod': each rank then holds its pod's
+    replica).  As in the reference's ``shard_map`` manual over 'pod',
+    every block is averaged with the blocks of the ranks that differ
+    from it only in the 'pod' coordinate; 'data' and 'model' blocks pass
+    through untouched.  The mean is a sum over the 'pod' sub-group and
+    one division by the pod count, so for 2 pods it is ``pmean`` bit
+    for bit ((a + b) / 2 either way round)."""
+    from repro_torch.launch.mesh import all_reduce_mean
+    from repro_torch.models.sharding import is_spec
+    n = len(tree_util.leaves(tree))
+    if len(tree_util.leaves(specs, is_leaf=is_spec)) != n:
+        raise ValueError("specs do not match the tree's leaves")
+    with torch.no_grad():
+        all_reduce_mean(tree_util.leaves(tree), ("pod",), mesh)
+    return tree
+
+
+def local_sgd_step(train_step: Callable, sync_params: Callable,
+                   ) -> Callable:
+    """Wrap a per-pod train step with conditional cross-pod averaging.
+
+    ``do_sync`` is a host bool: the host sets it every k-th step (k from
+    ``DsspScheduleController.period()``), and every rank must pass the
+    same value."""
+
+    def step(params, opt_state, pipeline, batch, delay, do_sync):
+        params, opt_state, pipeline, metrics = train_step(
+            params, opt_state, pipeline, batch, delay)
+        if do_sync:
+            params = sync_params(params)
+        return params, opt_state, pipeline, metrics
+
+    return step

@@ -1,0 +1,330 @@
+"""Device meshes over ``torch.distributed``, and the blocks each rank
+stores on one.
+
+Counterpart of ``repro/launch/mesh.py``.  One process per device: a
+mesh is a ``DeviceMesh`` with named axes over the ranks of the default
+process group (NCCL on the card, gloo on the CPU and for several ranks
+sharing one card, which NCCL refuses).  Nothing here starts a group on
+import; ``start_group`` starts one where the caller has none.
+
+  single pod:  (16, 16)        axes ('data', 'model')   = 256 ranks
+  multi pod:   (2, 16, 16)     axes ('pod', 'data', 'model') = 512 ranks
+
+Blocks.  A ``PartitionSpec`` (``models/sharding.py``) names, per tensor
+dimension, the mesh axes it is split over (a tuple: their product, the
+first axis major).  ``place`` keeps a rank's block of each leaf,
+``gather`` rebuilds whole leaves from the blocks (``all_gather`` over
+one axis at a time, the last axis first), ``all_reduce_mean`` averages
+over mesh axes.  A dimension over axes of one rank is not split, so on
+a mesh whose axes all have one rank ``place`` and ``gather`` return
+their inputs and no collective runs (``perfcount.MESH`` counts both).
+Collectives on a gloo group stage CUDA tensors through host memory.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree as tree_util
+from repro_torch.models.sharding import PartitionSpec, is_spec, \
+    mesh_axis_sizes
+from repro_torch.perfcount import MESH
+
+
+def start_group(rank: int = 0, world_size: int = 1, *, backend: str,
+                init_method: Optional[str] = None, store=None) -> None:
+    """Start the default process group: ``backend`` ('nccl' or 'gloo')
+    over ``store`` or ``init_method`` (``tcp://localhost:<port>``,
+    ``file://...``); with neither, a one-rank group on an in-process
+    store."""
+    if store is None and init_method is None:
+        if world_size != 1:
+            raise ValueError("a group of several ranks needs a store or "
+                             "an init_method")
+        store = dist.HashStore()
+    dist.init_process_group(backend, init_method=init_method, store=store,
+                            rank=rank, world_size=world_size)
+
+
+def _device_type() -> str:
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              devices: Optional[Sequence[int]] = None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the first
+    prod(shape) ranks of ``devices`` (default: every rank of the default
+    group), row-major.  Every rank of the group must call it; a rank
+    outside the mesh gets one whose ``get_coordinate()`` is None."""
+    from torch.distributed.device_mesh import DeviceMesh
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    ranks = list(devices) if devices is not None else list(range(have))
+    if len(ranks) < need:
+        raise RuntimeError(
+            f"mesh {tuple(shape)} needs {need} devices, have {len(ranks)} — "
+            "start more ranks (one process per device) or shrink the mesh")
+    if not dist.is_initialized():
+        raise RuntimeError("no default process group: call "
+                           "repro_torch.launch.mesh.start_group (or "
+                           "torch.distributed.init_process_group) first")
+    grid = torch.tensor(ranks[:need], dtype=torch.int64).reshape(tuple(shape))
+    return DeviceMesh(_device_type(), grid, mesh_dim_names=tuple(axes))
+
+
+def elastic_mesh(n_devices: int, *, model_parallel: int = 16,
+                 axes: Tuple[str, str] = ("data", "model")):
+    """Largest (data, model) mesh that fits ``n_devices`` — used by the
+    elastic-scaling path after node loss (launch/elastic.py)."""
+    mp = math.gcd(model_parallel, n_devices)
+    dp = n_devices // mp
+    return make_mesh((dp, mp), axes, devices=list(range(dp * mp)))
+
+
+# ------------------------------------------------------------ collectives
+def _gloo_staged(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` in place over ``group``."""
+    MESH.all_reduce += 1
+    if _gloo_staged(t, group):
+        host = t.cpu()
+        dist.all_reduce(host, group=group)
+        t.copy_(host)
+    else:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The blocks of ``group``'s ranks, in group-rank order, concatenated
+    along ``dim``."""
+    MESH.all_gather += 1
+    n = dist.get_world_size(group)
+    src = t.contiguous()
+    staged = _gloo_staged(src, group)
+    if staged:
+        src = src.cpu()
+    out = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(out, src, group=group)
+    cat = torch.cat(out, dim=dim)
+    return cat.to(t.device) if staged else cat
+
+
+def broadcast_int(value: int, mesh) -> int:
+    """The mesh's first rank's host int on every rank (the DSSP delay:
+    a host decision every rank must share).  Over the default group, so
+    the mesh must span it."""
+    if mesh.size() == 1:
+        return int(value)
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
+                         f"{dist.get_world_size()}")
+    MESH.broadcast += 1
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device="cuda" if _device_type() == "cuda" else "cpu")
+    dist.broadcast(t, src=int(mesh.mesh.flatten()[0]))
+    return int(t.item())
+
+
+# ------------------------------------------------------------ blocks
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _coords(mesh) -> Dict[str, int]:
+    return {name: mesh.get_local_rank(name) for name in mesh.mesh_dim_names}
+
+
+def split_dims(spec: PartitionSpec, mesh) -> Dict[int, Tuple[str, ...]]:
+    """{dimension: its mesh axes} for the dimensions ``spec`` splits into
+    more than one block on ``mesh``."""
+    sizes = mesh_axis_sizes(mesh)
+    out = {}
+    for i, entry in enumerate(spec):
+        axes = _axes(entry)
+        if math.prod(sizes[a] for a in axes) > 1:
+            out[i] = axes
+    return out
+
+
+def block_view(x: torch.Tensor, spec: PartitionSpec, mesh,
+               dims: Optional[Iterable[int]] = None) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` as a view (``dims``:
+    only those dimensions)."""
+    sizes = mesh_axis_sizes(mesh)
+    coord = None
+    for i, axes in split_dims(spec, mesh).items():
+        if dims is not None and i not in dims:
+            continue
+        coord = coord or _coords(mesh)
+        n, idx = 1, 0
+        for a in axes:
+            n *= sizes[a]
+            idx = idx * sizes[a] + coord[a]
+        if x.shape[i] % n:
+            raise ValueError(f"dimension {i} of {tuple(x.shape)} does not "
+                             f"split into {n} blocks ({spec})")
+        step = x.shape[i] // n
+        x = x.narrow(i, idx * step, step)
+    return x
+
+
+def gather_leaf(x: torch.Tensor, spec: PartitionSpec, mesh,
+                dims: Optional[Iterable[int]] = None) -> torch.Tensor:
+    """The whole of a leaf from this rank's block (``dims``: only those
+    dimensions); the block itself where nothing is split."""
+    for i, axes in split_dims(spec, mesh).items():
+        if dims is not None and i not in dims:
+            continue
+        for a in reversed(axes):
+            if mesh_axis_sizes(mesh)[a] > 1:
+                x = all_gather_cat(x, mesh.get_group(a), i)
+        MESH.block_copies += 1
+    return x
+
+
+def _spec_leaves(specs: Any) -> list:
+    return tree_util.leaves(specs, is_leaf=is_spec)
+
+
+def _zip_map(fn, tree: Any, specs: Any) -> Any:
+    flat, treedef = tree_util.flatten(tree)
+    sp = _spec_leaves(specs)
+    if len(sp) != len(flat):
+        raise ValueError(f"{len(flat)} leaves against {len(sp)} specs")
+    return tree_util.unflatten(treedef, [fn(x, s) for x, s in zip(flat, sp)])
+
+
+def place(tree: Any, specs: Any, mesh) -> Any:
+    """Each leaf's block on this rank, in storage of its own (a copy
+    only where a dimension is split: on a mesh of one rank the leaves
+    themselves)."""
+    def one(x, spec):
+        if not isinstance(x, torch.Tensor) or not split_dims(spec, mesh):
+            return x
+        MESH.block_copies += 1
+        return block_view(x, spec, mesh).clone()
+
+    return _zip_map(one, tree, specs)
+
+
+def gather(tree: Any, specs: Any, mesh) -> Any:
+    """Whole leaves from this rank's blocks (``place``'s inverse)."""
+    return _zip_map(lambda x, s: gather_leaf(x, s, mesh), tree, specs)
+
+
+def all_reduce_mean(tensors: Sequence[torch.Tensor], axes: Sequence[str],
+                    mesh) -> None:
+    """Average ``tensors`` in place over the mesh ``axes`` (a sum over
+    each axis's group, then one division by a tensor: the port divides
+    by tensors, so CUDA does an IEEE division, not a reciprocal
+    multiply)."""
+    sizes = mesh_axis_sizes(mesh)
+    live = [a for a in axes if sizes[a] > 1]
+    if not live:
+        return
+    n = math.prod(sizes[a] for a in live)
+    for t in tensors:
+        for a in live:
+            all_reduce_sum_(t, mesh.get_group(a))
+        t.div_(torch.full((), n, dtype=t.dtype, device=t.device))
+
+
+def spec_axes(spec: PartitionSpec, dim: int = 0) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` gives dimension ``dim`` (none past its
+    length)."""
+    return _axes(spec[dim]) if dim < len(spec) else ()
+
+
+# ------------------------------------------------------------ ranks
+def _rank_main(fn, rank: int, world_size: int, store_path: str,
+               args: tuple, threads: int, queue) -> None:
+    import traceback
+    torch.set_num_threads(threads)
+    try:
+        start_group(rank, world_size, backend="gloo",
+                    store=dist.FileStore(store_path, world_size))
+        queue.put((rank, True, fn(rank, world_size, *args)))
+    except Exception:
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn, world_size: int, workdir: str, *, args: tuple = (),
+              timeout: float = 120.0, threads: int = 1) -> list:
+    """``fn(rank, world_size, *args)`` in ``world_size`` spawned
+    processes on one host, each with the default group started over
+    gloo (ranks sharing one card too, which NCCL refuses; a
+    ``FileStore`` under ``workdir``, so concurrent runs never share a
+    rendezvous);
+    the results in rank order.  ``fn`` must be importable by name (a
+    module-level function) and return something picklable.  Raises
+    with the rank's traceback when one fails, and when ``timeout``
+    seconds pass first; every process is stopped either way."""
+    import multiprocessing as mp
+    import os
+    import queue as queue_mod
+    import tempfile
+    import time
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    fd, store_path = tempfile.mkstemp(prefix="rendezvous-", dir=workdir)
+    os.close(fd)
+    os.unlink(store_path)
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world_size, store_path, args,
+                               threads, results), daemon=True)
+             for r in range(world_size)]
+    for p in procs:
+        p.start()
+    out, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(out) < world_size:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{world_size} ranks did not finish in "
+                                   f"{timeout} s (done: {sorted(out)})")
+            try:
+                rank, ok, value = results.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead and results.empty():
+                    time.sleep(0.5)
+                    if results.empty():
+                        raise RuntimeError(f"a rank exited with {dead}")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{value}")
+            out[rank] = value
+    finally:
+        # after a failure the other ranks may wait in a collective for
+        # the failed one: stop them at once
+        grace = (max(1.0, deadline - time.monotonic())
+                 if len(out) == world_size else 0.0)
+        for p in procs:
+            p.join(timeout=grace)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        if os.path.exists(store_path):
+            os.unlink(store_path)
+    return [out[r] for r in range(world_size)]

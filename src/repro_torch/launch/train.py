@@ -1,8 +1,10 @@
 """End-to-end trainer: DSSP-SPMD pipeline + controller + checkpoints.
 
-Counterpart of ``repro/launch/train.py`` on one device (``cuda:0``
-unless the caller names another; ``--device cpu`` here).  The
-synchronization mode is first-class:
+Counterpart of ``repro/launch/train.py``, on one device (``cuda:0``
+unless the caller names another; ``--device cpu`` here) or, with
+``rules=`` from ``models.sharding.rules_for_mesh``, on a device mesh of
+one process per device (``launch/mesh.py``).  The synchronization mode
+is first-class:
 
     --sync bsp    the gradient applied in the step that computed it
     --sync ssp    delayed-gradient pipeline, fixed delay = max(s_lower, 1)
@@ -15,6 +17,17 @@ compression with error feedback, the gradient ring (``push_pop``) and
 the optimizer, all updating the trainer's tensors in place (the
 reference's jitted step donates them).  The step time the controller
 sees is taken after the device has finished the step.
+
+Mesh rules.  The step runs under ``use_rules(rules)``, as the
+reference's does: with a mesh installed, attention takes the mesh
+formulations and no flash kernel.  With a mesh the step is
+``launch.steps.make_train_fn``'s, the function ``build_train_step``
+builds, over this rank's blocks (``launch/steps.py``): every rank
+generates the global batch and keeps its rows, and the controller's
+delay is the mesh's first rank's, broadcast each step.  On a mesh
+whose axes all have one rank it computes with the stored tensors and
+runs no collective.  Compression and checkpoints are not wired to a
+mesh.
 
 Fault tolerance: atomic async checkpoints every ``save_every`` steps
 (params, optimizer state, DSSP ring buffer, data cursor) in the
@@ -80,11 +93,12 @@ class Trainer:
         if sync not in ("bsp", "ssp", "dssp"):
             raise ValueError(f"sync {sync!r} not trainable in SPMD mode "
                              "(asp exists in the PS layer only)")
-        if rules is not None:
-            raise ValueError(
-                "sharding rules place tensors on a device mesh; the port "
-                "trains on one device and has no mesh yet (ROADMAP queue "
-                "1, item 11)")
+        self.rules = rules
+        self.mesh = getattr(rules, "mesh", None)
+        if self.mesh is not None and (compressor != "none"
+                                      or checkpoint_dir):
+            raise ValueError("compression and checkpoints are not wired "
+                             "to a mesh; it trains without")
         self.cfg = cfg
         self.data_cfg = data_cfg
         self.sync = sync
@@ -105,6 +119,23 @@ class Trainer:
         self.loss_fn = registry.loss_fn(cfg)
 
         self.params = registry.init_params(cfg, seed=0, device=self.device)
+        self._mesh_step = None
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import place
+            from repro_torch.launch.steps import make_train_fn
+            from repro_torch.optim.optimizers import state_partition_specs
+            self.param_specs = registry.param_specs(cfg, rules)
+            self.params = place(self.params, self.param_specs, self.mesh)
+            # the rows' split decides what the gradients are averaged
+            # over; the state of a block is the block of the state (zeros)
+            rows = {"tokens": rules.spec(("batch", None),
+                                         (data_cfg.global_batch,
+                                          data_cfg.seq_len))}
+            self._mesh_step = make_train_fn(
+                self.mesh, rules, self.opt, self.loss_fn, self.param_specs,
+                state_partition_specs(self.opt, self.param_specs,
+                                      self.params),
+                rows, use_pipeline=self.use_pipeline)
         self.opt_state = self.opt.init(self.params)
         self.pipeline = (dssp_spmd.init_pipeline(self.params, s_upper + 1)
                          if self.use_pipeline else ())
@@ -123,7 +154,22 @@ class Trainer:
         jitted step): loss and backward, compression, the ring, the
         optimizer.  Updates params, optimizer state, ring and error
         state in place; returns the loss (a device scalar, not waited
-        for)."""
+        for).  On a mesh ``batch`` is the global batch, and the step the
+        mesh's (``launch/steps.py``)."""
+        if self._mesh_step is not None:
+            from repro_torch.launch.mesh import place
+            from repro_torch.launch.steps import batch_specs
+            rows = place(batch, batch_specs(self.cfg, self.rules, batch),
+                         self.mesh)
+            (self.params, self.opt_state, self.pipeline,
+             metrics) = self._mesh_step(self.params, self.opt_state,
+                                        self.pipeline, rows, delay)
+            return metrics["loss"]
+        from repro_torch.models.sharding import use_rules
+        with use_rules(self.rules):
+            return self._step(batch, delay)
+
+    def _step(self, batch, delay: int) -> torch.Tensor:
         leaves, treedef = tree_util.flatten(self.params)
         live = [x.detach().requires_grad_() for x in leaves]
         loss, _ = self.loss_fn(tree_util.unflatten(treedef, live), batch)
@@ -179,6 +225,9 @@ class Trainer:
                 delay = max(self.s_lower, 1)
             else:
                 delay = 0
+            if self._mesh_step is not None:
+                from repro_torch.launch.mesh import broadcast_int
+                delay = broadcast_int(delay, self.mesh)
             t_tr = TRACE.now() if TRACE.enabled else 0.0
             t0 = time.monotonic()
             loss = self.step(batch, delay)

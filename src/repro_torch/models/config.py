@@ -3,7 +3,7 @@
 A field-for-field copy of the reference package's ``ModelConfig``, so a
 config means the same thing on both sides.  The port reads every
 family's fields; the reference's mesh-sharding knobs are kept so
-configs stay identical and the SPMD slice can use them.
+configs stay identical; the mesh step builders read them.
 """
 
 from __future__ import annotations
@@ -59,9 +59,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     remat: str = "full"                   # none | full (per-layer recompute)
-    # the reference's chunking knobs (the port reads attn_chunk for
-    # attention over explicit masks, moe_chunk and mamba_chunk) and mesh
-    # knobs (not read by the port yet)
+    # the reference's chunking knobs (attn_chunk: attention over explicit
+    # masks and on a mesh; moe_chunk, mamba_chunk) and mesh knobs
+    # (model_axis_role, sequence_parallel, grad_accum, decode_batch_shard:
+    # read by launch/steps.py and the rules it builds)
     attn_chunk: int = 512
     moe_chunk: int = 256
     mamba_chunk: int = 128

@@ -18,8 +18,7 @@ Serving: ``prefill_cross_kv`` computes every decoder layer's cross K/V
 once from the encoder output; ``forward_decode`` decodes one token over
 a self-attention KV ring cache, updated in place.  The serving engine
 refuses the audio family in both packages (its prompts are tokens, not
-frames).  The reference's ``cache_specs`` places the cache on a mesh; it
-comes with the device mesh (ROADMAP queue 1, item 11).
+frames).  ``cache_specs`` places the cache on a mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, torch_dtype
+from repro_torch.models.sharding import remat_contexts
 
 
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -55,10 +55,10 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     return {
         "embed": ParamDef((cfg.padded_vocab, d), init="embed",
-                          fan_in_dims=(1,)),
+                          fan_in_dims=(1,), axes=("model", "fsdp")),
         # sized for the reference's largest decode shape (32k); real
         # whisper caps at 448
-        "pos_embed": ParamDef((32768, d), scale=0.02),
+        "pos_embed": ParamDef((32768, d), scale=0.02, axes=(None, "fsdp")),
         "encoder": enc_layer,
         "enc_final": T._unstack_norm(cfg),
         "decoder": dec_layer,
@@ -124,7 +124,8 @@ def _run(cfg: ModelConfig, body, x: torch.Tensor, layer_params: Any,
     """``body`` over the stacked layers, checkpointed under remat."""
     for w in T.layer_weights(layer_params, n):
         if cfg.remat == "full":
-            x = checkpoint(body, cfg, x, w, *extra, use_reentrant=False)
+            x = checkpoint(body, cfg, x, w, *extra, use_reentrant=False,
+                           context_fn=remat_contexts)
         else:
             x = body(cfg, x, w, *extra)
     return x
@@ -176,6 +177,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, enc_len: int,
     return {name: torch.zeros(shape(s), dtype=dt, device=device)
             for name, s in (("self_k", max_seq), ("self_v", max_seq),
                             ("cross_k", enc_len), ("cross_v", enc_len))}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int, enc_len: int,
+                rules) -> Dict[str, Any]:
+    """The cache's ``PartitionSpec``s: batch over the data axes, the
+    sequence over ``cache_seq`` (``rules=None``: replicated)."""
+    from repro_torch.models.sharding import PartitionSpec as P
+    nd = cfg.n_layers
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    axes = (None, "batch", "cache_seq", None, None)
+
+    def spec(s):
+        return P() if rules is None else rules.spec(axes, s)
+
+    return {
+        "self_k": spec((nd, batch, max_seq, hkv, hd)),
+        "self_v": spec((nd, batch, max_seq, hkv, hd)),
+        "cross_k": spec((nd, batch, enc_len, hkv, hd)),
+        "cross_v": spec((nd, batch, enc_len, hkv, hd)),
+    }
 
 
 def prefill_cross_kv(cfg: ModelConfig, params: Dict[str, Any],

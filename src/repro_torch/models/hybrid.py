@@ -18,9 +18,8 @@ checkpoints already does.
 Decode (``init_state``, ``forward_decode``) is the reference's: one
 token through every group, the attention slot over its KV cache and
 each Mamba slot one recurrence step (``ssm.mamba_decode``), the state
-updated in place and returned.  The reference's ``state_specs`` places
-the state on a mesh; it comes with the device mesh (ROADMAP queue 1,
-item 11).
+updated in place and returned.  ``state_specs`` places the state on a
+mesh.
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, torch_dtype
+from repro_torch.models.sharding import remat_contexts
 
 
 def _slot_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -70,13 +70,13 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
         slots.append(slot)
     defs: Dict[str, Any] = {
         "embed": ParamDef((cfg.padded_vocab, cfg.d_model), init="embed",
-                          fan_in_dims=(1,)),
+                          fan_in_dims=(1,), axes=("model", "fsdp")),
         "final_norm": {"scale": ParamDef((cfg.d_model,), init="ones")},
         "slots": tuple(slots),
     }
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((cfg.padded_vocab, cfg.d_model),
-                                   fan_in_dims=(1,))
+                                   fan_in_dims=(1,), axes=("model", "fsdp"))
     return defs
 
 
@@ -111,7 +111,8 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
         for (mixer, ffn), ws in zip(kinds, per_slot):
             if cfg.remat == "full":
                 x, aux = checkpoint(_slot_body, cfg, mixer, ffn, x, ws[g],
-                                    use_reentrant=False)
+                                    use_reentrant=False,
+                                    context_fn=remat_contexts)
             else:
                 x, aux = _slot_body(cfg, mixer, ffn, x, ws[g])
             aux_total = aux_total + aux
@@ -140,6 +141,31 @@ def init_state(cfg: ModelConfig, batch: int, max_seq: int,
                                  di), dtype=dt, device=device),
             "h": torch.zeros((groups, period - 1, batch, di, cfg.d_state),
                              dtype=torch.float32, device=device),
+        },
+    }
+
+
+def state_specs(cfg: ModelConfig, batch: int, max_seq: int, rules):
+    """The decode state's ``PartitionSpec``s (``rules=None``:
+    replicated)."""
+    from repro_torch.models.sharding import PartitionSpec as P
+    period = cfg.attn_period or 1
+    groups = cfg.n_layers // period
+    di = cfg.expand * cfg.d_model
+    hd = cfg.resolved_head_dim
+
+    def spec(axes, shape):
+        return P() if rules is None else rules.spec(axes, shape)
+
+    kv_shape = (groups, batch, max_seq, cfg.n_kv_heads, hd)
+    kv = spec((None, "batch", "cache_seq", None, None), kv_shape)
+    return {
+        "kv": {"k": kv, "v": kv},
+        "mamba": {
+            "conv": spec((None, None, "batch", None, "model"),
+                         (groups, period - 1, batch, cfg.d_conv - 1, di)),
+            "h": spec((None, None, "batch", "model", None),
+                      (groups, period - 1, batch, di, cfg.d_state)),
         },
     }
 

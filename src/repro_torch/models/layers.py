@@ -1,13 +1,13 @@
 """Shared neural building blocks.
 
-Counterpart of ``repro/models/layers.py`` on one device: the worker-step
-hot ops (attention, RMSNorm, fused residual+RMSNorm) route through
+Counterpart of ``repro/models/layers.py``: the worker-step hot ops
+(attention, RMSNorm, fused residual+RMSNorm) route through
 ``repro_torch.kernels.registry`` by ``cfg.kernels``; the projections and
 the MLP products stay ``torch.matmul``, as the reference leaves them to
 XLA.  So do one-token decode attention over a KV cache
 (``_attention_grouped``), attention over an explicit mask
-(``masked_attention``: Whisper's), LayerNorm and the GELU MLP, which the
-reference computes in XLA too.
+(``masked_attention``: Whisper's, and every attention on a mesh),
+LayerNorm and the GELU MLP, which the reference computes in XLA too.
 
 Conventions:
   activations   (batch, seq, d_model)                 bf16/f32
@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import registry as K
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import has_mesh, sp_mode
 
 NEG_INF = -1e30  # large-but-finite: -inf breaks softmax rows that are fully masked
 
@@ -132,14 +133,29 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               window: Optional[int] = None) -> torch.Tensor:
     """Grouped-query attention with the structured mask
     ``causal_window_mask(lq, lk, q_offset=lk-lq, window=window)``:
-    q (b, lq, hq, d); k/v (b, lk, hkv, d) -> (b, lq, hq, d), through the
-    kernel registry.
+    q (b, lq, hq, d); k/v (b, lk, hkv, d) -> (b, lq, hq, d).
+
+    Without a mesh, through the kernel registry (the flash kernel or its
+    plain version, by ``cfg.kernels``).  With mesh rules installed
+    (``sharding.use_rules``), the reference's mesh formulations in plain
+    PyTorch, as the reference computes them in XLA
+    (``masked_attention``): sequence-parallel rules take the grouped
+    form, tensor-parallel ones the head-broadcast form in query chunks
+    of ``cfg.attn_chunk``.  No flash kernel runs on a mesh, in either
+    package.
 
     Decode runs the reference's lq == 1 path, ``_attention_grouped``
     over the cache's slot-validity mask (``decode_attention_block``):
     that mask is a ring's, not the causal structure, so it never reaches
-    the flash kernel.  The mesh-sharded SP/TP formulations come with the
-    SPMD slice."""
+    the flash kernel."""
+    if has_mesh():
+        lq, lk = q.shape[1], k.shape[1]
+        if causal:
+            mask = causal_window_mask(lq, lk, q_offset=lk - lq,
+                                      window=window, device=q.device)
+        else:
+            mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+        return masked_attention(cfg, q, k, v, mask)
     return K.attention(q, k, v, causal=causal, window=window,
                        kernels=cfg.kernels)
 
@@ -167,17 +183,20 @@ def masked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Attention over an explicit (lq, lk) mask (True = attend), as the
     reference computes it when no causal structure is asserted (the
-    encoder-decoder's self- and cross-attention): it never reaches the
-    kernel registry.  q (b, lq, hq, d); k/v (b, lk, hkv, d).
+    encoder-decoder's self- and cross-attention) or a mesh is installed:
+    it never reaches the kernel registry.  q (b, lq, hq, d); k/v
+    (b, lk, hkv, d).
 
-    One query (decode) takes the grouped form; otherwise k and v are
-    broadcast to hq heads and, when ``cfg.attn_chunk`` divides lq into
-    more than one chunk, the queries go in chunks of that many rows:
-    the same rows, with the score block bounded to (chunk x lk)."""
+    One query (decode), or sequence-parallel rules (the reference's SP
+    mode: heads unsharded, queries seq-sharded), take the grouped form;
+    otherwise (TP mode) k and v are broadcast to hq heads and, when
+    ``cfg.attn_chunk`` divides lq into more than one chunk, the queries
+    go in chunks of that many rows: the same rows, with the score block
+    bounded to (chunk x lk) — not an online softmax."""
     b, lq, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    if lq == 1:
+    if lq == 1 or sp_mode():
         out = _attention_grouped(q.reshape(b, lq, hkv, g, d), k, v, mask)
         return out.reshape(b, lq, hq, d)
     if g > 1:

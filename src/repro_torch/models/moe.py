@@ -31,16 +31,23 @@ def moe_defs(cfg: ModelConfig, n: int) -> Dict[str, ParamDef]:
     f = m.d_expert or cfg.d_ff
     e = m.n_experts
     defs: Dict[str, ParamDef] = {
-        "router": ParamDef((n, d, e), fan_in_dims=(1,)),
-        "w_gate": ParamDef((n, e, d, f), fan_in_dims=(2,)),
-        "w_up": ParamDef((n, e, d, f), fan_in_dims=(2,)),
-        "w_down": ParamDef((n, e, f, d), fan_in_dims=(2,)),
+        "router": ParamDef((n, d, e), fan_in_dims=(1,),
+                           axes=(None, "fsdp", None)),
+        "w_gate": ParamDef((n, e, d, f), fan_in_dims=(2,),
+                           axes=(None, "model", "fsdp", None)),
+        "w_up": ParamDef((n, e, d, f), fan_in_dims=(2,),
+                         axes=(None, "model", "fsdp", None)),
+        "w_down": ParamDef((n, e, f, d), fan_in_dims=(2,),
+                           axes=(None, "model", None, "fsdp")),
     }
     if m.n_shared:
         fs = f * m.n_shared
-        defs["shared_gate"] = ParamDef((n, d, fs), fan_in_dims=(1,))
-        defs["shared_up"] = ParamDef((n, d, fs), fan_in_dims=(1,))
-        defs["shared_down"] = ParamDef((n, fs, d), fan_in_dims=(1,))
+        defs["shared_gate"] = ParamDef((n, d, fs), fan_in_dims=(1,),
+                                       axes=(None, "fsdp", "model"))
+        defs["shared_up"] = ParamDef((n, d, fs), fan_in_dims=(1,),
+                                     axes=(None, "fsdp", "model"))
+        defs["shared_down"] = ParamDef((n, fs, d), fan_in_dims=(1,),
+                                       axes=(None, "model", "fsdp"))
     return defs
 
 

@@ -1,9 +1,16 @@
 """Declarative parameter trees.
 
 Each architecture declares its weights once as a tree (nested dicts) of
-``ParamDef`` (shape + initializer).  ``init_tree`` materializes it with a
-``torch.Generator``; ``count`` gives exact parameter counts.  The port
-runs on one device, so a ``ParamDef`` carries no sharding axes.
+``ParamDef`` (shape + logical sharding axes + initializer).  From that
+one declaration:
+
+  * ``init_tree``  — random tensors from a ``torch.Generator``,
+  * ``spec_tree``  — the ``PartitionSpec`` of every leaf under a rule
+    set (size-aware: non-dividing mappings drop, see sharding.py), the
+    block each rank of a mesh stores,
+  * ``sds_tree``   — shapes and dtypes as ``meta`` tensors (no memory
+    behind them, at any model size),
+  * ``count``      — exact parameter counts.
 
 ``from_numpy_tree`` carries the reference package's parameters across:
 the same nested dict, names, shapes and stacked-layer axis, so the
@@ -37,6 +44,12 @@ class ParamDef:
     scale: float = 1.0                    # stddev multiplier for 'normal'
     fan_in_dims: Tuple[int, ...] = ()     # dims whose product is fan-in
     dtype: Optional[str] = None           # override model dtype
+    axes: Tuple[Optional[str], ...] = ()  # logical axis per dim (the
+    #                                       reference's); () = replicated
+
+    def __post_init__(self):
+        if self.axes and len(self.shape) != len(self.axes):
+            raise ValueError(f"rank mismatch {self.shape} vs {self.axes}")
 
     def stddev(self) -> float:
         fan_in = 1
@@ -62,6 +75,27 @@ def init_tree(defs: Any, generator: torch.Generator, default_dtype: str,
         raise ValueError(f"unknown init {d.init!r}")
 
     return tree_util.tree_map(make, defs)
+
+
+def spec_tree(defs: Any, rules) -> Any:
+    """Each leaf's ``PartitionSpec`` under ``rules`` (``None``: every
+    leaf replicated)."""
+    from repro_torch.models.sharding import PartitionSpec
+
+    def spec(d: ParamDef):
+        if rules is None:
+            return PartitionSpec()
+        return rules.spec(d.axes or (None,) * len(d.shape), d.shape)
+
+    return tree_util.tree_map(spec, defs)
+
+
+def sds_tree(defs: Any, default_dtype: str) -> Any:
+    """Each leaf's shape and dtype as a ``meta`` tensor."""
+    return tree_util.tree_map(
+        lambda d: torch.empty(d.shape, device="meta",
+                              dtype=torch_dtype(d.dtype or default_dtype)),
+        defs)
 
 
 def count(defs: Any) -> int:

@@ -8,8 +8,8 @@ Counterpart of ``repro/models/registry.py``, every family of it:
   hybrid            -> hybrid.py      (jamba)
   audio             -> encdec.py      (whisper backbone, stub frontend)
 
-The reference's ``state_specs`` (decode state on a mesh) comes with
-ROADMAP queue 1, item 11.
+``state_specs`` gives each family's decode state its placement on a
+mesh, as the reference's does.
 """
 
 from __future__ import annotations
@@ -36,6 +36,9 @@ class Family:
     #: ``(cfg, batch, max_seq, device=None) -> state`` (the audio
     #: family's also takes the encoder length, as the reference's)
     init_state: Optional[Callable[..., Any]] = None
+    #: ``(cfg, batch, max_seq, rules) -> PartitionSpec tree`` of the
+    #: decode state (the audio family's also takes the encoder length)
+    state_specs: Optional[Callable[..., Any]] = None
 
 
 def _ssm_loss(cfg: ModelConfig, params, batch):
@@ -60,19 +63,47 @@ def _lm_init_state(cfg: ModelConfig, batch: int, max_seq: int,
     return transformer.init_cache(cfg, batch, max_seq, device=device)
 
 
+def _lm_state_specs(cfg: ModelConfig, batch: int, max_seq: int, rules):
+    return transformer.cache_specs(cfg, batch, max_seq, rules)
+
+
+def _ssm_state_specs(cfg: ModelConfig, batch: int, max_seq: int, rules):
+    from repro_torch import tree as tree_util
+    from repro_torch.models.sharding import PartitionSpec
+    state = ssm.xlstm_init_state(cfg, batch, device="meta")
+
+    def leaf_spec(x):
+        if rules is None:
+            return PartitionSpec()
+        # (layer, batch, heads, [hd, [hd]]): batch over DP axes; the
+        # per-head state dim over 'model' where it divides (192/16 ok)
+        axes = [None] * x.dim()
+        if x.dim() >= 2:
+            axes[1] = "batch"
+        if x.dim() >= 4:
+            axes[3] = "model"
+        return rules.spec(axes, x.shape)
+
+    return tree_util.tree_map(leaf_spec, state)
+
+
+def _hybrid_state_specs(cfg: ModelConfig, batch: int, max_seq: int, rules):
+    return hybrid.state_specs(cfg, batch, max_seq, rules)
+
+
 _LM = Family(transformer.param_defs, transformer.loss_fn,
-             transformer.forward_decode, _lm_init_state)
+             transformer.forward_decode, _lm_init_state, _lm_state_specs)
 
 FAMILIES: Dict[str, Family] = {
     "dense": _LM,
     "moe": _LM,
     "vlm": _LM,
     "ssm": Family(ssm.xlstm_param_defs, _ssm_loss, ssm.xlstm_decode,
-                  ssm.xlstm_init_state),
+                  ssm.xlstm_init_state, _ssm_state_specs),
     "hybrid": Family(hybrid.param_defs, _hybrid_loss, hybrid.forward_decode,
-                     hybrid.init_state),
+                     hybrid.init_state, _hybrid_state_specs),
     "audio": Family(encdec.param_defs, _encdec_loss, encdec.forward_decode,
-                    encdec.init_cache),
+                    encdec.init_cache, encdec.cache_specs),
 }
 
 
@@ -97,11 +128,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Any:
 def abstract_params(cfg: ModelConfig) -> Any:
     """The parameter tree's shapes and dtypes as ``meta`` tensors: what
     a shard plan needs, with no memory behind it."""
-    from repro_torch import tree as tree_util
-    return tree_util.tree_map(
-        lambda d: torch.empty(d.shape, device="meta",
-                              dtype=P.torch_dtype(d.dtype or cfg.dtype)),
-        param_defs(cfg))
+    return P.sds_tree(param_defs(cfg), cfg.dtype)
+
+
+def param_specs(cfg: ModelConfig, rules) -> Any:
+    return P.spec_tree(param_defs(cfg), rules)
+
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:

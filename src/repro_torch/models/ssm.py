@@ -43,6 +43,7 @@ from repro_torch.kernels import registry as K
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, torch_dtype
+from repro_torch.models.sharding import remat_contexts
 from repro_torch.models.transformer import layer_weights
 
 
@@ -52,15 +53,21 @@ def mamba_defs(cfg: ModelConfig, n: int) -> Dict[str, ParamDef]:
     ds = cfg.d_state
     dt_rank = max(1, d // 16)
     return {
-        "w_in": ParamDef((n, d, 2 * di), fan_in_dims=(1,)),
-        "conv_w": ParamDef((n, cfg.d_conv, di), scale=1.0, fan_in_dims=(1,)),
-        "conv_b": ParamDef((n, di), init="zeros"),
-        "w_bcdt": ParamDef((n, di, 2 * ds + dt_rank), fan_in_dims=(1,)),
-        "dt_proj": ParamDef((n, dt_rank, di), fan_in_dims=(1,)),
-        "dt_bias": ParamDef((n, di), init="zeros"),
-        "a_log": ParamDef((n, di, ds), init="ones"),
-        "d_skip": ParamDef((n, di), init="ones"),
-        "w_out": ParamDef((n, di, d), fan_in_dims=(1,)),
+        "w_in": ParamDef((n, d, 2 * di), fan_in_dims=(1,),
+                         axes=(None, "fsdp", "model")),
+        "conv_w": ParamDef((n, cfg.d_conv, di), scale=1.0, fan_in_dims=(1,),
+                           axes=(None, None, "model")),
+        "conv_b": ParamDef((n, di), init="zeros", axes=(None, "model")),
+        "w_bcdt": ParamDef((n, di, 2 * ds + dt_rank), fan_in_dims=(1,),
+                           axes=(None, "model", None)),
+        "dt_proj": ParamDef((n, dt_rank, di), fan_in_dims=(1,),
+                            axes=(None, None, "model")),
+        "dt_bias": ParamDef((n, di), init="zeros", axes=(None, "model")),
+        "a_log": ParamDef((n, di, ds), init="ones",
+                          axes=(None, "model", None)),
+        "d_skip": ParamDef((n, di), init="ones", axes=(None, "model")),
+        "w_out": ParamDef((n, di, d), fan_in_dims=(1,),
+                          axes=(None, "model", "fsdp")),
     }
 
 
@@ -160,13 +167,19 @@ def mlstm_defs(cfg: ModelConfig, n: int) -> Dict[str, ParamDef]:
     h = cfg.n_heads
     hd = d // h
     return {
-        "w_in": ParamDef((n, d, 2 * d), fan_in_dims=(1,)),  # x + gate
-        "wq": ParamDef((n, d, h, hd), fan_in_dims=(1,)),
-        "wk": ParamDef((n, d, h, hd), fan_in_dims=(1,)),
-        "wv": ParamDef((n, d, h, hd), fan_in_dims=(1,)),
-        "w_if": ParamDef((n, d, 2 * h), fan_in_dims=(1,)),  # input+forget
+        "w_in": ParamDef((n, d, 2 * d), fan_in_dims=(1,),  # x + gate
+                         axes=(None, "fsdp", "model")),
+        "wq": ParamDef((n, d, h, hd), fan_in_dims=(1,),
+                       axes=(None, "fsdp", "model", None)),
+        "wk": ParamDef((n, d, h, hd), fan_in_dims=(1,),
+                       axes=(None, "fsdp", "model", None)),
+        "wv": ParamDef((n, d, h, hd), fan_in_dims=(1,),
+                       axes=(None, "fsdp", "model", None)),
+        "w_if": ParamDef((n, d, 2 * h), fan_in_dims=(1,),  # input+forget
+                         axes=(None, "fsdp", None)),
         "b_if": ParamDef((n, 2 * h), init="zeros"),
-        "w_out": ParamDef((n, d, d), fan_in_dims=(1,)),
+        "w_out": ParamDef((n, d, d), fan_in_dims=(1,),
+                          axes=(None, "model", "fsdp")),
     }
 
 
@@ -251,10 +264,13 @@ def slstm_defs(cfg: ModelConfig, n: int) -> Dict[str, ParamDef]:
     h = cfg.n_heads
     return {
         # 4 gates (z, i, f, o), input + per-head recurrent weights
-        "w_x": ParamDef((n, d, 4 * d), fan_in_dims=(1,)),
-        "w_h": ParamDef((n, h, d // h, 4 * d // h), fan_in_dims=(2,)),
-        "bias": ParamDef((n, 4 * d), init="zeros"),
-        "w_out": ParamDef((n, d, d), fan_in_dims=(1,)),
+        "w_x": ParamDef((n, d, 4 * d), fan_in_dims=(1,),
+                        axes=(None, "fsdp", "model")),
+        "w_h": ParamDef((n, h, d // h, 4 * d // h), fan_in_dims=(2,),
+                        axes=(None, "model", None, None)),
+        "bias": ParamDef((n, 4 * d), init="zeros", axes=(None, "model")),
+        "w_out": ParamDef((n, d, d), fan_in_dims=(1,),
+                          axes=(None, "model", "fsdp")),
     }
 
 
@@ -379,7 +395,7 @@ def xlstm_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
     defs: Dict[str, Any] = {
         "embed": ParamDef((cfg.padded_vocab, d), init="embed",
-                          fan_in_dims=(1,)),
+                          fan_in_dims=(1,), axes=("model", "fsdp")),
         "final_norm": {"scale": ParamDef((d,), init="ones")},
         "mlstm": mlstm_defs(cfg, n_m),
         "mlstm_norm": {"scale": ParamDef((n_m, d), init="ones")},
@@ -388,7 +404,8 @@ def xlstm_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
         defs["slstm"] = slstm_defs(cfg, n_s)
         defs["slstm_norm"] = {"scale": ParamDef((n_s, d), init="ones")}
     if not cfg.tie_embeddings:
-        defs["unembed"] = ParamDef((cfg.padded_vocab, d), fan_in_dims=(1,))
+        defs["unembed"] = ParamDef((cfg.padded_vocab, d), fan_in_dims=(1,),
+                                   axes=("model", "fsdp"))
     return defs
 
 
@@ -433,7 +450,7 @@ def xlstm_forward(cfg: ModelConfig, params: Dict[str, Any],
     for kind, _, w, nrm in _xlstm_weights(cfg, params):
         if cfg.remat == "full":
             x = checkpoint(_xlstm_layer, cfg, kind, x, w, nrm,
-                           use_reentrant=False)
+                           use_reentrant=False, context_fn=remat_contexts)
         else:
             x = _xlstm_layer(cfg, kind, x, w, nrm)
     x = L.rms_norm(x, params["final_norm"]["scale"], kernels=cfg.kernels)

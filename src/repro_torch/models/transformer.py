@@ -18,8 +18,7 @@ reference's scan body.
 Serving (``forward_prefill``, ``init_cache``, ``forward_decode``) is the
 reference's, with one difference of form: decode updates the cache
 tensors in place and returns the same dict (the reference's scan
-returns new arrays).  The reference's ``cache_specs`` places the cache
-on a mesh; it comes with the device mesh (ROADMAP queue 1, item 11).
+returns new arrays).  ``cache_specs`` places the cache on a mesh.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, torch_dtype
+from repro_torch.models.sharding import remat_contexts
 
 
 # --------------------------------------------------------------- param defs
@@ -41,15 +41,22 @@ def attn_defs(cfg: ModelConfig, n: int) -> Dict[str, ParamDef]:
     d, hq, hkv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                       cfg.resolved_head_dim)
     defs: Dict[str, ParamDef] = {
-        "wq": ParamDef((n, d, hq, hd), fan_in_dims=(1,)),
-        "wk": ParamDef((n, d, hkv, hd), fan_in_dims=(1,)),
-        "wv": ParamDef((n, d, hkv, hd), fan_in_dims=(1,)),
-        "wo": ParamDef((n, hq, hd, d), fan_in_dims=(1, 2)),
+        "wq": ParamDef((n, d, hq, hd), fan_in_dims=(1,),
+                       axes=(None, "fsdp", "heads", None)),
+        "wk": ParamDef((n, d, hkv, hd), fan_in_dims=(1,),
+                       axes=(None, "fsdp", "kv_heads", None)),
+        "wv": ParamDef((n, d, hkv, hd), fan_in_dims=(1,),
+                       axes=(None, "fsdp", "kv_heads", None)),
+        "wo": ParamDef((n, hq, hd, d), fan_in_dims=(1, 2),
+                       axes=(None, "heads", None, "fsdp")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((n, hq, hd), init="zeros")
-        defs["bk"] = ParamDef((n, hkv, hd), init="zeros")
-        defs["bv"] = ParamDef((n, hkv, hd), init="zeros")
+        defs["bq"] = ParamDef((n, hq, hd), init="zeros",
+                              axes=(None, "heads", None))
+        defs["bk"] = ParamDef((n, hkv, hd), init="zeros",
+                              axes=(None, "kv_heads", None))
+        defs["bv"] = ParamDef((n, hkv, hd), init="zeros",
+                              axes=(None, "kv_heads", None))
     if cfg.qk_norm:
         defs["q_norm"] = ParamDef((n, hd), init="ones")
         defs["k_norm"] = ParamDef((n, hd), init="ones")
@@ -60,14 +67,19 @@ def mlp_defs(cfg: ModelConfig, n: int) -> Dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act == "silu":
         return {
-            "w_gate": ParamDef((n, d, f), fan_in_dims=(1,)),
-            "w_up": ParamDef((n, d, f), fan_in_dims=(1,)),
-            "w_down": ParamDef((n, f, d), fan_in_dims=(1,)),
+            "w_gate": ParamDef((n, d, f), fan_in_dims=(1,),
+                               axes=(None, "fsdp", "model")),
+            "w_up": ParamDef((n, d, f), fan_in_dims=(1,),
+                             axes=(None, "fsdp", "model")),
+            "w_down": ParamDef((n, f, d), fan_in_dims=(1,),
+                               axes=(None, "model", "fsdp")),
         }
     return {
-        "w_up": ParamDef((n, d, f), fan_in_dims=(1,)),
-        "b_up": ParamDef((n, f), init="zeros"),
-        "w_down": ParamDef((n, f, d), fan_in_dims=(1,)),
+        "w_up": ParamDef((n, d, f), fan_in_dims=(1,),
+                         axes=(None, "fsdp", "model")),
+        "b_up": ParamDef((n, f), init="zeros", axes=(None, "model")),
+        "w_down": ParamDef((n, f, d), fan_in_dims=(1,),
+                           axes=(None, "model", "fsdp")),
         "b_down": ParamDef((n, d), init="zeros"),
     }
 
@@ -93,13 +105,13 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
         layer["mlp"] = mlp_defs(cfg, n)
     defs: Dict[str, Any] = {
         "embed": ParamDef((cfg.padded_vocab, cfg.d_model), init="embed",
-                          fan_in_dims=(1,)),
+                          fan_in_dims=(1,), axes=("model", "fsdp")),
         "final_norm": _unstack_norm(cfg),
         "layers": layer,
     }
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((cfg.padded_vocab, cfg.d_model),
-                                   fan_in_dims=(1,))
+                                   fan_in_dims=(1,), axes=("model", "fsdp"))
     return defs
 
 
@@ -161,7 +173,8 @@ def forward(cfg: ModelConfig, params: Dict[str, Any],
             # the checkpointed layer returns its aux too, so the aux
             # loss's gradient flows through the recompute
             x, aux = checkpoint(_layer, cfg, x, w, cos, sin,
-                                use_reentrant=False)
+                                use_reentrant=False,
+                                context_fn=remat_contexts)
         else:
             x, aux = _layer(cfg, x, w, cos, sin)
         if aux is not None:
@@ -234,6 +247,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None
     dt = torch_dtype(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int, rules,
+                dtype=None) -> Dict[str, Any]:
+    """The cache's ``PartitionSpec``s: batch over the data axes, the
+    sequence over ``cache_seq`` (``rules=None``: replicated)."""
+    from repro_torch.models.sharding import PartitionSpec as P
+    if cfg.sliding_window is not None:
+        max_seq = min(max_seq, cfg.sliding_window)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    axes = (None, "batch", "cache_seq", None, None)
+    spec = P() if rules is None else rules.spec(axes, shape)
+    out = {"k": spec, "v": spec}
+    if cfg.kv_cache_dtype == "int8":
+        sspec = (P() if rules is None
+                 else rules.spec(axes[:-1], shape[:-1]))
+        out["k_scale"] = sspec
+        out["v_scale"] = sspec
+    return out
 
 
 def forward_decode(cfg: ModelConfig, params: Dict[str, Any],

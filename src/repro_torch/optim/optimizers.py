@@ -261,3 +261,47 @@ def make_optimizer(name: str, lr: float = 1e-3, **kw) -> Optimizer:
     if name == "adafactor":
         return adafactor(lr, **kw)
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+# ---------------------------------------------------------- sharding specs
+def state_partition_specs(opt: Optimizer, param_specs: Any,
+                          param_sds: Any) -> Any:
+    """PartitionSpec tree for ``opt``'s state, derived from the params'
+    specs (optimizer state shards exactly like its parameter; factored
+    Adafactor moments inherit the surviving dims' spec).  ``param_sds``
+    gives the ranks (tensors, ``meta`` ones included)."""
+    from repro_torch.models.sharding import PartitionSpec as P
+    from repro_torch.models.sharding import is_spec
+
+    def norm(spec, rank):
+        dims = list(spec) + [None] * (rank - len(spec))
+        return dims[:rank]
+
+    if opt.name in ("sgd",):
+        return ()
+    if opt.name == "momentum":
+        return param_specs
+    if opt.name == "adamw":
+        return AdamState(mu=param_specs, nu=param_specs, count=P())
+
+    if opt.name == "adafactor":
+        flat_specs = tree_util.leaves(param_specs, is_leaf=is_spec)
+        flat_sds, tdef = tree_util.flatten(param_sds)
+
+        rows, cols, fulls = [], [], []
+        for spec, sds in zip(flat_specs, flat_sds):
+            rank = len(sds.shape)
+            dims = norm(spec, rank)
+            if rank < 2:
+                rows.append(P())
+                cols.append(P())
+                fulls.append(P(*dims))
+            else:
+                rows.append(P(*dims[:-1]))
+                cols.append(P(*(dims[:-2] + [dims[-1]])))
+                fulls.append(P())
+        return AdafactorState(v_row=tree_util.unflatten(tdef, rows),
+                              v_col=tree_util.unflatten(tdef, cols),
+                              v_full=tree_util.unflatten(tdef, fulls),
+                              count=P())
+    raise ValueError(f"no spec rule for optimizer {opt.name!r}")

@@ -95,11 +95,25 @@ class TransportCounters(_CounterBase):
     header_rejects: int = 0
 
 
+@dataclasses.dataclass
+class MeshCounters(_CounterBase):
+    """The device mesh's traffic (``repro_torch.launch.mesh``): the
+    collectives launched on sub-groups of more than one rank, and the
+    tensors that placing or gathering a block allocated.  A mesh whose
+    axes all have one rank leaves every field at 0."""
+
+    all_reduce: int = 0
+    all_gather: int = 0
+    broadcast: int = 0
+    block_copies: int = 0
+
+
 #: Process-global counters — reset + snapshot around the region of
 #: interest.
 WIRE = HotPathCounters()
 LAUNCHES = KernelLaunches()
 TRANSPORT = TransportCounters()
+MESH = MeshCounters()
 
 
 def snapshot_all() -> Dict[str, Dict[str, int]]:

@@ -12,7 +12,7 @@ state), as ``jax.tree_util`` visits them.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 Tree = Any
 
@@ -21,31 +21,38 @@ def is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def _walk(node, leaves: List[Any]):
+def _walk(node, leaves: List[Any], is_leaf=None):
+    if is_leaf is not None and is_leaf(node):
+        leaves.append(node)
+        return None
     if isinstance(node, dict):
-        return {k: _walk(node[k], leaves) for k in sorted(node)}
+        return {k: _walk(node[k], leaves, is_leaf) for k in sorted(node)}
     if is_namedtuple(node):
-        return type(node)(*[_walk(x, leaves) for x in node])
+        return type(node)(*[_walk(x, leaves, is_leaf) for x in node])
     if isinstance(node, (list, tuple)):
-        return type(node)(_walk(x, leaves) for x in node)
+        return type(node)(_walk(x, leaves, is_leaf) for x in node)
     leaves.append(node)
     return None
 
 
-def flatten(tree: Tree) -> Tuple[List[Any], Any]:
+def flatten(tree: Tree, is_leaf: Optional[Callable[[Any], bool]] = None
+            ) -> Tuple[List[Any], Any]:
     """(leaves in sorted-key order, treedef).  The treedef is the tree's
-    structure with ``None`` at every leaf position.
+    structure with ``None`` at every leaf position.  ``is_leaf`` stops
+    the walk at the nodes it accepts (a ``PartitionSpec`` is a tuple),
+    as ``jax.tree_util``'s argument does.
 
     The walks are module functions, not closures: a nested function that
     calls itself through its closure is a reference cycle, and its cells
     (the leaf list, the leaf iterator) would keep every leaf tensor
     alive until the cycle collector runs."""
     leaves: List[Any] = []
-    return leaves, _walk(tree, leaves)
+    return leaves, _walk(tree, leaves, is_leaf)
 
 
-def leaves(tree: Tree) -> List[Any]:
-    return flatten(tree)[0]
+def leaves(tree: Tree, is_leaf: Optional[Callable[[Any], bool]] = None
+           ) -> List[Any]:
+    return flatten(tree, is_leaf)[0]
 
 
 def _build(node, it):
@@ -66,6 +73,7 @@ def unflatten(treedef: Any, leaf_list: List[Any]) -> Tree:
     return out
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
-    flat, treedef = flatten(tree)
+def tree_map(fn: Callable[[Any], Any], tree: Tree,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Tree:
+    flat, treedef = flatten(tree, is_leaf)
     return unflatten(treedef, [fn(x) for x in flat])

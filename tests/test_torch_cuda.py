@@ -984,3 +984,64 @@ def test_adamw_update_of_a_bf16_tree_on_the_card_matches_the_cpu(gen):
     for a, b in zip(tree_util.leaves(ds.mu) + tree_util.leaves(ds.nu),
                     tree_util.leaves(cs.mu) + tree_util.leaves(cs.nu)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-12)
+
+
+# ------------------------------------------------------------ device mesh
+def test_one_rank_nccl_mesh_step_matches_the_rules_free_step(gen):
+    """The ``spmd`` session with mesh rules on a one-rank NCCL mesh
+    (1, 1) at smoke size (h2o-danube-1.8b, f32, momentum, DSSP): losses
+    within 1e-5 of the rules-free session, the same norm launches, no
+    flash attention (the mesh formulation), no collective and no block
+    copy."""
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.launch.mesh import make_mesh, start_group
+    from repro_torch.models.sharding import rules_for_mesh
+    from repro_torch.perfcount import MESH
+
+    spec = api.RunSpec(
+        model=api.ModelSpec(arch="h2o-danube-1.8b"),
+        data=api.DataSpec(seq_len=64, global_batch=4),
+        optimizer=api.OptimizerSpec(name="momentum", lr=1e-3),
+        sync=api.SyncSpec(mode="dssp", s_lower=1, s_upper=3))
+    start_group(backend="nccl")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        runs = {}
+        for name, rules in (("plain", None),
+                            ("mesh", rules_for_mesh(mesh, sp=True,
+                                                    role="tp"))):
+            LAUNCHES.reset()
+            MESH.reset()
+            with api.build_session(spec, rules=rules) as session:
+                session.run(4)
+                runs[name] = (session.trainer.log.losses,
+                              LAUNCHES.snapshot(), MESH.snapshot())
+    finally:
+        dist.destroy_process_group()
+    (lp, kp, _), (lm, km, traffic) = runs["plain"], runs["mesh"]
+    assert max(abs(a - b) for a, b in zip(lp, lm)) <= 1e-5
+    assert kp["flash_attention_fwd"] > 0 and km["flash_attention_fwd"] == 0
+    for op in ("rmsnorm", "residual_rmsnorm"):
+        assert km[op] == kp[op] > 0
+    assert not any(traffic.values()), traffic
+
+
+def test_cross_pod_sync_of_cuda_tensors_is_the_mean_bit_for_bit(gen,
+                                                               tmp_path):
+    """``cross_pod_sync`` over two ranks sharing the card (gloo, CUDA
+    tensors, a (2, 1, 1) pod mesh): each pod's block becomes
+    (a + b) / 2 bit for bit."""
+    import numpy as np
+
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import run_ranks
+
+    x = np.random.RandomState(5).randn(2, 64, 33).astype(np.float32)
+    outs = run_ranks(ranks.cross_pod_cuda_ranks, 2, str(tmp_path),
+                     args=(x,), timeout=120.0)
+    want = (x[0] + x[1]) / np.float32(2)
+    for out in outs:
+        assert out["device"] == "cuda"
+        assert out["synced"].tobytes() == want.tobytes()

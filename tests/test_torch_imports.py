@@ -64,7 +64,10 @@ def test_every_repro_torch_module_imports_without_jax_or_repro():
                 "repro_torch.examples.quickstart",
                 "repro_torch.examples.heterogeneous_ps",
                 "repro_torch.examples.train_lm",
-                "repro_torch.examples.serve_decode"}
+                "repro_torch.examples.serve_decode",
+                "repro_torch.launch.mesh", "repro_torch.launch.steps",
+                "repro_torch.launch.elastic", "repro_torch.models.sharding",
+                "repro_torch.configs.shapes"}
     assert expected <= set(res["modules"])
 
 

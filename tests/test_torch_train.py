@@ -10,7 +10,8 @@ against the reference's.
   most 1e-4 of the elements, each within 2 lr (Adam's normalisation of
   gradients far below its eps; ROADMAP queue 3).
 * ``build_session`` on the SPMD spec equals a direct ``Trainer`` bit
-  for bit (SSP: a fixed delay).
+  for bit (SSP: a fixed delay); it accepts ``rules=`` (the mesh runs
+  are in ``tests/test_torch_mesh.py``).
 * Each sync converges, and so does int8 compression; asp is refused.
 * A restart is bit-exact on the CPU; the port resumes from a checkpoint
   the reference's ``Trainer`` wrote, and its next losses agree with the
@@ -142,10 +143,21 @@ def test_session_matches_a_direct_trainer_bitwise():
     assert m["mean_delay"] == 1.0
 
 
-def test_session_refuses_mesh_rules_and_unknown_overrides():
-    spec = api.RunSpec()
-    with pytest.raises(api.SpecError, match="item 11"):
-        api.build_session(spec, device="cpu", rules=object())
+def test_session_accepts_mesh_rules_and_refuses_unknown_overrides():
+    """``rules=`` is one of the spmd engine's overrides, as in the
+    reference: rules without a mesh train as without rules (no mesh, no
+    mesh formulation), bit for bit; an unknown override is refused."""
+    from repro_torch.models.sharding import single_pod_rules
+    spec = api.RunSpec(model=api.ModelSpec(arch=ARCH),
+                       data=api.DataSpec(seq_len=16, global_batch=4),
+                       sync=api.SyncSpec(mode="ssp", s_lower=1, s_upper=3))
+    rules = single_pod_rules({"data": 16, "model": 16})
+    runs = []
+    for r in (rules, None):
+        with api.build_session(spec, device="cpu", rules=r) as session:
+            runs.append(session.run(3))
+            assert session.trainer.rules is r
+    assert runs[0]["final_loss"] == runs[1]["final_loss"]
     with pytest.raises(api.SpecError, match="params"):
         api.build_session(spec, device="cpu", params={})
 

@@ -1,0 +1,313 @@
+"""Rank programs for the port's mesh tests (``tests/test_torch_mesh.py``).
+
+Each function runs in one spawned process of
+``repro_torch.launch.mesh.run_ranks`` (the default group already
+started over gloo), imports only torch and ``repro_torch``, and returns
+numpy values for the test process to hold against the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import tree as tree_util
+
+ARCH = "h2o-danube-1.8b"
+SEQ, BATCH = 32, 4
+DECODE_STEPS = 4
+ADAFACTOR_STEPS = 2
+
+
+def _np_tree(tree):
+    return [x.detach().float().numpy().copy() for x in tree_util.leaves(tree)]
+
+
+def _data(cfg, batch=BATCH):
+    from repro_torch.data.synthetic import DataConfig
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                      global_batch=batch)
+
+
+def _mesh_counts():
+    from repro_torch.perfcount import MESH
+    return MESH.snapshot()
+
+
+def trainer_ranks(rank, world, shape, axes, ref_params, steps, lr):
+    """The ``Trainer`` and the ``spmd`` session with mesh rules (SP, TP
+    role) on ``shape``: momentum, DSSP [1, 3], the reference's initial
+    parameters.  Returns the losses, delays and (rank 0) the gathered
+    parameters of each, and the mesh counters."""
+    from repro_torch import api
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import gather, make_mesh, place
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.params import from_numpy_tree
+    from repro_torch.models.sharding import rules_for_mesh
+    from repro_torch.perfcount import MESH
+
+    mesh = make_mesh(shape, axes)
+    cfg = get_smoke_config(ARCH)
+    rules = rules_for_mesh(mesh, sp=True, role="tp")
+    full = from_numpy_tree(ref_params, "cpu")
+    out = {}
+    MESH.reset()
+    t = Trainer(cfg, _data(cfg), sync="dssp", s_lower=1, s_upper=3, lr=lr,
+                optimizer="momentum", device="cpu", rules=rules)
+    t.params = place(full, t.param_specs, mesh)
+    log = t.train(steps)
+    whole = gather(t.params, t.param_specs, mesh)
+    out["trainer"] = {"losses": log.losses, "delays": log.delays,
+                      "params": _np_tree(whole) if rank == 0 else None,
+                      "block_shapes": [tuple(x.shape) for x in
+                                       tree_util.leaves(t.params)]}
+    out["mesh_counts"] = _mesh_counts()
+
+    spec = api.RunSpec(
+        model=api.ModelSpec(arch=ARCH),
+        data=api.DataSpec(seq_len=SEQ, global_batch=BATCH),
+        optimizer=api.OptimizerSpec(name="momentum", lr=lr),
+        sync=api.SyncSpec(mode="dssp", s_lower=1, s_upper=3))
+    with api.build_session(spec, device="cpu", rules=rules) as session:
+        session.start()
+        # a fresh copy: place keeps unsplit leaves as they are, and the
+        # Trainer above updated those in place
+        session.trainer.params = place(from_numpy_tree(ref_params, "cpu"),
+                                       session.trainer.param_specs, mesh)
+        m = session.run(steps)
+        whole = gather(session.trainer.params, session.trainer.param_specs,
+                       mesh)
+    out["session"] = {"losses": session.trainer.log.losses,
+                      "final_loss": m["final_loss"],
+                      "params": _np_tree(whole) if rank == 0 else None}
+    return out
+
+
+def bundle_ranks(rank, world, shape, axes, ref_params, delays, lr, accum):
+    """``build_train_step`` on ``shape`` (the config's rules: DP role,
+    TP attention), momentum with damping, ``grad_accum=accum``, explicit
+    delays; then ``build_prefill_step`` and one ``build_serve_step``
+    token from its cache.  Returns losses, the gathered parameters, the
+    prefill's tokens and gathered cache, the decoded tokens (rank 0)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import dssp_spmd
+    from repro_torch.data.synthetic import batches
+    from repro_torch.launch.mesh import gather, make_mesh, place
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step,
+                                          build_train_step)
+    from repro_torch.models.params import from_numpy_tree
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.api.session import batch_tensors
+
+    mesh = make_mesh(shape, axes)
+    cfg = get_smoke_config(ARCH).scaled(grad_accum=accum)
+    full = from_numpy_tree(ref_params, "cpu")
+    opt = make_optimizer("momentum", lr, staleness_damping=True)
+    bundle = build_train_step(cfg, mesh, ShapeSpec("smoke", SEQ, BATCH,
+                                                   "train"),
+                              sync="dssp", s_upper=3, optimizer=opt)
+    p_sh, o_sh, pipe_sh, b_sh, _ = bundle.in_shardings
+    params = place(full, p_sh, mesh)
+    state = opt.init(params)
+    pipe = dssp_spmd.init_pipeline(params, 4)
+    it = batches(cfg, _data(cfg))
+    losses = []
+    for d in delays:
+        batch = place(batch_tensors(next(it), "cpu"), b_sh, mesh)
+        params, state, pipe, m = bundle.fn(params, state, pipe, batch, d)
+        losses.append(float(m["loss"]))
+    whole = gather(params, p_sh, mesh)
+
+    # adafactor, whose update reads whole leaves (RMS, factored moments):
+    # the gathered leaves are updated and each rank keeps its blocks
+    ada = make_optimizer("adafactor", lr)
+    abundle = build_train_step(get_smoke_config(ARCH), mesh,
+                               ShapeSpec("smoke", SEQ, BATCH, "train"),
+                               sync="bsp", optimizer=ada)
+    a_sh, ao_sh, _, ab_sh, _ = abundle.in_shardings
+    aparams = place(from_numpy_tree(ref_params, "cpu"), a_sh, mesh)
+    astate = ada.init(aparams)
+    it = batches(cfg, _data(cfg))
+    for _ in range(ADAFACTOR_STEPS):
+        batch = place(batch_tensors(next(it), "cpu"), ab_sh, mesh)
+        aparams, astate, _, _ = abundle.fn(aparams, astate, (), batch, 0)
+    ada_whole = gather(aparams, a_sh, mesh)
+    ada_state = gather(astate, ao_sh, mesh)
+
+    # prefill and decode from the reference's initial weights (a fresh
+    # copy: the train steps updated the unsplit leaves of ``full``)
+    full = from_numpy_tree(ref_params, "cpu")
+    pcfg = get_smoke_config(ARCH)
+    pre = build_prefill_step(pcfg, mesh, ShapeSpec("p", SEQ, BATCH,
+                                                   "prefill"))
+    tokens = torch.from_numpy(
+        np.random.RandomState(7).randint(0, pcfg.vocab_size,
+                                         (BATCH, SEQ))).long()
+    pp = place(full, pre.in_shardings[0], mesh)
+    pb = place({"tokens": tokens, "labels": tokens}, pre.in_shardings[1],
+               mesh)
+    tok, cache = pre.fn(pp, pb)
+    tok_all = gather(tok, pre.out_shardings[0], mesh)
+    cache_all = gather(cache, pre.out_shardings[1], mesh)
+
+    # DECODE_STEPS greedy tokens from an empty cache, on the mesh
+    serve = build_serve_step(pcfg, mesh, ShapeSpec("d", SEQ, BATCH,
+                                                   "decode"))
+    sp, stok_sh, cache_sh, _ = serve.in_shardings
+    cache = place(tree_util.tree_map(
+        lambda m: torch.zeros(m.shape, dtype=m.dtype), serve.input_sds[2]),
+        cache_sh, mesh)
+    sparams = place(full, sp, mesh)
+    tok = place(tokens[:, :1].clone(), stok_sh, mesh)
+    decoded = []
+    for index in range(DECODE_STEPS):
+        tok, cache = serve.fn(sparams, tok, cache, index)
+        decoded.append(gather(tok, stok_sh, mesh).numpy())
+    return {"losses": losses,
+            "params": _np_tree(whole) if rank == 0 else None,
+            "adafactor": {"params": _np_tree(ada_whole),
+                          "state": _np_tree(ada_state)}
+            if rank == 0 else None,
+            "adafactor_blocks": [tuple(x.shape) for x in
+                                 tree_util.leaves(astate)],
+            "prefill_tokens": tok_all.numpy(),
+            "prefill_cache": {k: v.float().numpy()
+                              for k, v in cache_all.items()},
+            "decoded": decoded,
+            "decode_cache": {k: v.float().numpy() for k, v in
+                             gather(cache, cache_sh, mesh).items()},
+            "cache_blocks": {k: tuple(v.shape) for k, v in cache.items()}}
+
+
+def cross_pod_ranks(rank, world, x, w_true_seed):
+    """(a) ``cross_pod_sync`` of per-pod blocks ``x[pod]`` on a
+    (2, 1, 2) (pod, data, model) mesh; (b) the reference's local-SGD
+    scenario (``tests/test_cross_pod.py``) with per-pod replicas, k from
+    ``DsspScheduleController.period``."""
+    from repro_torch.core.dssp_spmd import (DsspScheduleController,
+                                            cross_pod_sync, local_sgd_step)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import PartitionSpec as P
+
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
+    pod = mesh.get_local_rank("pod")
+    synced = cross_pod_sync(torch.from_numpy(x[pod]).clone(), mesh,
+                            P("pod", None, None)).numpy()
+
+    rng = np.random.RandomState(w_true_seed)
+    w_true = rng.randn(16, 1).astype(np.float32)
+    X = rng.randn(512, 16).astype(np.float32)
+    Y = X @ w_true
+    xb = torch.from_numpy(X.reshape(2, 256, 16)[pod])   # this pod's rows
+    yb = torch.from_numpy(Y.reshape(2, 256, 1)[pod])
+    w = torch.zeros(16, 1)
+
+    def loss(w, x, y):
+        return torch.mean((x @ w - y) ** 2)
+
+    def train_step(params, opt_state, pipeline, batch, delay):
+        # the reference differentiates the mean over both pods' rows:
+        # each replica's gradient is its pod's mean over the pod count
+        w = params.detach().requires_grad_()
+        g, = torch.autograd.grad(loss(w, *batch) / 2, w)
+        with torch.no_grad():
+            params.sub_(0.1 * g)
+        return params, opt_state, pipeline, {}
+
+    from repro_torch.launch.mesh import all_gather_cat, all_reduce_mean
+    drifted, synced_equal, periods = [], [], []
+
+    def replicas_equal(t):
+        both = all_gather_cat(t[None], mesh.get_group("pod"), 0)
+        return bool(torch.equal(both[0], both[1]))
+
+    def sync(t):
+        drifted.append(not replicas_equal(t))     # before the average
+        t = cross_pod_sync(t, mesh, P("pod", None, None))
+        synced_equal.append(replicas_equal(t))
+        return t
+
+    step = local_sgd_step(train_step, sync)
+
+    def global_loss(w):
+        mine = loss(w, xb, yb).reshape(1)
+        all_reduce_mean([mine], ("pod",), mesh)
+        return float(mine)
+
+    ctrl = DsspScheduleController(1, 4)
+    l0 = global_loss(w)
+    for _ in range(12):
+        k = ctrl.period([1.0, 1.3])       # pod step-time telemetry
+        periods.append(k)
+        for i in range(k):
+            w, _, _, _ = step(w, (), (), (xb, yb), 0, i == k - 1)
+    return {"synced": synced, "l0": l0, "l1": global_loss(w),
+            "periods": periods, "synced_equal": synced_equal,
+            "drifted": drifted, "pod": pod}
+
+
+def pipeline_ranks(rank, world):
+    """The reference's 8-device ring semantics
+    (``tests/test_distributed.py``): a depth-3 ring whose buffer is split
+    over 'data', 4 ranks; each rank's block of the delayed gradients."""
+    from repro_torch.core import dssp_spmd
+    from repro_torch.launch.mesh import gather, make_mesh, place
+    from repro_torch.models.sharding import PartitionSpec as P
+
+    mesh = make_mesh((4,), ("data",))
+    spec = {"w": P("data", None)}
+    st = dssp_spmd.init_pipeline({"w": torch.zeros(16, 8)}, depth=3)
+    pipe_spec = dssp_spmd.pipeline_specs(spec, 3)
+    st = place(st, pipe_spec, mesh)
+    outs = []
+    for t in range(4):
+        g = place({"w": torch.full((16, 8), float(t + 1))}, spec, mesh)
+        out, valid, st = dssp_spmd.push_pop(st, g, 2)
+        whole = gather(out, spec, mesh)["w"]
+        outs.append((float(whole[0, 0]), float(valid),
+                     tuple(out["w"].shape), bool(torch.all(
+                         whole == whole[0, 0]))))
+    return outs
+
+
+def rescale_ranks(rank, world, ref_params):
+    """Params placed on a (2, 2) mesh, gathered, then rescaled to 2
+    ranks (``rescale_params``, model_parallel 2): the new mesh's gathered
+    values (ranks 0-1), the blocks' shapes on both meshes."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.elastic import rescale_params
+    from repro_torch.launch.mesh import gather, make_mesh, place
+    from repro_torch.models import registry
+    from repro_torch.models.params import from_numpy_tree
+    from repro_torch.models.sharding import rules_for_mesh
+
+    cfg = get_smoke_config(ARCH)
+    full = from_numpy_tree(ref_params, "cpu")
+    mesh4 = make_mesh((2, 2), ("data", "model"))
+    spec4 = registry.param_specs(cfg, rules_for_mesh(mesh4))
+    p4 = place(full, spec4, mesh4)
+    back = gather(p4, spec4, mesh4)
+    p2, mesh2 = rescale_params(cfg, back, 2, model_parallel=2)
+    out = {"shape2": tuple(mesh2.shape), "in_mesh2": p2 is not None,
+           "blocks4": [tuple(x.shape) for x in tree_util.leaves(p4)]}
+    if p2 is not None:
+        spec2 = registry.param_specs(cfg, rules_for_mesh(mesh2))
+        out["values"] = _np_tree(gather(p2, spec2, mesh2))
+        out["blocks2"] = [tuple(x.shape) for x in tree_util.leaves(p2)]
+    return out
+
+
+def cross_pod_cuda_ranks(rank, world, x):
+    """``cross_pod_sync`` of this pod's block ``x[pod]`` on the card over
+    a (2, 1, 1) (pod, data, model) mesh of two gloo ranks."""
+    from repro_torch.core.dssp_spmd import cross_pod_sync
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import PartitionSpec as P
+
+    mesh = make_mesh((2, 1, 1), ("pod", "data", "model"))
+    block = torch.from_numpy(x[mesh.get_local_rank("pod")]).to("cuda:0")
+    out = cross_pod_sync(block, mesh, P("pod", None, None))
+    return {"device": out.device.type, "synced": out.cpu().numpy()}
