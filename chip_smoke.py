@@ -2477,6 +2477,396 @@ def run_mesh_phase(torch, api, spmd_rec):
     return rec["launches"]
 
 
+# ------------------------------------------------------------------- dryrun
+#: (a): the dry run's train_4k cell on 16 x 16 for every arch, and this
+#: arch's on 2 x 16 x 16, DRYRUN_JOBS CLI processes at a time on the
+#: host's cores, the slowest cells first (DRYRUN_FIRST), after every
+#: phase that times the card, beside (b), whose checks (values, counts,
+#: launches, peaks) do not depend on the host's load
+DRYRUN_MULTI = "qwen1.5-32b"
+DRYRUN_FIRST = ("jamba-v0.1-52b", "qwen1.5-110b", "mistral-large-123b",
+                "chameleon-34b", "qwen1.5-32b")
+DRYRUN_JOBS = 6
+DRYRUN_TIMEOUT_S = 600.0
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+#: (b): qwen1.5-32b at its published widths and the train_4k cell's own
+#: sequence (4096), cut in depth to PART_LAYERS layer and in batch to
+#: PART_BATCH rows in PART_ACCUM microbatch, in f32, so that the one
+#: rank (42 GB by the dry run) and four ranks (11 GB each) fit the card
+#: in turn; damped momentum (an update proportional to the gradient,
+#: where Adafactor's is normalised to the learning rate's size), BSP
+#: for PART_STEPS step (a DSSP ring of two slots would add
+#: 4.4 GB a rank; the CPU tests hold the ring and microbatches on
+#: blocks); one rank, then four ranks sharing the card over gloo on
+#: each of PART_SHAPES.  A (2, 2) step moves about 8 GB of collectives
+#: through host memory (gloo): about a minute on an H100's host, so one
+#: step.  The learning rate is large so that each leaf's update (lr
+#: times its gradient, 7e-4 to 2e-2 at this cell) stands far above the
+#: f32 rounding of the leaf (a norm scale of 1.0 rounds at 1.2e-7):
+#: each leaf's distance from the one rank is held to PART_REL of the
+#: one rank's largest update of that leaf, or of PART_FLOOR times the
+#: largest update of any leaf where a leaf's own is smaller.  On
+#: PART_PLANT the same
+#: step runs once more with the 'model' sum of every gradient dropped:
+#: the check must fail it.
+PART_ARCH = "qwen1.5-32b"
+PART_LAYERS = 1
+PART_SEQ = 4096
+PART_BATCH = 2
+PART_ACCUM = 1
+PART_STEPS = 1
+PART_LR = 1.0
+PART_TOL = 1e-5
+PART_REL = 1e-2
+PART_FLOOR = 1e-3
+PART_SHAPES = (((2, 2), ("data", "model")), ((1, 4), ("data", "model")))
+PART_PLANT = (1, 4)
+#: the reference's collective kinds, by ``perfcount.MESH`` field
+MESH_KINDS = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
+              "all_reduce": "all-reduce", "broadcast": "broadcast"}
+
+
+class DryRunCells:
+    """Part (a) of the dryrun phase: ``python -m
+    repro_torch.launch.dryrun`` for each cell, ``DRYRUN_JOBS`` processes
+    at a time, from ``start`` on, on a thread of its own; ``collect``
+    waits for them.  Every process it started is stopped when the script
+    exits."""
+
+    def __init__(self, src: str, archs):
+        self.src = os.path.join(ROOT, src)
+        first = [a for a in DRYRUN_FIRST if a in archs]
+        self.cells = ([(a, "single") for a in first]
+                      + [(DRYRUN_MULTI, "multi")]
+                      + [(a, "single") for a in archs if a not in first])
+        self.procs = []
+        self.done = {}
+        self.thread = None
+
+    def _cmd(self, arch: str, mesh: str):
+        out = os.path.join(DRYRUN_DIR, f"{arch}-{mesh}.json")
+        return out, [sys.executable, "-W", "ignore::FutureWarning", "-m",
+                     "repro_torch.launch.dryrun", "--arch", arch,
+                     "--shape", "train_4k", "--mesh", mesh, "--out", out]
+
+    def start(self) -> None:
+        import atexit
+        import threading
+        os.makedirs(DRYRUN_DIR, exist_ok=True)
+        atexit.register(self.stop)
+        self.t0 = time.monotonic()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        env = dict(os.environ, PYTHONPATH=self.src, OMP_NUM_THREADS="1")
+        pending, running = list(self.cells), []
+        while pending or running:
+            while pending and len(running) < DRYRUN_JOBS:
+                cell = pending.pop(0)
+                out, cmd = self._cmd(*cell)
+                log = open(out + ".log", "w")
+                p = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                     env=env, cwd=ROOT)
+                self.procs.append(p)
+                running.append((cell, out, p, log, time.monotonic()))
+            for item in list(running):
+                cell, out, p, log, t = item
+                late = time.monotonic() - t > DRYRUN_TIMEOUT_S
+                if p.poll() is None and not late:
+                    continue
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+                running.remove(item)
+                self.done[cell] = (p.returncode, out,
+                                   time.monotonic() - t)
+            time.sleep(0.5)
+
+    def collect(self) -> list:
+        self.thread.join(DRYRUN_TIMEOUT_S * len(self.cells))
+        rows = []
+        for cell in sorted(self.cells, key=lambda c: (c[1], c[0])):
+            if cell not in self.done:
+                fail(f"dryrun {cell}: did not finish")
+            rc, out, seconds = self.done[cell]
+            if rc != 0 or not os.path.exists(out):
+                with open(out + ".log") as f:
+                    tail = f.read()[-3000:]
+                fail(f"dryrun {cell}: exit {rc}\n{tail}")
+            with open(out) as f:
+                rep = json.load(f)
+            if len(rep) != 1 or rep[0]["status"] != "ok":
+                fail(f"dryrun {cell}: {rep}")
+            rows.append(dict(rep[0], process_seconds=seconds))
+        return rows
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def part_cell():
+    """The (b) cell: its config, shape and optimizer."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.optim import make_optimizer
+    cfg = get_config(PART_ARCH).scaled(n_layers=PART_LAYERS, dtype="float32",
+                                       grad_accum=PART_ACCUM)
+    shape = ShapeSpec("train_4k", PART_SEQ, PART_BATCH, "train")
+    return cfg, shape, make_optimizer("momentum", PART_LR,
+                                      staleness_damping=True)
+
+
+def part_bundle(mesh):
+    """The (b) cell's config, optimizer and ``build_train_step`` bundle
+    on ``mesh`` (BSP)."""
+    from repro_torch.launch.steps import build_train_step
+    cfg, shape, opt = part_cell()
+    bundle = build_train_step(cfg, mesh, shape, sync="bsp", optimizer=opt)
+    return cfg, opt, bundle
+
+
+def _part_step(torch, bundle, opt, cfg, device, mesh, p_sh, b_sh):
+    """The (b) cell's ``PART_STEPS`` steps from the seed-0 parameters:
+    (params, losses, per-step mesh counts, per-step norm launches)."""
+    from repro_torch.api.session import batch_tensors
+    from repro_torch.data.synthetic import DataConfig, batches
+    from repro_torch.launch.mesh import place
+    from repro_torch.models import registry
+    from repro_torch.perfcount import LAUNCHES, MESH
+    params = place(registry.init_params(cfg, seed=0, device=device), p_sh,
+                   mesh)
+    state = opt.init(params)
+    it = batches(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=PART_SEQ,
+                                 global_batch=PART_BATCH))
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    LAUNCHES.reset()
+    losses, counts, launches = [], [], []
+    for _ in range(PART_STEPS):
+        rows = place(batch_tensors(next(it), device), b_sh, mesh)
+        MESH.reset()
+        before = LAUNCHES.snapshot()
+        params, state, _, m = bundle.fn(params, state, (), rows, 0)
+        counts.append(MESH.snapshot())
+        launches.append({k: v for k, v in LAUNCHES.delta(before).items()
+                         if v})
+        losses.append(float(m["loss"]))
+    del state
+    torch.cuda.synchronize(device)
+    return params, losses, counts, launches
+
+
+def part_rank(rank: int, world: int, shape, axes, one_path: str,
+              plant: bool):
+    """One rank of (b): ``PART_STEPS`` steps of the cell from the seed-0
+    parameters on ``MESH_DEVICE``: losses, per-step mesh counts and norm
+    launches, the peak of ``max_memory_allocated`` over the steps.  The
+    one-rank run saves its parameters and, per leaf, its largest update
+    ``max |p1 - p0|`` to ``one_path``; a rank of a larger mesh returns,
+    per leaf, the largest distance of its block from the block of that.
+    With ``plant``, the step runs once more from the seed-0 parameters
+    with the 'model' sum of every gradient dropped
+    (``Partition.sum_axes``), and its distances are returned too."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint.manager import keystr_names
+    from repro_torch.launch.mesh import block_view, make_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.sharding import is_spec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(shape, axes)
+    cfg, opt, bundle = part_bundle(mesh)
+    p_sh, _, _, b_sh, _ = bundle.in_shardings
+    device = MESH_DEVICE
+    t0 = time.monotonic()
+    params, losses, counts, launches = _part_step(
+        torch, bundle, opt, cfg, device, mesh, p_sh, b_sh)
+    out = {"losses": losses, "counts": counts, "launches": launches,
+           "partitioned": bundle.partitioned,
+           "seconds": time.monotonic() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated(device),
+           "leaves": [name for name, _ in keystr_names(params)]}
+    leaves = tree_util.leaves(params)
+    if world == 1:
+        init = tree_util.leaves(registry.init_params(cfg, seed=0,
+                                                     device=device))
+        update = [float((p - p0).abs().max()) for p, p0 in zip(leaves, init)]
+        del init
+        torch.save({"params": [x.cpu() for x in leaves], "update": update},
+                   one_path)
+        out["update"] = update
+        return out
+    one = torch.load(one_path, mmap=True)["params"]
+    specs = tree_util.leaves(p_sh, is_leaf=is_spec)
+
+    def distances(leaves):
+        return [float((block_view(w, s, mesh) - x.cpu()).abs().max())
+                for w, s, x in zip(one, specs, leaves)]
+
+    out["err"] = distances(leaves)
+    if plant:
+        del params, leaves
+        part = bundle.fn.partition
+        part.sum_axes = [tuple(a for a in ax if a != "model")
+                         for ax in part.sum_axes]
+        planted, _, _, _ = _part_step(torch, bundle, opt, cfg, device, mesh,
+                                      p_sh, b_sh)
+        out["planted_err"] = distances(tree_util.leaves(planted))
+    return out
+
+
+def part_check(update, err):
+    """The leaves whose distance from the one rank breaks (b)'s bound:
+    ``PART_REL`` of the one rank's largest update of the leaf, or of
+    ``PART_FLOOR`` times the largest update of any leaf where that is
+    larger.  ``[(leaf index, distance, bound)]``."""
+    floor = PART_FLOOR * max(update)
+    out = []
+    for i, (u, e) in enumerate(zip(update, err)):
+        bound = PART_REL * max(u, floor)
+        if not e <= bound:
+            out.append((i, e, bound))
+    return out
+
+
+def run_dryrun_phase(torch, src: str):
+    """(a) the dry run's production cells, each row printed, any error
+    fails; started first and run on the host's cores beside (b).  (b)
+    the partitioned step on the card: ``PART_ARCH`` cut to
+    ``PART_LAYERS`` layers at its published widths, one rank, then four
+    ranks sharing the card over gloo on each of ``PART_SHAPES``: losses
+    within ``PART_TOL`` of the one rank's, every leaf by ``part_check``
+    (and on ``PART_PLANT`` a planted fault that it must catch); each
+    rank's ``max_memory_allocated`` beside the dry run's peak for the
+    same cell on a fake mesh of that shape, the gap printed; each rank's
+    collective counts per step equal to the dry run's; each rank's norm
+    launches per step equal to the dry run's stand-in calls."""
+    from repro_torch.configs import arch_names
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.monotonic()
+    cells = DryRunCells(src, arch_names())
+    cells.start()
+
+    work = os.path.join(ROOT, "build", "dryrun")
+    one_path = os.path.join(work, "one_rank_params.pt")
+    try:
+        t1 = time.monotonic()
+        one = mesh_lib.run_ranks(part_rank, 1, work,
+                                 args=((1, 1), ("data", "model"), one_path,
+                                       False),
+                                 timeout=MESH_RANK_TIMEOUT_S, threads=2)[0]
+        update = one["update"]
+        say({"phase": "dryrun one rank", "arch": PART_ARCH,
+             "cut": f"{PART_LAYERS} layer(s) of the published widths, "
+                    f"f32, batch {PART_BATCH} x seq {PART_SEQ}, "
+                    f"{PART_ACCUM} microbatches, lr {PART_LR}",
+             "losses": one["losses"], "partitioned": one["partitioned"],
+             "peak_gb": one["peak_bytes"] / 1e9,
+             "max_abs_update": dict(zip(one["leaves"], update)),
+             "seconds": time.monotonic() - t1})
+        for shape, axes in PART_SHAPES:
+            cut, cell, opt = part_cell()
+            pred = dryrun.run_cell(PART_ARCH, "train_4k", False, "bsp",
+                                   verbose=False, cfg=cut, shape=cell,
+                                   mesh_shape=shape, optimizer=opt)
+            t1 = time.monotonic()
+            plant = tuple(shape) == PART_PLANT
+            outs = mesh_lib.run_ranks(part_rank, 4, work,
+                                      args=(shape, axes, one_path, plant),
+                                      timeout=MESH_RANK_TIMEOUT_S,
+                                      threads=2)
+            err = [max(o["err"][i] for o in outs)
+                   for i in range(len(update))]
+            peak_pred = pred["peak_gib_per_chip"] * 2**30
+            rec = {"phase": "dryrun four ranks",
+                   "mesh": dict(zip(axes, shape)),
+                   "seconds": time.monotonic() - t1,
+                   "max_abs_param_err": max(err),
+                   "err_over_update": {
+                       name: e / u if u else None
+                       for name, e, u in zip(one["leaves"], err, update)},
+                   "max_abs_loss_err": max(abs(a - b) for o in outs
+                                           for a, b in zip(o["losses"],
+                                                           one["losses"])),
+                   "tol": {"loss": PART_TOL, "rel": PART_REL,
+                           "floor": PART_FLOOR},
+                   "peak_gb": [o["peak_bytes"] / 1e9 for o in outs],
+                   "dryrun_peak_gb": peak_pred / 1e9,
+                   "peak_gap_gb": [(o["peak_bytes"] - peak_pred) / 1e9
+                                   for o in outs],
+                   "dryrun_argument_gb": pred["argument_gib_per_chip"]
+                   * 2**30 / 1e9,
+                   "collectives_per_step": outs[0]["counts"][0],
+                   "dryrun_collectives": pred["collective_counts"],
+                   "launches_per_step": outs[0]["launches"][0],
+                   "dryrun_kernel_calls": pred["kernel_calls"],
+                   "step_seconds": [o["seconds"] / PART_STEPS
+                                    for o in outs]}
+            broken = part_check(update, err)
+            if plant:
+                planted = [max(o["planted_err"][i] for o in outs)
+                           for i in range(len(update))]
+                caught = part_check(update, planted)
+                rec["planted_fault"] = {
+                    "fault": "the 'model' sum of every gradient dropped",
+                    "leaves_caught": [one["leaves"][i] for i, _, _ in caught],
+                    "max_err_over_update": max(
+                        e / u for e, u in zip(planted, update) if u)}
+            say(rec)
+            if not all(o["partitioned"] for o in outs):
+                fail(f"dryrun {shape}: a rank did not take the "
+                     "partitioned step")
+            if broken or not rec["max_abs_loss_err"] <= PART_TOL:
+                fail(f"dryrun {shape}: leaves from the one-rank step "
+                     f"{[(one['leaves'][i], e, b) for i, e, b in broken]}"
+                     f" / losses {rec['max_abs_loss_err']} (tol "
+                     f"{PART_TOL})")
+            if plant and not caught:
+                fail(f"dryrun {shape}: the planted fault passed the check")
+            norms = {k: v for k, v in pred["kernel_calls"].items()
+                     if k in ("rmsnorm", "residual_rmsnorm")}
+            for rank, o in enumerate(outs):
+                for step, (c, n) in enumerate(zip(o["counts"],
+                                                  o["launches"])):
+                    got = {MESH_KINDS[k]: v for k, v in c.items()
+                           if k in MESH_KINDS and v}
+                    if got != pred["collective_counts"]:
+                        fail(f"dryrun {shape} rank {rank} step {step}: "
+                             f"collectives {got}, the dry run's "
+                             f"{pred['collective_counts']}")
+                    if n != norms or not n:
+                        fail(f"dryrun {shape} rank {rank} step {step}: "
+                             f"launches {n}, the dry run's {norms}")
+    finally:
+        if os.path.exists(one_path):
+            os.unlink(one_path)
+
+    rows = cells.collect()
+    for r in rows:
+        say({"phase": "dryrun", "arch": r["arch"], "mesh": r["mesh"],
+             "partitioned": r["partitioned"], "fit": r["fit"],
+             "fits_hbm": r["fits_hbm"],
+             "argument_gib_per_chip": r["argument_gib_per_chip"],
+             "peak_gib_per_chip": r["peak_gib_per_chip"],
+             "flops_per_chip": r["flops_per_chip"],
+             "useful_flops_ratio": r["useful_flops_ratio"],
+             "dominant": r["dominant"], "t_compute": r["t_compute"],
+             "t_memory": r["t_memory"], "t_collective": r["t_collective"],
+             "collective_counts": r["collective_counts"],
+             "process_seconds": r["process_seconds"]})
+    say({"phase": "dryrun cells", "cells": len(rows),
+         "wall_seconds_since_start": time.monotonic() - cells.t0,
+         "process_seconds": sum(r["process_seconds"] for r in rows)})
+    say({"phase": "dryrun", "seconds": time.monotonic() - t0})
+
+
 # ----------------------------------------------------------------------- ft
 #: the reference's recovery bound for a per-shard pause (its chaos test's
 #: assertion on ``snapshot_shard`` spans): printed beside the pauses
@@ -3300,6 +3690,9 @@ def main(argv=None) -> None:
     # -- the device mesh: one rank at full width, four over gloo ----------
     for name, n in run_mesh_phase(torch, api, spmd).items():
         launches[name] += n
+    mark("dryrun")
+    # -- the dry run's cells; the partitioned step on four ranks ----------
+    run_dryrun_phase(torch, args.src)
 
     replaces = {
         "fused_update": "src/repro/kernels/fused_update.py:37",

@@ -48,6 +48,7 @@ from typing import Any, Callable, Dict, Iterator, List
 
 import torch
 
+from repro_torch._compat import api_managed
 from repro_torch.api.spec import CUSTOM_ARCH, RunSpec, SpecError
 from repro_torch.device import resolve_device
 
@@ -98,7 +99,8 @@ def build_server(spec: RunSpec, params=None, device=None):
                         f"(have {sorted(_SERVER_BUILDERS)})")
     if params is None:
         params = _registry_params(spec, resolve_device(device))
-    return builder(spec, params)
+    with api_managed():
+        return builder(spec, params)
 
 
 # ===================================================================
@@ -131,7 +133,8 @@ class TrainingSession:
 
     def start(self) -> "TrainingSession":
         if not self._started:
-            self._start()
+            with api_managed():
+                self._start()
             self._started = True
         return self
 
@@ -141,7 +144,8 @@ class TrainingSession:
         if self._closed:
             raise SpecError("session is closed")
         self.start()
-        self._run(int(steps))
+        with api_managed():
+            self._run(int(steps))
         return self.metrics()
 
     def metrics(self) -> Dict[str, Any]:

@@ -21,7 +21,11 @@ Guarantees:
   * atomicity — a crash mid-save never corrupts the latest checkpoint
     (readers only see fully-renamed directories); leftover ``.tmp_``
     directories are removed on construction and ``steps()`` skips torn
-    snapshots,
+    snapshots.  A save at a step already committed sets the old
+    directory aside (``.old_``) and drops it only after the new one is
+    renamed in place, so a crash between the two renames leaves the
+    old snapshot to restore (``steps()`` counts it; construction
+    renames it back),
   * async — ``save`` copies the leaves to the host and returns; a
     writer thread serializes them; a failed async write re-raises on
     the NEXT ``save()``/``wait()`` (synchronous saves raise at the call
@@ -49,6 +53,9 @@ _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                  "int8": torch.int8, "int16": torch.int16,
                  "int32": torch.int32, "int64": torch.int64,
                  "uint8": torch.uint8, "bool": torch.bool}
+#: suffix of a committed step directory set aside while a save at the
+#: same step commits
+_ASIDE = ".old_"
 
 
 def _keystr_walk(node, path: str, out: List[Tuple[str, Any]]) -> None:
@@ -166,24 +173,36 @@ class CheckpointManager:
                  "shape": list(arr.shape), "dtype": dtype})
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
+        aside = None
         if os.path.exists(final):
-            shutil.rmtree(final)
+            # the committed snapshot of this step stays restorable until
+            # the new one is in place
+            aside = final + _ASIDE
+            if os.path.exists(aside):
+                shutil.rmtree(aside)
+            os.rename(final, aside)
         os.rename(tmp, final)          # the atomic commit point
+        if aside is not None:
+            shutil.rmtree(aside)
         self._gc()
         if self.on_write is not None:
             self.on_write(step, t0, sum(arr.nbytes for _, arr, _ in host))
 
     # -------------------------------------------------------------- restore
     def steps(self) -> List[int]:
-        out = []
+        out = set()
         for d in os.listdir(self.directory):
             if not d.startswith("step_") or d.endswith(".tmp_"):
                 continue
+            name = d[:-len(_ASIDE)] if d.endswith(_ASIDE) else d
+            if name != d and os.path.exists(os.path.join(self.directory,
+                                                         name)):
+                continue  # set aside, and its successor is committed
             if not os.path.exists(os.path.join(self.directory, d,
                                                "manifest.json")):
                 continue  # torn: a restore must never pick it
             try:
-                out.append(int(d[5:]))
+                out.add(int(name[5:]))
             except ValueError:
                 pass
         return sorted(out)
@@ -235,11 +254,26 @@ class CheckpointManager:
 
     def _gc_tmp(self) -> None:
         """Drop ``.tmp_`` directories a crash mid-save left behind: torn
-        by construction (the rename never happened)."""
+        by construction (the rename never happened).  An ``.old_``
+        directory is renamed back where its successor never committed,
+        and dropped where it did."""
         for d in os.listdir(self.directory):
-            if d.startswith("step_") and d.endswith(".tmp_"):
-                shutil.rmtree(os.path.join(self.directory, d),
-                              ignore_errors=True)
+            path = os.path.join(self.directory, d)
+            if not d.startswith("step_"):
+                continue
+            if d.endswith(".tmp_"):
+                shutil.rmtree(path, ignore_errors=True)
+            elif d.endswith(_ASIDE):
+                final = path[:-len(_ASIDE)]
+                if os.path.exists(final):
+                    shutil.rmtree(path, ignore_errors=True)
+                else:
+                    os.rename(path, final)
 
     def _step_dir(self, step: int) -> str:
-        return os.path.join(self.directory, f"step_{step:09d}")
+        """The step's directory (its set-aside one while a save at the
+        same step is between its two renames)."""
+        final = os.path.join(self.directory, f"step_{step:09d}")
+        if not os.path.exists(final) and os.path.exists(final + _ASIDE):
+            return final + _ASIDE
+        return final

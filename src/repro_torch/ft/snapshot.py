@@ -407,6 +407,19 @@ def restore_latest(server, manager) -> Optional[int]:
 # ===================================================================
 # periodic driver
 # ===================================================================
+def _membership(server) -> Tuple:
+    """The workers each tracker holds (the shards', the global gate's,
+    or the mono server's), read without the locks: a change key only,
+    the snapshot itself reads them under each lock."""
+    shards = getattr(server, "shards", None)
+    trackers = ([st.tracker for st in shards] if shards is not None
+                else [server.tracker])
+    gate = getattr(server, "_gate_tracker", None)
+    if gate is not None:
+        trackers.append(gate)
+    return tuple(tuple(tr.workers) for tr in trackers)
+
+
 class ServerSnapshotter:
     """Daemon thread checkpointing ``server`` every ``every_s`` seconds
     (skipping intervals where no shard version moved).  ``save_now``
@@ -424,7 +437,7 @@ class ServerSnapshotter:
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop,
                                         name="ft-snapshotter", daemon=True)
-        self._last_version = -1
+        self._last_key: Any = None
         self._save_lock = threading.Lock()
         #: (seconds, bytes) of every committed write
         self.writes: List[Tuple[float, int]] = []
@@ -443,14 +456,17 @@ class ServerSnapshotter:
 
     def save_now(self) -> bool:
         """One snapshot, skipped (False) when nothing changed since the
-        last one."""
+        last one: neither the version nor the trackers' membership (a
+        BYE moves no version, and a snapshot taken between a worker's
+        last push and its BYE must not stay the latest)."""
         with self._save_lock:   # the periodic thread and a caller's own
             version = int(self.server.version)
-            if version == self._last_version:
+            key = (version, _membership(self.server))
+            if key == self._last_key:
                 return False
             tree, extras = snapshot_server(self.server)
             self.manager.save(version, tree, extras)
-            self._last_version = version
+            self._last_key = key
             self.snapshots += 1
             return True
 

@@ -18,7 +18,17 @@ one axis at a time, the last axis first), ``all_reduce_mean`` averages
 over mesh axes.  A dimension over axes of one rank is not split, so on
 a mesh whose axes all have one rank ``place`` and ``gather`` return
 their inputs and no collective runs (``perfcount.MESH`` counts both).
-Collectives on a gloo group stage CUDA tensors through host memory.
+
+Collectives with gradients, for compute split over the mesh
+(``models/partition.py``): ``gather_grad`` (all-gather forward,
+reduce-scatter backward: FSDP's parameter gather, sequence
+parallelism's activation gather), ``scatter_grad`` (its transpose),
+``gather_replicated`` (a whole gathered for compute every rank repeats),
+``copy_to_group`` and ``reduce_from_group`` (Megatron's f and g).
+``perfcount.MESH`` counts every collective and its result bytes;
+``COLLECTIVE_LOG``, when the dry run sets it, records each one.
+Collectives on a gloo group stage CUDA tensors through host memory;
+gloo has no reduce-scatter, so there it is an all-reduce and a block.
 """
 
 from __future__ import annotations
@@ -92,35 +102,204 @@ def elastic_mesh(n_devices: int, *, model_parallel: int = 16,
 
 
 # ------------------------------------------------------------ collectives
+#: When a list: every collective appends ``(kind, result bytes, group
+#: size, whether the group's ranks share one node of NODE_SIZE, dtype,
+#: shape of the result)`` to it (the dry run's record,
+#: ``repro_torch.roofline``).  None on the hot path: one check a call.
+COLLECTIVE_LOG: Optional[list] = None
+#: ranks of one node in the roofline's deployment (DGX H100: 8 cards)
+NODE_SIZE = 8
+
+
+def _count(kind: str, result: torch.Tensor, group) -> None:
+    nbytes = result.numel() * result.element_size()
+    setattr(MESH, kind, getattr(MESH, kind) + 1)
+    setattr(MESH, kind + "_bytes", getattr(MESH, kind + "_bytes") + nbytes)
+    if COLLECTIVE_LOG is not None:
+        ranks = (dist.get_process_group_ranks(group) if group is not None
+                 else range(dist.get_world_size()))
+        local = len({r // NODE_SIZE for r in ranks}) == 1
+        COLLECTIVE_LOG.append((kind, nbytes, dist.get_world_size(group),
+                               local, result.dtype, tuple(result.shape)))
+
+
+#: the single-tensor collectives of the non-gloo branches (NCCL's):
+#: torch 2.13 renamed ``reduce_scatter_tensor`` and
+#: ``all_gather_into_tensor`` (deprecating the old names) to
+#: ``reduce_scatter_single`` and ``all_gather_single``, whose
+#: ``(output, input, group=)`` arguments are the ones used here; earlier
+#: releases (2.11 on the card) have the old names only
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+_ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+
+
+def _gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
 def _gloo_staged(t: torch.Tensor, group) -> bool:
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+    return t.is_cuda and _gloo(group)
 
 
-def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` in place over ``group``."""
-    MESH.all_reduce += 1
+def all_reduce_sum_(t: torch.Tensor, group, op=None) -> torch.Tensor:
+    """Sum (or ``op``: ``dist.ReduceOp.MAX``) ``t`` in place over
+    ``group``."""
+    _count("all_reduce", t, group)
+    op = dist.ReduceOp.SUM if op is None else op
     if _gloo_staged(t, group):
         host = t.cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
 def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The blocks of ``group``'s ranks, in group-rank order, concatenated
     along ``dim``."""
-    MESH.all_gather += 1
     n = dist.get_world_size(group)
     src = t.contiguous()
-    staged = _gloo_staged(src, group)
-    if staged:
-        src = src.cpu()
-    out = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(out, src, group=group)
-    cat = torch.cat(out, dim=dim)
-    return cat.to(t.device) if staged else cat
+    if _gloo(group):
+        staged = src.is_cuda
+        if staged:
+            src = src.cpu()
+        out = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(out, src, group=group)
+        cat = torch.cat(out, dim=dim)
+        if staged:
+            cat = cat.to(t.device)
+    else:
+        out = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
+                          device=src.device)
+        _ALL_GATHER(out, src, group=group)
+        shape = list(src.shape)
+        shape[dim] *= n
+        cat = out.movedim(0, dim).reshape(shape)
+    _count("all_gather", cat, group)
+    return cat
+
+
+def reduce_scatter_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, cut into its ranks' blocks along
+    ``dim``: this rank's block.  gloo has no reduce-scatter: there it is
+    an all-reduce (staged through the host for CUDA tensors), then the
+    block."""
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                         f"split into {n} blocks")
+    step = t.shape[dim] // n
+    if _gloo(group):
+        host = t.detach().to("cpu", copy=True).contiguous()
+        dist.all_reduce(host, group=group)
+        out = host.narrow(dim, dist.get_rank(group) * step, step)
+        out = out.to(t.device).contiguous()
+    else:
+        src = t.movedim(dim, 0).contiguous()
+        out = torch.empty((step,) + tuple(src.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        _REDUCE_SCATTER(out, src, group=group)
+        out = out.movedim(0, dim).contiguous()
+    _count("reduce_scatter", out, group)
+    return out
+
+
+class _GatherScatter(torch.autograd.Function):
+    """All-gather along ``dim`` forward, reduce-scatter backward: FSDP's
+    parameter gather and sequence parallelism's activation gather (each
+    rank's use of the whole tensor contributes a part of its
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_cat(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterGather(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward, all-gather backward: the
+    partial sums of a row-split product back to sequence blocks."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward keeps this rank's
+    block of the gradient: every rank of ``group`` computed the same
+    whole result from the gathered tensor, so each holds the whole
+    gradient already."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.n = dim, dist.get_world_size(group)
+        ctx.rank = dist.get_rank(group)
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        step = g.shape[ctx.dim] // ctx.n
+        return g.narrow(ctx.dim, ctx.rank * step, step).contiguous(), \
+            None, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce backward (a tensor
+    every rank holds whole enters compute split over the group)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum_(g.clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's g: all-reduce forward, identity backward (the partial
+    sums of a split product become the whole on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather_grad(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return _GatherScatter.apply(x, group, dim)
+
+
+def scatter_grad(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return _ScatterGather.apply(x, group, dim)
+
+
+def gather_replicated(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return _GatherReplicated.apply(x, group, dim)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromGroup.apply(x, group)
 
 
 def broadcast_int(value: int, mesh) -> int:
@@ -132,9 +311,9 @@ def broadcast_int(value: int, mesh) -> int:
     if mesh.size() != dist.get_world_size():
         raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
                          f"{dist.get_world_size()}")
-    MESH.broadcast += 1
     t = torch.tensor([int(value)], dtype=torch.int64,
                      device="cuda" if _device_type() == "cuda" else "cpu")
+    _count("broadcast", t, None)
     dist.broadcast(t, src=int(mesh.mesh.flatten()[0]))
     return int(t.item())
 

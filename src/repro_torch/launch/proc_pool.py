@@ -379,7 +379,7 @@ def _worker_main(task: Dict[str, Any], address, worker_id: int,
                     break  # released with a STOP: training is over
         finally:
             flush_trace()
-            client.bye()
+            client.bye(reconnect_policy)
             client.close()
             if spill_fh is not None:
                 spill_fh.close()

@@ -16,22 +16,29 @@ port keeps the reference's values and its per-device storage:
 * every tensor of the step is stored as its rank's block of the spec
   that ``AxisRules.spec`` gives it: params, optimizer state, the DSSP
   ring and the batch;
-* the step gathers each parameter whole (``all_gather``) and runs the
-  model on the rank's batch rows;
-* it averages the gradients over the batch's mesh axes (an f32
-  ``all_reduce`` sum, then a division by a tensor) and takes each rank's
-  block for the ring and the optimizer, which update it in place
-  (Adafactor, whose update normalises by whole leaves, updates the
-  gathered leaves and keeps its blocks);
-* compute along 'model' and 'seq' is not partitioned: ranks on one
+* the transformers (dense, ``vlm``, MoE) under role 'tp' (``models/
+  partition.py``) compute on blocks too: layer i's parameters are
+  gathered over 'data' when layer i runs (FSDP; an MoE's experts whole),
+  the compute along 'model' is Megatron's (sequence-parallel or
+  tensor-parallel), and the gradients arrive as blocks, summed over the
+  axes the compute was split along, then divided once by the batch's
+  ranks;
+* every other config (Jamba, xLSTM, Whisper, role 'dp') and the
+  prefill and decode bundles gather each parameter whole
+  and run the model on the rank's batch rows, then average the
+  gradients over the batch's mesh axes (an f32 ``all_reduce`` sum, a
+  division by a tensor) and take each rank's block: ranks on one
   'model' coordinate repeat the same work (ROADMAP queue 3);
+* the ring and the optimizer update each rank's blocks in place;
+  Adafactor's means over whole leaves are sums over the blocks, summed
+  over the axes that split them (``block_means``);
 * a mesh whose axes all have one rank runs no collective and copies no
   parameter: the step computes with the stored tensors themselves.
 
-The model and the kernels see plain tensors.  With mesh rules installed
-attention takes the reference's mesh formulations (``layers.attention``)
-and no flash kernel; the norms go through the kernel registry as
-without a mesh.  Host decisions (the DSSP delay) must be the same on
+With mesh rules installed attention takes the reference's mesh
+formulations (``layers.attention``, or ``models/partition.py``'s on
+blocks) and no flash kernel; the norms go through the kernel registry
+as without a mesh.  Host decisions (the DSSP delay) must be the same on
 every rank: the caller passes the same value to each (the ``Trainer``
 broadcasts its controller's choice).
 """
@@ -47,16 +54,19 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.configs.shapes import ShapeSpec, input_specs, state_sds
 from repro_torch.core import dssp_spmd
-from repro_torch.launch.mesh import (all_reduce_mean, block_view, gather,
-                                     gather_leaf, spec_axes, split_dims)
+from repro_torch.launch.mesh import (all_reduce_mean, all_reduce_sum_,
+                                     block_view, gather, gather_leaf,
+                                     spec_axes, split_dims)
 from repro_torch.launch.train import OPTIMIZER_RANGE, RING_RANGE
 from repro_torch.models import registry, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import sds_tree, spec_tree
+from repro_torch.models.partition import partition_for
 from repro_torch.models.sharding import (AxisRules, PartitionSpec, is_spec,
                                          mesh_axis_sizes, rules_for_mesh,
                                          use_rules)
-from repro_torch.optim.optimizers import (Optimizer, make_optimizer,
+from repro_torch.optim.optimizers import (Optimizer, whole_mean,
+                                          make_optimizer,
                                           state_partition_specs)
 
 P = PartitionSpec
@@ -70,6 +80,9 @@ class StepBundle:
     donate_argnums: Tuple[int, ...]   # arguments updated in place
     input_sds: Tuple            # meta tensors matching fn's signature
     rules: AxisRules
+    #: the step computes on blocks (``models.partition``); False: it
+    #: gathers every parameter whole
+    partitioned: bool = False
 
 
 def batch_specs(cfg: ModelConfig, rules: AxisRules, sds: Dict[str, Any]):
@@ -148,35 +161,52 @@ def _row_block(b_spec: Any, mesh) -> Tuple[int, int]:
 
 def make_train_fn(mesh, rules: AxisRules, opt: Optimizer, loss_fn: Callable,
                   p_spec: Any, o_spec: Any, b_spec: Any, *,
-                  use_pipeline: bool, accum: int = 1) -> Callable:
+                  use_pipeline: bool, accum: int = 1,
+                  cfg: Optional[ModelConfig] = None) -> Callable:
     """The mesh train step ``(params, opt_state, pipeline, batch, delay)
     -> (params, opt_state, pipeline, {"loss": loss})`` over this rank's
     blocks (see the module docstring); params, optimizer state and ring
     are updated in place.  ``delay`` is a host int, the same on every
-    rank."""
+    rank.  With ``cfg`` a config that ``models.partition`` partitions,
+    the step computes on blocks (``Partition.loss``) and gathers no
+    whole parameter; otherwise it gathers each parameter whole and runs
+    ``loss_fn``."""
     sizes = mesh_axis_sizes(mesh)
     reduce_axes = tuple(a for a in _batch_axes(b_spec) if sizes[a] > 1)
     p_specs = tree_util.leaves(p_spec, is_leaf=is_spec)
     split = [bool(split_dims(s, mesh)) for s in p_specs]
-    whole_leaf_update = opt.name == "adafactor" and any(split)
     row_idx, row_blocks = _row_block(b_spec, mesh)
+    part = (partition_for(cfg, mesh, rules, p_spec, _batch_axes(b_spec))
+            if cfg is not None else None)
+    opt_kw = ({"means": block_means(p_specs, mesh)}
+              if opt.name == "adafactor" and any(split) else {})
+
+    def whole_grads(params, batch, row0):
+        """Gradients of the gathered leaves, averaged over the batch's
+        axes in f32, as each rank's blocks."""
+        full = gather(params, p_spec, mesh)
+        loss, grads = _local_grads(loss_fn, full, batch, accum, row0,
+                                   row_blocks)
+        if reduce_axes:
+            wide = [g if g.dtype == torch.float32 else g.float()
+                    for g in grads]
+            all_reduce_mean(wide + [loss], reduce_axes, mesh)
+            grads = wide
+        return loss, [block_view(g, s, mesh) if sp else g
+                      for g, s, sp in zip(grads, p_specs, split)]
 
     def train_step(params, opt_state, pipeline, batch, delay):
         with use_rules(rules):
-            full = gather(params, p_spec, mesh)
-            leaves, treedef = tree_util.flatten(full)
-            rows = tree_util.leaves(batch)[0].shape[0]
-            loss, grads = _local_grads(loss_fn, full, batch, accum,
-                                       row_idx * rows, row_blocks)
-            if reduce_axes:
-                wide = [g if g.dtype == torch.float32 else g.float()
-                        for g in grads]
-                all_reduce_mean(wide + [loss], reduce_axes, mesh)
-                grads = wide
-            grads = [g.to(p.dtype) for g, p in zip(grads, leaves)]
+            leaves, treedef = tree_util.flatten(params)
+            row0 = row_idx * tree_util.leaves(batch)[0].shape[0]
+            if part is not None:
+                loss, grads = _local_grads(part.loss, params, batch, accum,
+                                           row0, row_blocks)
+                grads = part.reduce_grads(list(grads), loss)
+            else:
+                loss, grads = whole_grads(params, batch, row0)
             blocks = tree_util.unflatten(treedef, [
-                block_view(g, s, mesh) if sp else g
-                for g, s, sp in zip(grads, p_specs, split)])
+                g.to(p.dtype) for g, p in zip(grads, leaves)])
             del grads
             if use_pipeline:
                 with torch.profiler.record_function(RING_RANGE):
@@ -186,37 +216,44 @@ def make_train_fn(mesh, rules: AxisRules, opt: Optimizer, loss_fn: Callable,
             else:
                 staleness, lr_scale = 0, 1.0
             with torch.profiler.record_function(OPTIMIZER_RANGE):
-                if whole_leaf_update:
-                    params, opt_state = _whole_leaf_update(
-                        opt, mesh, params, full, blocks, opt_state, p_spec,
-                        o_spec, staleness, lr_scale)
-                else:
-                    params, opt_state = opt.update(
-                        blocks, opt_state, params, staleness=staleness,
-                        lr_scale=lr_scale)
+                params, opt_state = opt.update(
+                    blocks, opt_state, params, staleness=staleness,
+                    lr_scale=lr_scale, **opt_kw)
         return params, opt_state, pipeline, {"loss": loss}
 
+    train_step.partition = part
     return train_step
 
 
-def _whole_leaf_update(opt, mesh, params, full, grad_blocks, opt_state,
-                       p_spec, o_spec, staleness, lr_scale):
-    """An optimizer whose update reads whole leaves (Adafactor's RMS and
-    factored moments): update the gathered leaves, then keep each
-    rank's block of the new values."""
-    grads = gather(grad_blocks, p_spec, mesh)
-    state = gather(opt_state, o_spec, mesh)
-    full, state = opt.update(grads, state, full, staleness=staleness,
-                             lr_scale=lr_scale)
-    with torch.no_grad():
-        for tree, whole, specs in ((params, full, p_spec),
-                                   (opt_state, state, o_spec)):
-            for mine, w, s in zip(tree_util.leaves(tree),
-                                  tree_util.leaves(whole),
-                                  tree_util.leaves(specs, is_leaf=is_spec)):
-                if isinstance(mine, torch.Tensor) and mine is not w:
-                    mine.copy_(block_view(w, s, mesh))
-    return params, opt_state._replace(count=state.count)
+def block_means(p_specs, mesh) -> list:
+    """Per leaf, Adafactor's ``mean(x, dim, pdim, keepdim)`` over the
+    whole leaf from this rank's block: a sum over the block, summed over
+    the mesh axes that split the leaf's dimension ``pdim`` (every split
+    axis for ``pdim`` None), divided by the whole count (a tensor
+    divisor); ``torch.mean`` for a leaf no axis splits."""
+    sizes = mesh_axis_sizes(mesh)
+
+    def make(spec):
+        dims = split_dims(spec, mesh)
+        if not dims:
+            return whole_mean
+
+        def mean(x, dim, pdim, keepdim=False):
+            if dim is None:
+                axes = [a for ax in dims.values() for a in ax]
+                s, count = x.sum(), x.numel()
+            else:
+                axes = list(dims.get(pdim, ()))
+                s, count = x.sum(dim=dim, keepdim=keepdim), x.shape[dim]
+            for a in axes:
+                if sizes[a] > 1:
+                    all_reduce_sum_(s, mesh.get_group(a))
+                    count *= sizes[a]
+            return s / torch.full((), count, dtype=s.dtype, device=s.device)
+
+        return mean
+
+    return [make(s) for s in p_specs]
 
 
 def _meta_scalar() -> torch.Tensor:
@@ -227,7 +264,9 @@ def _meta_scalar() -> torch.Tensor:
 def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
                      sync: str = "dssp", s_upper: int = 1,
                      optimizer: Optional[Optimizer] = None,
-                     lr: float = 3e-4) -> StepBundle:
+                     lr: float = 3e-4, partition: bool = True) -> StepBundle:
+    """``partition=False``: the step gathers every parameter whole even
+    where ``models.partition`` would split its compute."""
     rules = rules_for_mesh(mesh, sp=cfg.sequence_parallel,
                            role=cfg.model_axis_role)
     opt = optimizer or make_optimizer(cfg.optimizer, lr)
@@ -249,11 +288,12 @@ def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
 
     fn = make_train_fn(mesh, rules, opt, registry.loss_fn(cfg), p_spec,
                        o_spec, b_spec, use_pipeline=use_pipeline,
-                       accum=accum)
+                       accum=accum, cfg=cfg if partition else None)
     in_sh = (p_spec, o_spec, pipe_spec, b_spec, P())
     out_sh = (p_spec, o_spec, pipe_spec, {"loss": P()})
     input_sds = (p_sds, o_sds, pipe_sds, b_sds, _meta_scalar())
-    return StepBundle(fn, in_sh, out_sh, (0, 1, 2), input_sds, rules)
+    return StepBundle(fn, in_sh, out_sh, (0, 1, 2), input_sds, rules,
+                      fn.partition is not None)
 
 
 # ------------------------------------------------------------------ helpers

@@ -135,7 +135,7 @@ class Trainer:
                 self.mesh, rules, self.opt, self.loss_fn, self.param_specs,
                 state_partition_specs(self.opt, self.param_specs,
                                       self.params),
-                rows, use_pipeline=self.use_pipeline)
+                rows, use_pipeline=self.use_pipeline, cfg=cfg)
         self.opt_state = self.opt.init(self.params)
         self.pipeline = (dssp_spmd.init_pipeline(self.params, s_upper + 1)
                          if self.use_pipeline else ())

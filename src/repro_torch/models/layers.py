@@ -202,6 +202,15 @@ def masked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
+    return heads_attention(cfg, q, k, v, mask)
+
+
+def heads_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The tensor-parallel form over heads already broadcast (q, k, v
+    with one head count): when ``cfg.attn_chunk`` divides lq into more
+    than one chunk, the queries go in chunks of that many rows."""
+    lq = q.shape[1]
     chunk = cfg.attn_chunk
     if chunk <= 0 or lq <= chunk or lq % chunk:
         return _attention_heads(q, k, v, mask)
@@ -382,9 +391,10 @@ def unembed(x: torch.Tensor, table: torch.Tensor,
 
     Products of the storage dtype are exact in f32 and summed in f32, as
     the reference's ``preferred_element_type=float32``: on CUDA in bf16,
-    one tensor-core product that accumulates and writes in f32; elsewhere
-    an f32 product.  Padded columns are masked to -1e30."""
-    if x.is_cuda and x.dtype == table.dtype == torch.bfloat16:
+    one tensor-core product that accumulates and writes in f32 (on fake
+    ``meta`` tensors too, the dry run's trace of the card's route); on
+    the CPU an f32 product.  Padded columns are masked to -1e30."""
+    if x.device.type != "cpu" and x.dtype == table.dtype == torch.bfloat16:
         logits = _Bf16Unembed.apply(x, table)
     else:
         logits = x.float() @ table.float().t()

@@ -1,0 +1,397 @@
+"""Partitioned compute on a mesh for the transformer family (``dense``,
+``vlm``, ``moe``): Megatron sequence- or tensor-parallel layers over
+'model' and per-layer FSDP gathers over 'data'.
+
+Counterpart of what GSPMD makes of ``repro/models/transformer.py`` under
+the reference's rules (``models/sharding.py``, role 'tp'): the values are
+the reference's, the memory and the work per rank the blocks that the
+specs give.  Every rank stores its block of each parameter
+(``launch.mesh.place``); the step (``launch/steps.py``) computes the
+loss of its batch rows through ``Partition.loss``, which runs
+``transformer.loss_fn`` itself with a ``Partition`` in place of its
+``Whole`` hooks (one forward serves one device and a mesh):
+
+* FSDP.  Layer i's blocks are gathered over 'data' when layer i runs and
+  dropped after it (all-gather forward, reduce-scatter backward); under
+  ``remat="full"`` the gather sits inside the checkpointed layer, so the
+  recompute gathers again.  The embedding tables and the final norm take
+  the same gather.  The gradients arrive as blocks, summed over 'data'.
+* ``sp=True`` (the reference's default): the residual stream is split
+  along the sequence over 'model'.  Attention projects the rank's own
+  block, gathers K and V along the sequence and keeps its queries,
+  masked at the block's global offset with rotary at its global
+  positions.  The MLP gathers its input along the sequence, multiplies
+  by its column blocks of ``w_gate``/``w_up`` and its row block of
+  ``w_down``, and reduce-scatters back to sequence blocks.
+* ``sp=False``: the residual is whole on every rank; attention splits
+  its heads over 'model' where they divide (q, k, v by columns, ``wo``
+  by rows, then an all-reduce; K and V are broadcast to the query heads
+  before a rank takes its own), and the MLP is Megatron's (f, split
+  products, g).
+* The embedding looks up the rank's vocabulary block (others' tokens
+  masked to zero) and reduce-scatters to sequence blocks (all-reduces
+  under ``sp=False``); the unembedding makes vocabulary-split logits,
+  and the cross entropy reduces its max and its sum of exponentials over
+  'model', the target's logit coming from its owner.
+* An MoE FFN has no expert parallelism yet (ROADMAP item 14): its
+  leaves are gathered whole per layer, over 'data' and 'model'.  Under
+  SP each rank routes its own sequence block where the reference's
+  chunks of ``cfg.moe_chunk`` tokens lie within it (the aux loss then
+  averaged over 'model'), and otherwise the whole sequence, keeping its
+  block of the output; under TP every rank computes the FFN whole.
+
+Each leaf's gradient ends up summed over exactly the mesh axes along
+which its compute was split and its storage is not (``sum_axes``):
+'data' through the FSDP reduce-scatter (or an all-reduce for a leaf
+that 'data' does not split), 'pod' for every leaf, 'model' for the
+leaves that sequence parallelism computes on blocks (attention and
+norms) and, under tensor parallelism, for those a rank uses only a head
+block of.  Then one division by the batch's ranks.
+
+What this does not partition (``partition_for`` returns None and the
+step gathers whole leaves): Jamba, xLSTM and Whisper, role 'dp'
+configs, a mesh of one rank, and prefill and decode.  A transformer
+config under role 'tp' that it cannot split is refused, not gathered
+whole.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree as tree_util
+from repro_torch.launch.mesh import (all_reduce_sum_, copy_to_group,
+                                     gather_grad, gather_replicated,
+                                     reduce_from_group, scatter_grad)
+from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import (AxisRules, PartitionSpec,
+                                         is_spec, mesh_axis_sizes)
+
+P = PartitionSpec
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _dim_axes(spec: PartitionSpec, dim: int) -> Tuple[str, ...]:
+    return _axes(spec[dim]) if dim < len(spec) else ()
+
+
+def _split_over(spec: PartitionSpec, axis: str) -> bool:
+    return any(axis in _axes(e) for e in spec)
+
+
+def _spec_paths(specs: Any, prefix: Tuple[str, ...] = ()
+               ) -> List[Tuple[Tuple[str, ...], PartitionSpec]]:
+    """(path, spec) of every leaf of a spec tree, in flatten order."""
+    if is_spec(specs):
+        return [(prefix, specs)]
+    out = []
+    for k in sorted(specs):
+        out.extend(_spec_paths(specs[k], prefix + (k,)))
+    return out
+
+
+def partition_for(cfg: ModelConfig, mesh, rules: AxisRules, p_spec: Any,
+                  batch_axes: Tuple[str, ...]) -> Optional["Partition"]:
+    """The partition of ``cfg``'s step on ``mesh``, or None where this
+    module leaves the step to gather whole leaves (another family, role
+    'dp', a mesh of one rank).  Raises for a transformer under role 'tp'
+    that it cannot split: a GELU MLP, a batch that does not split over
+    every axis but 'model', or a vocabulary or MLP width that 'model'
+    does not split."""
+    sizes = mesh_axis_sizes(mesh)
+    if (cfg.family not in ("dense", "vlm", "moe")
+            or rules.rules.get("model") != "model"
+            or math.prod(sizes.values()) == 1):
+        return None
+    why = None
+    live = {a for a, n in sizes.items() if n > 1}
+    if cfg.act != "silu":
+        why = f"act={cfg.act!r} (only the SwiGLU MLP is split)"
+    elif live - {"model"} != {a for a in batch_axes if sizes[a] > 1}:
+        why = (f"the batch splits over {tuple(batch_axes)}, not every "
+               f"axis but 'model' of {sizes}")
+    elif sizes.get("model", 1) > 1:
+        mlp = p_spec["layers"].get("mlp")
+        if not _split_over(p_spec["embed"], "model"):
+            why = "'model' does not split the vocabulary"
+        elif mlp is not None and not _split_over(mlp["w_up"], "model"):
+            why = "'model' does not split the MLP width"
+    if why is not None:
+        raise ValueError(f"{cfg.name}: the step on {sizes} cannot be "
+                         f"partitioned: {why}")
+    return Partition(cfg, mesh, rules, p_spec)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+class Partition(transformer.Whole):
+    """One rank's share of the transformer's compute on ``mesh``: the
+    hooks of ``transformer.Whole`` over the rank's blocks."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules: AxisRules,
+                 p_spec: Any):
+        sizes = mesh_axis_sizes(mesh)
+        self.cfg = cfg
+        self.mesh = mesh
+        self.sizes = sizes
+        self.sp = rules.attn_mode == "sp"
+        self.m = sizes.get("model", 1)
+        self.mg = mesh.get_group("model") if self.m > 1 else None
+        self.rank = mesh.get_local_rank("model") if self.m > 1 else 0
+        self.dg = mesh.get_group("data") if sizes.get("data", 1) > 1 \
+            else None
+        self.p_spec = p_spec
+        layer = _spec_paths(p_spec["layers"])
+        self.layer_specs = [P(*s[1:]) for _, s in layer]
+        # an MoE FFN's leaves are gathered whole (no expert parallelism)
+        self.layer_whole = [path[0] == "moe" for path, _ in layer]
+        attn = p_spec["layers"]["attn"]
+        # per-layer dims: wq (d, hq, hd), wk (d, hkv, hd)
+        self.heads_split = "model" in _dim_axes(attn["wq"], 2)
+        self.kv_split = "model" in _dim_axes(attn["wk"], 2)
+        self.batch_ranks = math.prod(
+            n for a, n in sizes.items() if a != "model")
+        self.sum_axes = [self._sum_axes(path, spec)
+                         for path, spec in _spec_paths(p_spec)]
+
+    # ------------------------------------------------------ gradients
+    def _sum_axes(self, path: Tuple[str, ...], spec: PartitionSpec
+                  ) -> Tuple[str, ...]:
+        """The mesh axes a leaf's gradient is summed over after the
+        FSDP reduce-scatter (see the module docstring)."""
+        out = []
+        for a in ("pod", "data"):
+            if self.sizes.get(a, 1) > 1 and not _split_over(spec, a):
+                out.append(a)
+        if self.m > 1 and not _split_over(spec, "model"):
+            name = path[-1]
+            if self.sp:
+                out.append("model")
+            elif self.heads_split and (
+                    name in ("q_norm", "k_norm")
+                    or (not self.kv_split and name in ("wk", "wv", "bk",
+                                                       "bv"))):
+                out.append("model")
+        return tuple(out)
+
+    def reduce_grads(self, grads: List[torch.Tensor],
+                     loss: torch.Tensor) -> List[torch.Tensor]:
+        """The blocks' gradients summed over ``sum_axes`` in f32 and
+        divided once by the batch's ranks; the loss averaged over the
+        batch's ranks."""
+        n = torch.full((), self.batch_ranks, dtype=torch.float32,
+                       device=loss.device)
+        out = []
+        for g, axes in zip(grads, self.sum_axes):
+            g = g if g.dtype == torch.float32 else g.float()
+            for a in axes:
+                all_reduce_sum_(g, self.mesh.get_group(a))
+            out.append(g.div_(n))
+        for a, size in self.sizes.items():
+            if a != "model" and size > 1:
+                all_reduce_sum_(loss, self.mesh.get_group(a))
+        loss.div_(n)
+        return out
+
+    # ------------------------------------------------------ FSDP
+    def fsdp(self, x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
+        """``x``'s block gathered over 'data' (its 'model' split kept)."""
+        if self.dg is None:
+            return x
+        for i, entry in enumerate(spec):
+            axes = _axes(entry)
+            if "data" in axes:
+                if axes != ("data",):
+                    raise ValueError(f"an FSDP dimension over {axes}")
+                x = gather_grad(x, self.dg, i)
+        return x
+
+    def _whole(self, x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
+        """``x``'s block gathered over 'model' too: under SP each rank's
+        use of it is a part of its gradient (reduce-scattered back),
+        under TP every rank's use is the whole (its block kept)."""
+        if self.m == 1:
+            return x
+        gather = gather_grad if self.sp else gather_replicated
+        for i, entry in enumerate(spec):
+            if "model" in _axes(entry):
+                x = gather(x, self.mg, i)
+        return x
+
+    def layer(self, w: Dict[str, Any]) -> Dict[str, Any]:
+        flat, treedef = tree_util.flatten(w)
+        return tree_util.unflatten(treedef, [
+            self._whole(self.fsdp(x, s), s) if whole else self.fsdp(x, s)
+            for x, s, whole in zip(flat, self.layer_specs,
+                                   self.layer_whole)])
+
+    def final_norm(self, w: Dict[str, torch.Tensor]):
+        return {k: self.fsdp(v, self.p_spec["final_norm"][k])
+                for k, v in w.items()}
+
+    # ------------------------------------------------------ forward
+    def embed(self, cfg: ModelConfig, tokens: torch.Tensor,
+              block: torch.Tensor) -> torch.Tensor:
+        table = self.fsdp(block, self.p_spec["embed"])
+        if self.m == 1:
+            return table[tokens]
+        vb = table.shape[0]
+        local = tokens.long() - self.rank * vb
+        own = (local >= 0) & (local < vb)
+        rows = table[local.clamp(0, vb - 1)]
+        out = torch.where(own[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device))
+        if self.sp:
+            return scatter_grad(out, self.mg, 1)
+        return reduce_from_group(out, self.mg)
+
+    def positions(self, l: int, device) -> torch.Tensor:
+        """The sequence block's global positions under SP."""
+        if not self.sp or self.m == 1:
+            return torch.arange(l, device=device)
+        if l % self.m:
+            raise ValueError(f"sequence {l} does not split over "
+                             f"{self.m} 'model' ranks")
+        lb = l // self.m
+        return torch.arange(self.rank * lb, (self.rank + 1) * lb,
+                            device=device)
+
+    def attention(self, cfg: ModelConfig, h: torch.Tensor,
+                  w: Dict[str, torch.Tensor], cos: torch.Tensor,
+                  sin: torch.Tensor, collect_kv: bool = False
+                  ) -> torch.Tensor:
+        if collect_kv:
+            raise NotImplementedError("prefill is not partitioned")
+        window = cfg.sliding_window
+        if self.sp:
+            q, k, v = L._qkv(cfg, h, w, cos, sin)
+            if self.m > 1:
+                k = gather_grad(k, self.mg, 1)
+                v = gather_grad(v, self.mg, 1)
+            b, lq, hq, d = q.shape
+            hkv = k.shape[2]
+            mask = L.causal_window_mask(lq, k.shape[1],
+                                        q_offset=self.rank * lq,
+                                        window=window, device=q.device)
+            out = L._attention_grouped(q.reshape(b, lq, hkv, hq // hkv, d),
+                                       k, v, mask).reshape(b, lq, hq, d)
+            return L._out_project(out, w["wo"])
+        split = self.m > 1 and self.heads_split
+        hf = copy_to_group(h, self.mg) if split else h
+        q, k, v = L._qkv(cfg, hf, w, cos, sin)
+        l, hq = q.shape[1], q.shape[2]
+        g = cfg.n_heads // cfg.n_kv_heads
+        if g > 1:
+            k = k.repeat_interleave(g, dim=2)
+            v = v.repeat_interleave(g, dim=2)
+        if split and not self.kv_split:
+            k = k.narrow(2, self.rank * hq, hq)
+            v = v.narrow(2, self.rank * hq, hq)
+        mask = L.causal_window_mask(l, l, window=window, device=q.device)
+        out = L._out_project(L.heads_attention(cfg, q, k, v, mask), w["wo"])
+        return reduce_from_group(out, self.mg) if split else out
+
+    def _mlp(self, h: torch.Tensor, w: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        if self.m == 1:
+            return L.mlp_block(self.cfg, h, w)
+        hg = (gather_grad(h, self.mg, 1) if self.sp
+              else copy_to_group(h, self.mg))
+        out = L.mlp_block(self.cfg, hg, w)
+        if self.sp:
+            return scatter_grad(out, self.mg, 1)
+        return reduce_from_group(out, self.mg)
+
+    def ffn(self, cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any]):
+        if "moe" in w:
+            return self._moe(h, w["moe"])
+        return self._mlp(h, w["mlp"]), None
+
+    def _moe(self, h: torch.Tensor, w: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The MoE FFN over whole experts: (out, the aux loss, whose
+        gradient reaches each rank as its share)."""
+        cfg = self.cfg
+        if self.m == 1 or not self.sp:
+            return moe_lib.moe_block(cfg, h, w)
+        lb = h.shape[1]
+        m = torch.full((), self.m, dtype=torch.float32, device=h.device)
+        if 0 < cfg.moe_chunk <= lb and lb % cfg.moe_chunk == 0:
+            # the reference's chunks lie within this block: route them
+            # here; the aux loss is the mean of every chunk's
+            out, aux = moe_lib.moe_block(cfg, h, w)
+            return out, reduce_from_group(aux, self.mg) / m
+        out, aux = moe_lib.moe_block(cfg, gather_grad(h, self.mg, 1), w)
+        return (out.narrow(1, self.rank * lb, lb),
+                _ScaleGrad.apply(aux, 1.0 / self.m))
+
+    def unembed(self, cfg: ModelConfig, x: torch.Tensor,
+                block: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's vocabulary block of the logits (rows, l, v /
+        model) in f32, the padded columns masked."""
+        table = self.fsdp(block, self.p_spec[name])
+        if self.m > 1:
+            x = (gather_grad(x, self.mg, 1) if self.sp
+                 else copy_to_group(x, self.mg))
+        logits = L.unembed(x, table)
+        vb = table.shape[0]
+        v0 = self.rank * vb
+        if v0 + vb > cfg.vocab_size:
+            col = torch.arange(v0, v0 + vb, device=x.device)
+            logits = logits.masked_fill(col >= cfg.vocab_size, L.NEG_INF)
+        return logits
+
+    def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor,
+                      ignore_id: int = -1) -> torch.Tensor:
+        """Mean token NLL over the rank's rows from vocabulary-split
+        logits: the max and the sum of exponentials reduced over
+        'model', the target's logit from the rank that owns it."""
+        if self.m == 1:
+            return L.cross_entropy(logits, labels, ignore_id)
+        vb = logits.shape[-1]
+        v0 = self.rank * vb
+        top = logits.detach().amax(dim=-1)
+        all_reduce_sum_(top, self.mg, op=dist.ReduceOp.MAX)
+        shifted = logits - top[..., None]
+        sumexp = torch.exp(shifted).sum(dim=-1)
+        local = labels.clamp(min=0).long() - v0
+        own = (local >= 0) & (local < vb)
+        gold = torch.gather(shifted, -1,
+                            local.clamp(0, vb - 1)[..., None])[..., 0]
+        gold = torch.where(own, gold, torch.zeros((), device=gold.device))
+        sumexp, gold = reduce_from_group(torch.stack([sumexp, gold]),
+                                         self.mg).unbind(0)
+        nll = torch.log(sumexp) - gold
+        weights = (labels != ignore_id).float()
+        return torch.sum(nll * weights) / torch.clamp(torch.sum(weights),
+                                                      min=1.0)
+
+    def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """``transformer.loss_fn`` on the rank's blocks: the loss is the
+        mean over the rank's rows, the same on every rank of one 'model'
+        group."""
+        return transformer.loss_fn(self.cfg, params, batch, self)

@@ -13,15 +13,16 @@ The specs are the reference's, element for element.
 
 What a spec decides in the port: the block of a tensor each rank
 stores (``launch/steps.py``: params, optimizer state, the DSSP ring,
-the batch).  It does not partition compute: the step gathers every
-parameter whole and runs the model on its rank's batch rows, so ranks
-on one 'model' coordinate repeat the same work (ROADMAP queue 3).
-Hence ``shard`` returns its input: under GSPMD a sharding constraint
-never changes a value, and the port has nothing to constrain.  The
-rules still choose code paths the reference chooses with them: with a
-mesh installed, attention takes the reference's sequence-parallel or
-tensor-parallel formulation (``layers.attention``) instead of the
-flash kernel.
+the batch), and, for the transformers under role 'tp', the block of
+the compute each rank does (``models/partition.py``
+splits the train step's compute by these specs with explicit
+collectives).  Elsewhere the step gathers every parameter whole and
+runs the model on its rank's batch rows (ROADMAP queue 3).  Hence
+``shard`` returns its input: under GSPMD a sharding constraint never
+changes a value, and where the port partitions it does so explicitly.
+The rules still choose code paths the reference chooses with them: with
+a mesh installed, attention takes the reference's sequence-parallel or
+tensor-parallel formulation instead of the flash kernel.
 """
 
 from __future__ import annotations
@@ -127,9 +128,9 @@ def shard(x, *logical: Optional[str]):
     """The reference's sharding constraint on logical axes: ``x`` itself.
 
     A constraint tells GSPMD where to keep a value; it never changes the
-    value.  The port does not partition compute (every rank computes
-    with whole parameters on its own batch rows), so there is no layout
-    to pin between operations."""
+    value.  Where the port partitions compute (``models/partition.py``)
+    it moves blocks with explicit collectives, so there is no layout to
+    pin between operations."""
     return x
 
 

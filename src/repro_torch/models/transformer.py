@@ -133,19 +133,62 @@ def _ffn(cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any]):
     return L.mlp_block(cfg, h, w["mlp"]), None
 
 
+class Whole:
+    """The hooks through which ``forward`` and ``loss_fn`` reach the
+    parameters and the compute that a mesh could split: here each
+    computes the whole (one device, or a step that gathered every
+    parameter).  ``models.partition.Partition`` overrides them with a
+    rank's block of the same values."""
+
+    def layer(self, w: Dict[str, Any]) -> Dict[str, Any]:
+        """Layer i's weights when layer i runs."""
+        return w
+
+    def final_norm(self, w: Dict[str, torch.Tensor]):
+        return w
+
+    def embed(self, cfg: ModelConfig, tokens: torch.Tensor,
+              table: torch.Tensor) -> torch.Tensor:
+        return L.embed(tokens, table)
+
+    def positions(self, l: int, device) -> torch.Tensor:
+        """The global positions of the sequence this rank holds."""
+        return torch.arange(l, device=device)
+
+    def attention(self, cfg: ModelConfig, h: torch.Tensor,
+                  w: Dict[str, torch.Tensor], cos: torch.Tensor,
+                  sin: torch.Tensor, collect_kv: bool = False):
+        return L.attention_block(cfg, h, w, cos, sin, collect_kv=collect_kv)
+
+    def ffn(self, cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any]):
+        return _ffn(cfg, h, w)
+
+    def unembed(self, cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor,
+                name: str) -> torch.Tensor:
+        return L.unembed(x, table, cfg.vocab_size)
+
+    def cross_entropy(self, logits: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+        return L.cross_entropy(logits, labels)
+
+
+WHOLE = Whole()
+
+
 def _layer(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
-           cos: torch.Tensor, sin: torch.Tensor, collect_kv: bool = False):
+           cos: torch.Tensor, sin: torch.Tensor, collect_kv: bool = False,
+           part: Whole = WHOLE):
     """Pre-norm residual block.  Returns (x, aux) (aux None for a dense
     MLP); with ``collect_kv`` also the attention's post-rotary (k, v)."""
+    w = part.layer(w)
     h = L.apply_norm(cfg, x, w["attn_norm"])
-    att = L.attention_block(cfg, h, w["attn"], cos, sin,
-                            collect_kv=collect_kv)
+    att = part.attention(cfg, h, w["attn"], cos, sin, collect_kv)
     if collect_kv:
         att, kv = att
     # fused residual-add + norm: one pass produces the updated stream
     # AND its normed view for the FFN
     x, h = L.residual_apply_norm(cfg, att, x, w["mlp_norm"])
-    out, aux = _ffn(cfg, h, w)
+    out, aux = part.ffn(cfg, h, w)
     return (x + out, aux, kv) if collect_kv else (x + out, aux)
 
 
@@ -159,38 +202,42 @@ def layer_weights(layer_params: Any, n: int):
 
 # --------------------------------------------------------------- forward
 def forward(cfg: ModelConfig, params: Dict[str, Any],
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            tokens: torch.Tensor, part: Whole = WHOLE
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward. tokens (b, l) -> logits (b, l, v), the aux loss
-    summed over layers (zero without MoE)."""
+    summed over layers (zero without MoE).  ``part``: a rank's block of
+    the compute on a mesh (``models.partition``; its logits are then
+    the rank's vocabulary block)."""
     b, l = tokens.shape
-    x = L.embed(tokens, params["embed"]).to(torch_dtype(cfg.dtype))
-    positions = torch.arange(l, device=tokens.device)
+    x = part.embed(cfg, tokens, params["embed"]).to(torch_dtype(cfg.dtype))
+    positions = part.positions(l, tokens.device)
     cos, sin = L.rotary_embedding(positions, cfg.resolved_head_dim,
                                   cfg.rope_theta)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for w in layer_weights(params["layers"], cfg.n_layers):
         if cfg.remat == "full":
             # the checkpointed layer returns its aux too, so the aux
-            # loss's gradient flows through the recompute
-            x, aux = checkpoint(_layer, cfg, x, w, cos, sin,
+            # loss's gradient flows through the recompute (and a mesh's
+            # per-layer gather runs again in it)
+            x, aux = checkpoint(_layer, cfg, x, w, cos, sin, False, part,
                                 use_reentrant=False,
                                 context_fn=remat_contexts)
         else:
-            x, aux = _layer(cfg, x, w, cos, sin)
+            x, aux = _layer(cfg, x, w, cos, sin, False, part)
         if aux is not None:
             aux_total = aux_total + aux
-    x = L.apply_norm(cfg, x, params["final_norm"])
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed(x, table, cfg.vocab_size), aux_total
+    x = L.apply_norm(cfg, x, part.final_norm(params["final_norm"]))
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    return part.unembed(cfg, x, params[name], name), aux_total
 
 
 def loss_fn(cfg: ModelConfig, params: Dict[str, Any],
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], part: Whole = WHOLE
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """``nll + aux_loss_weight · aux`` (the weight 0 without MoE), and
     the parts: ``loss`` is the nll."""
-    logits, aux = forward(cfg, params, batch["tokens"])
-    nll = L.cross_entropy(logits, batch["labels"])
+    logits, aux = forward(cfg, params, batch["tokens"], part)
+    nll = part.cross_entropy(logits, batch["labels"])
     weight = cfg.moe.aux_loss_weight if cfg.moe else 0.0
     return nll + weight * aux, {"loss": nll, "aux_loss": aux}
 

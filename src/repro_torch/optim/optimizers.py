@@ -184,6 +184,11 @@ class AdafactorState(NamedTuple):
     count: torch.Tensor
 
 
+def whole_mean(x, dim, pdim, keepdim=False):
+    return torch.mean(x) if dim is None else torch.mean(x, dim=dim,
+                                                       keepdim=keepdim)
+
+
 def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0, *,
               staleness_damping: bool = False) -> Optimizer:
@@ -209,7 +214,12 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
                               v_full=tree_util.tree_map(full, params),
                               count=_count0())
 
-    def update(grads, state, params, *, staleness=0, lr_scale=1.0):
+    def update(grads, state, params, *, staleness=0, lr_scale=1.0,
+               means=None):
+        """``means``: per leaf, ``mean(x, dim, pdim, keepdim)`` over the
+        whole leaf's dimension ``pdim`` (None: every dimension) of a
+        block ``x`` (a mesh step's blocks reduce over their axes);
+        default ``torch.mean`` over ``x`` itself."""
         count = state.count + 1
         t = count.float()
         beta = 1.0 - t ** (-decay)
@@ -218,32 +228,34 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
         clip = _f32(clip_threshold).to(dev)
         step_lr = lr * lr_scale
 
-        def one(p, g, vr, vc, vf):
+        def one(p, g, vr, vc, vf, mean):
             gf = g.float() * scale
             g2 = torch.square(gf) + eps
-            if p.dim() < 2:
+            r_ = p.dim()
+            if r_ < 2:
                 vf.copy_(beta * vf + (1 - beta) * g2)
                 u = gf * torch.rsqrt(vf + eps)
             else:
-                vr.copy_(beta * vr + (1 - beta) * torch.mean(g2, dim=-1))
-                vc.copy_(beta * vc + (1 - beta) * torch.mean(g2, dim=-2))
+                vr.copy_(beta * vr + (1 - beta) * mean(g2, -1, r_ - 1))
+                vc.copy_(beta * vc + (1 - beta) * mean(g2, -2, r_ - 2))
                 # normalized row factor keeps the factored product an
                 # unbiased estimate of the full second moment
                 r = vr / torch.clamp_min(
-                    torch.mean(vr, dim=-1, keepdim=True), eps)
+                    mean(vr, -1, r_ - 2, keepdim=True), eps)
                 denom = (torch.sqrt(r)[..., :, None]
                          * torch.sqrt(vc)[..., None, :] + eps)
                 u = gf / denom
-            rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            rms = torch.sqrt(mean(torch.square(u), None, None) + eps)
             u = u / torch.clamp_min(rms / clip, 1.0)
             p.copy_((p.float() - step_lr * u).to(p.dtype))
 
         flat: List[List[torch.Tensor]] = [
             tree_util.leaves(t) for t in (params, grads, state.v_row,
                                           state.v_col, state.v_full)]
+        per_leaf = means or [whole_mean] * len(flat[0])
         with torch.no_grad():
-            for leaves in zip(*flat):
-                one(*leaves)
+            for leaves, mean in zip(zip(*flat), per_leaf):
+                one(*leaves, mean)
         return params, AdafactorState(v_row=state.v_row, v_col=state.v_col,
                                       v_full=state.v_full, count=count)
 

@@ -98,14 +98,23 @@ class TransportCounters(_CounterBase):
 @dataclasses.dataclass
 class MeshCounters(_CounterBase):
     """The device mesh's traffic (``repro_torch.launch.mesh``): the
-    collectives launched on sub-groups of more than one rank, and the
-    tensors that placing or gathering a block allocated.  A mesh whose
-    axes all have one rank leaves every field at 0."""
+    collectives launched on sub-groups of more than one rank with their
+    result bytes, and the tensors that placing or gathering a block
+    allocated.  A mesh whose axes all have one rank leaves every field
+    at 0."""
 
     all_reduce: int = 0
     all_gather: int = 0
+    reduce_scatter: int = 0
     broadcast: int = 0
     block_copies: int = 0
+    #: the result bytes of each kind (an all-gather's gathered tensor, a
+    #: reduce-scatter's block, an all-reduce's tensor), the ``S`` of the
+    #: roofline's ring model (``repro_torch.roofline``)
+    all_reduce_bytes: int = 0
+    all_gather_bytes: int = 0
+    reduce_scatter_bytes: int = 0
+    broadcast_bytes: int = 0
 
 
 #: Process-global counters — reset + snapshot around the region of

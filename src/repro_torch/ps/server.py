@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch._compat import warn_legacy
 from repro_torch import tree as tree_util
 from repro_torch.api.protocol import DeltaPull, ParameterServerProtocol
 from repro_torch.core.policies import SyncPolicy
@@ -194,6 +195,9 @@ class ParameterServer(ParameterServerProtocol):
                  clock: Callable[[], float] = time.monotonic,
                  apply_mode: str = "tree", coalesce: int = 1,
                  coalesce_wait: Optional[float] = None):
+        warn_legacy("ParameterServer",
+                    "repro_torch.api.build_session(RunSpec(ps=ServerSpec("
+                    "kind='mono', ...)))")
         if apply_mode not in ("tree", "packed"):
             raise ValueError(f"unknown apply mode {apply_mode!r}")
         if coalesce < 1:

@@ -67,6 +67,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch._compat import warn_legacy
 from repro_torch.api.protocol import DeltaPull, ParameterServerProtocol
 from repro_torch.core.policies import Decision, SyncPolicy
 from repro_torch.core.staleness import StalenessTracker
@@ -170,6 +171,9 @@ class ShardedParameterServer(ParameterServerProtocol):
                  coalesce: int = 1,
                  coalesce_wait: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic):
+        warn_legacy("ShardedParameterServer",
+                    "repro_torch.api.build_session(RunSpec(ps=ServerSpec("
+                    "kind='sharded', ...)))")
         if gating not in ("sharded", "global"):
             raise ValueError(f"unknown gating mode {gating!r}")
         if apply_mode not in ("tree", "fused"):

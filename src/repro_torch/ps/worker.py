@@ -33,6 +33,7 @@ from typing import Any, Callable, Iterator, Optional
 
 import torch
 
+from repro_torch._compat import warn_legacy
 from repro_torch import tree as tree_util
 from repro_torch.api.protocol import ParameterServerProtocol
 from repro_torch.obs.trace import TRACE
@@ -67,6 +68,9 @@ class PSWorker(threading.Thread):
                  delta_pull: bool = False,
                  name: Optional[str] = None):
         super().__init__(name=name or f"ps-worker-{worker_id}", daemon=True)
+        warn_legacy("PSWorker",
+                    "repro_torch.api.build_session (sessions construct and "
+                    "join their own workers)")
         if wire_format not in ("tree", "packed"):
             raise ValueError(f"unknown wire format {wire_format!r}")
         if delta_pull and wire_format != "packed":

@@ -247,12 +247,25 @@ class PSTransportClient:
                        args={"tries": tries[0], "rows": rows})
         return rows
 
-    def bye(self) -> None:
-        """Leave the barrier group so survivors are not gated on us."""
+    def bye(self, policy: Optional[BackoffPolicy] = None) -> None:
+        """Leave the barrier group so survivors are not gated on us.
+
+        With a reconnect ``policy`` (a worker with a failover budget), a
+        BYE that finds the channel dead reconnects and is sent again: a
+        server restarted from a snapshot would otherwise hold the seat
+        forever.  Without one, or once the budget is spent, a dead
+        server has nothing left to leave."""
+        frame = Frame(kind=MSG_BYE, worker=self.worker_id)
         try:
-            self._request(Frame(kind=MSG_BYE, worker=self.worker_id))
+            self._request(frame)
         except (TransportClosed, OSError):
-            pass  # server already gone — nothing left to leave
+            if policy is None or self.channel_factory is None:
+                return
+            try:
+                self.reconnect(policy)
+                self._request(frame)
+            except (TransportClosed, OSError):
+                pass  # server genuinely gone
 
     def close(self) -> None:
         self.channel.close()

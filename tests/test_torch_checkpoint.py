@@ -79,6 +79,41 @@ def test_torn_tmp_dirs_are_ignored_and_collected(tmp_path):
     assert JManager(str(tmp_path)).steps() == [1]      # same rule
 
 
+def test_a_resave_at_one_step_never_leaves_the_step_missing(tmp_path,
+                                                             monkeypatch):
+    """A save at a committed step (the snapshotter's after a BYE, which
+    moves no version) sets the old directory aside until the new one is
+    renamed in place: a crash between the two renames restores the old
+    snapshot, and the next manager renames it back."""
+    import os
+    from repro_torch.checkpoint import manager as manager_lib
+    mgr = CheckpointManager(str(tmp_path), keep=3, async_save=False)
+    mgr.save(4, _tree(seed=0))
+    mgr.save(4, _tree(seed=1))                         # a clean re-save
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_000000004"]
+    assert _bits(mgr.restore(4, _tree())[0]["shard000"]["p"]) == \
+        _bits(_tree(seed=1)["shard000"]["p"])
+    rename = os.rename
+
+    def crash_at_commit(src, dst):
+        if src.endswith(".tmp_"):
+            raise KeyboardInterrupt("killed between the renames")
+        rename(src, dst)
+
+    monkeypatch.setattr(manager_lib.os, "rename", crash_at_commit)
+    with pytest.raises(KeyboardInterrupt):
+        mgr.save(4, _tree(seed=2))
+    monkeypatch.setattr(manager_lib.os, "rename", rename)
+    assert not (tmp_path / "step_000000004").exists()
+    want = _bits(_tree(seed=1)["shard000"]["p"])
+    step, back, _ = mgr.restore_latest(_tree())
+    assert step == 4 and _bits(back["shard000"]["p"]) == want
+    fresh = CheckpointManager(str(tmp_path), keep=3)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_000000004"]
+    step, back, _ = fresh.restore_latest(_tree())
+    assert step == 4 and _bits(back["shard000"]["p"]) == want
+
+
 def test_keep_k_and_async_failure_surfaces_on_next_call(tmp_path):
     mgr = CheckpointManager(str(tmp_path), keep=2)
     for s in range(5):

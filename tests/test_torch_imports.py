@@ -67,7 +67,9 @@ def test_every_repro_torch_module_imports_without_jax_or_repro():
                 "repro_torch.examples.serve_decode",
                 "repro_torch.launch.mesh", "repro_torch.launch.steps",
                 "repro_torch.launch.elastic", "repro_torch.models.sharding",
-                "repro_torch.configs.shapes"}
+                "repro_torch.configs.shapes", "repro_torch._compat",
+                "repro_torch.roofline", "repro_torch.roofline.analysis",
+                "repro_torch.launch.dryrun", "repro_torch.models.partition"}
     assert expected <= set(res["modules"])
 
 

@@ -207,8 +207,7 @@ def test_one_rank_mesh_trainer_matches_the_reference_with_rules(
     stored = [x.data_ptr() for x in tree_util.leaves(t.params)]
     MESH.reset()
     log = t.train(STEPS)
-    assert MESH.snapshot() == {"all_reduce": 0, "all_gather": 0,
-                               "broadcast": 0, "block_copies": 0}
+    assert MESH.snapshot() == {k: 0 for k in MESH.snapshot()}
     # the step updated the stored tensors: nothing was placed or copied
     assert [x.data_ptr() for x in tree_util.leaves(t.params)] == stored
     assert log.delays == ref["delays"]
@@ -377,6 +376,36 @@ def test_mesh_trainer_refuses_compression_and_checkpoints(one_rank_mesh,
 def _run(fn, tmp_path, *args):
     return mesh_lib.run_ranks(fn, 4, str(tmp_path), args=args,
                               timeout=DEADLINE_S)
+
+
+@pytest.fixture(scope="module")
+def collective_branches(tmp_path_factory):
+    return mesh_lib.run_ranks(ranks.collective_branch_ranks, 4,
+                              str(tmp_path_factory.mktemp("branches")),
+                              timeout=DEADLINE_S)
+
+
+@pytest.mark.parametrize("dim", [0, 1, 2])
+def test_single_tensor_collectives_keep_the_gloo_block_order(
+        dim, collective_branches):
+    """The single-tensor branches of ``all_gather_cat`` and
+    ``reduce_scatter_cat`` (NCCL's ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor``, here their list-based equivalents on a
+    gloo group) give the gloo branch's blocks, in group-rank order,
+    along every dimension: the ranks' tensors concatenated, and this
+    rank's block of their sum."""
+    xs = [np.arange(4 * 8 * 12, dtype=np.float32).reshape(4, 8, 12)
+          + 1000.0 * r for r in range(4)]
+    gathered = np.concatenate(xs, axis=dim)
+    total = sum(xs)
+    for rank, out in enumerate(collective_branches):
+        step = total.shape[dim] // 4
+        block = np.take(total, range(rank * step, (rank + 1) * step),
+                        axis=dim)
+        for branch in ("gloo", "single"):
+            ag, rs = out[branch][dim]
+            np.testing.assert_array_equal(ag, gathered)
+            np.testing.assert_array_equal(rs, block)
 
 
 def test_2x2_gloo_mesh_trainer_and_session_match_the_reference(

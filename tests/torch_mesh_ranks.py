@@ -8,6 +8,8 @@ numpy values for the test process to hold against the reference.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -311,3 +313,204 @@ def cross_pod_cuda_ranks(rank, world, x):
     block = torch.from_numpy(x[mesh.get_local_rank("pod")]).to("cuda:0")
     out = cross_pod_sync(block, mesh, P("pod", None, None))
     return {"device": out.device.type, "synced": out.cpu().numpy()}
+
+
+PARTITION_ARCHS = ("qwen1.5-32b", "chameleon-34b")
+#: MoE archs, their ``moe_chunk`` and attention modes: deepseek's chunks
+#: of 8 lie within every sequence block (each rank routes its own),
+#: qwen3-moe's 256 span the whole sequence (each rank routes the
+#: gathered sequence); under TP every rank routes the whole sequence
+PARTITION_MOE = (("deepseek-moe-16b", 8, ("sp", "tp")),
+                 ("qwen3-moe-235b-a22b", 256, ("sp",)))
+PARTITION_DELAYS = (0, 1, 2)
+
+
+def _stacked_whole_shapes(cfg, p_spec, mesh):
+    """The shapes of the layer-stacked leaves that the mesh splits, but
+    for those that are also some leaf's block (a block of wq can have
+    the whole wk's shape)."""
+    from repro_torch.launch.mesh import block_view, split_dims
+    from repro_torch.models import registry
+    from repro_torch.models.sharding import is_spec
+    defs = tree_util.leaves(registry.param_defs(cfg))
+    specs = tree_util.leaves(p_spec, is_leaf=is_spec)
+    blocks = {tuple(block_view(torch.empty(d.shape, device="meta"), s,
+                               mesh).shape) for d, s in zip(defs, specs)}
+    layer_defs = tree_util.leaves(registry.param_defs(cfg)["layers"])
+    layer_specs = tree_util.leaves(p_spec["layers"], is_leaf=is_spec)
+    return {tuple(d.shape) for d, s in zip(layer_defs, layer_specs)
+            if split_dims(s, mesh)} - blocks
+
+
+def _step_run(mesh, cfg, init, lr, partition, watch=False):
+    """Three DSSP steps of ``build_train_step`` (damped momentum) from
+    ``init``; with ``watch``, every tensor the steps allocate whose shape
+    is that of a whole layer-stacked leaf the mesh splits."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.api.session import batch_tensors
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import dssp_spmd
+    from repro_torch.data.synthetic import batches
+    from repro_torch.launch.mesh import gather, place
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.params import from_numpy_tree
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.perfcount import MESH
+
+    seen = []
+
+    class Allocations(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor) and tuple(t.shape) in watch:
+                    seen.append((str(func), tuple(t.shape)))
+            return out
+
+    opt = make_optimizer("momentum", lr, staleness_damping=True)
+    bundle = build_train_step(cfg, mesh, ShapeSpec("smoke", SEQ, BATCH,
+                                                   "train"),
+                              sync="dssp", s_upper=3, optimizer=opt,
+                              partition=partition)
+    p_sh, _, _, b_sh, _ = bundle.in_shardings
+    watch_ = watch
+    watch = _stacked_whole_shapes(cfg, p_sh, mesh)
+    params = place(from_numpy_tree(init, "cpu"), p_sh, mesh)
+    state = opt.init(params)
+    pipe = dssp_spmd.init_pipeline(params, 4)
+    it = batches(cfg, _data(cfg))
+    losses, counts = [], []
+    for d in PARTITION_DELAYS:
+        batch = place(batch_tensors(next(it), "cpu"), b_sh, mesh)
+        MESH.reset()
+        with Allocations() if watch else contextlib.nullcontext():
+            params, state, pipe, m = bundle.fn(params, state, pipe, batch, d)
+        counts.append(MESH.snapshot())
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "counts": counts, "allocated": seen,
+            "watched": sorted(watch) if watch_ else None,
+            "partitioned": bundle.partitioned,
+            "params": _np_tree(gather(params, p_sh, mesh))}
+
+
+def partition_ranks(rank, world, meshes, inits, lr):
+    """The partitioned train step (``models.partition``) on each of
+    ``meshes`` (``(label, shape, axes, whole, moe)``; every mesh over
+    the same four ranks) for each arch of ``PARTITION_ARCHS`` under SP
+    and TP rules, each over ``PARTITION_DELAYS`` DSSP steps with
+    ``grad_accum=2`` and ``remat="full"``; with ``whole``, the
+    gather-whole step too, the allocations of both watched; with
+    ``moe``, each of ``PARTITION_MOE`` in its modes (and gather-whole
+    too with ``whole``).  Returns, per mesh and (arch, sp), losses,
+    gathered parameters (rank 0), per-step mesh counts, and the
+    allocations of whole layer-stacked leaves seen in the steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    for label, shape, axes, whole, moe in meshes:
+        mesh = make_mesh(shape, axes)
+        for arch in PARTITION_ARCHS:
+            for sp in (True, False):
+                cfg = get_smoke_config(arch).scaled(
+                    sequence_parallel=sp, grad_accum=2, remat="full")
+                rec = {"run": _step_run(mesh, cfg, inits[arch], lr, True,
+                                        watch=whole)}
+                if whole:
+                    rec["whole"] = _step_run(mesh, cfg, inits[arch], lr,
+                                             False, watch=True)
+                if rank != 0:
+                    for r in rec.values():
+                        r["params"] = None
+                out[f"{label}/{arch}/{'sp' if sp else 'tp'}"] = rec
+        for arch, chunk, modes in PARTITION_MOE if moe else ():
+            for sp in (mode == "sp" for mode in modes):
+                cfg = get_smoke_config(arch).scaled(
+                    sequence_parallel=sp, grad_accum=2, remat="full",
+                    moe_chunk=chunk)
+                rec = {"run": _step_run(mesh, cfg, inits[arch], lr, True)}
+                if whole:
+                    rec["whole"] = _step_run(mesh, cfg, inits[arch], lr,
+                                             False)
+                if rank != 0:
+                    for r in rec.values():
+                        r["params"] = None
+                out[f"{label}/{arch}/{'sp' if sp else 'tp'}"] = rec
+    return out
+
+
+def dryrun_count_ranks(rank, world, seq, batch):
+    """One DSSP step (delay 1, the config's optimizer) of
+    ``build_train_step`` on (2, 2) for qwen1.5-32b's and h2o-danube's
+    smoke configs: the step's ``perfcount.MESH`` counts per arch (what
+    ``launch.dryrun`` predicts for the same cell)."""
+    from repro_torch.api.session import batch_tensors
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import dssp_spmd
+    from repro_torch.data.synthetic import batches
+    from repro_torch.launch.mesh import make_mesh, place
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.perfcount import MESH
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {}
+    for arch in ("qwen1.5-32b", "h2o-danube-1.8b"):
+        cfg = get_smoke_config(arch)
+        bundle = build_train_step(cfg, mesh, ShapeSpec("train", seq, batch,
+                                                       "train"))
+        p_sh, _, _, b_sh, _ = bundle.in_shardings
+        params = place(registry.init_params(cfg, seed=0, device="cpu"),
+                       p_sh, mesh)
+        opt = make_optimizer(cfg.optimizer, 3e-4)
+        state = opt.init(params)
+        pipe = dssp_spmd.init_pipeline(params, 2)
+        rows = place(batch_tensors(next(batches(cfg, _data(cfg, batch))),
+                                   "cpu"), b_sh, mesh)
+        MESH.reset()
+        bundle.fn(params, state, pipe, rows, 1)
+        out[arch] = MESH.snapshot()
+    return out
+
+
+def collective_branch_ranks(rank, world):
+    """``all_gather_cat`` and ``reduce_scatter_cat`` along dims 0, 1 and
+    2 of a (4, 8, 12) tensor whose values name the rank, through the
+    gloo branch and through the single-tensor branch (NCCL's on the
+    card), the latter driven here by list-based equivalents of
+    ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` with their
+    flat semantics (rank r's chunk is the r-th of the flattened
+    buffer)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+
+    def all_gather_into(out, src, group=None):
+        n = dist.get_world_size(group)
+        dist.all_gather(list(out.view(n, -1).unbind(0)),
+                        src.contiguous().view(-1), group=group)
+
+    def reduce_scatter(out, src, group=None):
+        full = src.contiguous().clone()
+        dist.all_reduce(full, group=group)
+        n = dist.get_world_size(group)
+        out.copy_(full.view(n, -1)[dist.get_rank(group)].view_as(out))
+
+    x = (torch.arange(4 * 8 * 12, dtype=torch.float32).view(4, 8, 12)
+         + 1000.0 * rank)
+    out = {}
+    for branch in ("gloo", "single"):
+        saved = (mesh_lib._gloo, mesh_lib._ALL_GATHER,
+                 mesh_lib._REDUCE_SCATTER)
+        if branch == "single":
+            mesh_lib._gloo = lambda group: False
+            mesh_lib._ALL_GATHER = all_gather_into
+            mesh_lib._REDUCE_SCATTER = reduce_scatter
+        try:
+            out[branch] = {
+                dim: (mesh_lib.all_gather_cat(x, None, dim).numpy(),
+                      mesh_lib.reduce_scatter_cat(x, None, dim).numpy())
+                for dim in (0, 1, 2)}
+        finally:
+            (mesh_lib._gloo, mesh_lib._ALL_GATHER,
+             mesh_lib._REDUCE_SCATTER) = saved
+    return out
