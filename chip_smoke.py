@@ -83,12 +83,13 @@ after an error:
   transport
            spawned worker processes on the card over the frame protocol
            (``ps-transport``): h2o-danube-1.8b at its published widths
-           cut to 13 of 24 layers, the deepest whose packed pull fits one
-           2 GiB frame, 8 DSSP steps of 2 worker processes (the second 2x
-           slower) over tcp on 127.0.0.1, 4 shards, delta pulls; the
-           train phase's checks, with 4 fused_update launches a push in
-           this process and each worker process's norm and attention
-           launches exactly what its steps imply, and every push applied
+           cut to 8 of 24 layers (a 1.44 GB packed pull a frame; see
+           ``transport_config``), 8 DSSP steps of 2 worker processes
+           (the second 2x slower) over tcp on 127.0.0.1, 4 shards, delta
+           pulls; the train phase's checks, with 4 fused_update
+           launches a push in this process and each worker process's
+           norm and attention launches exactly what its steps imply,
+           and every push applied
            on every shard in frames of the plan's size; wall time,
            pushes/s, compute and wire share, frame bytes per push and
            pull, each process's peak memory and the card's memory.used.
@@ -142,7 +143,7 @@ after an error:
            itself: its wall time, the prefill's and a token's time, and
            the device's idle share (``torch.profiler``)
   serve transport
-           the transport configuration (13 layers, 2 worker processes
+           the transport configuration (8 layers, 2 worker processes
            over tcp) with 1 spawned replica process refreshing each
            second: the same checks, the replica process's launches
            exactly per batch, its refresh bytes, and pushes/s beside the
@@ -207,6 +208,20 @@ after an error:
            with k from ``DsspScheduleController.period`` of a changing
            pod slowdown (at least two periods, each in [1, 4]): the pods'
            replicas equal bit for bit after each sync, apart before it
+  dryrun   (a) ``python -m repro_torch.launch.dryrun`` for the train_4k
+           cell of every arch on 16 x 16 (qwen1.5-32b's on 2 x 16 x 16
+           too) and the six transformers' prefill_32k cells, on the
+           host's cores beside (b) and (c), every row printed; (b) the
+           partitioned train step at qwen1.5-32b's widths cut to one
+           layer, one rank then four gloo ranks on (2, 2) and (1, 4),
+           each leaf held to its own update, a planted fault caught;
+           (c) the partitioned prefill at the same widths, bf16, the
+           int8 cache, ``PREFILL_SEQ`` tokens: four gloo ranks on (1, 4)
+           and (2, 2) against one rank, tokens equal, cache blocks by
+           the serve checks' rule for int8 codes, a planted fault
+           (rotary positions from 0) caught; the peaks, collectives and
+           norm launches of (b) and (c) beside the dry run's; (b) and
+           (c) run in one spawn of the four ranks
 
 Each phase boundary prints the script's elapsed seconds.  The last two
 lines of standard output are the JSON kernel table and the contract
@@ -279,21 +294,26 @@ class Timer:
         return statistics.median(times)
 
 
+#: traces of one window before ``device_ms`` gives up (three blind
+#: traces of the flush in a row have been seen on the card)
+TRACE_TRIES = 6
+
+
 def device_ms(torch, fn, reps: int = 10, flush=None) -> float:
     """Mean device time of one call of ``fn``: the kernels it launches,
     summed as ``torch.profiler`` traces them (no host time, no gaps).
     With ``flush`` (a buffer larger than the 50 MB L2), the buffer is
     zeroed before every call, so the call reads from device memory, and
-    the zeroing's own kernels (named by tracing one zeroing alone) are
-    left out of the sum.  The tracer at times sees no kernel at all in a
-    short window (PERF.md §7): a window is traced up to three times, and
-    if the tracer still saw no kernel of ``fn`` there is no measurement,
-    which fails."""
+    the zeroing's own kernels (named by tracing a few zeroings alone)
+    are left out of the sum.  The tracer at times sees no kernel at all
+    in a short window (PERF.md §7): a window is traced up to
+    ``TRACE_TRIES`` times, and if the tracer still saw no kernel of
+    ``fn`` there is no measurement, which fails."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
 
     def traced(window, keep, what):
-        for _ in range(3):
+        for _ in range(TRACE_TRIES):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 window()
                 torch.cuda.synchronize()
@@ -301,12 +321,16 @@ def device_ms(torch, fn, reps: int = 10, flush=None) -> float:
                     and not e.is_user_annotation and keep(e.name)]
             if seen:
                 return seen
-        fail(f"device_ms: the profiler saw no kernel of {what} in three "
-             "traces")
+        fail(f"device_ms: the profiler saw no kernel of {what} in "
+             f"{TRACE_TRIES} traces")
+
+    def zeroings():
+        for _ in range(4):
+            flush.zero_()
 
     skip = set()
     if flush is not None:
-        skip = {e.name for e in traced(flush.zero_, lambda name: True,
+        skip = {e.name for e in traced(zeroings, lambda name: True,
                                        "the L2 flush")}
     fn()
     torch.cuda.synchronize()
@@ -1335,12 +1359,15 @@ def run_paths(torch, api):
 
 # ----------------------------------------------------------------- transport
 def transport_config():
-    """h2o-danube-1.8b at its published widths cut to 13 of 24 layers,
-    the deepest cut whose packed bf16 pull (S=4) fits one frame:
-    2,133,999,616 bytes, under the frame protocol's 2 GiB payload limit
-    (14 layers would not fit)."""
+    """h2o-danube-1.8b at its published widths cut to 8 of 24 layers: a
+    packed bf16 pull (S=4) of 1,439,260,672 bytes, one frame each way.
+    13 layers (2,133,999,616 bytes) is the deepest cut whose pull fits
+    the frame protocol's 2 GiB payload limit, but the transport, ft and
+    serve transport phases that share this cut spend most of their time
+    on the wire, and at 13 layers the script's end mark passed its
+    1200 s limit (PERF.md: NVIDIA H100 80GB HBM3, 700 W)."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("h2o-danube-1.8b"), n_layers=13)
+    return dataclasses.replace(get_config("h2o-danube-1.8b"), n_layers=8)
 
 
 class MemoryUsedSampler:
@@ -1844,7 +1871,7 @@ def run_serve(torch, api, per_step, *, device: str = "cuda:0"):
 
 
 def run_serve_transport(torch, api, per_step):
-    """The transport configuration (13 layers) trained by 2 worker
+    """The transport configuration (8 layers) trained by 2 worker
     processes over tcp while 1 spawned replica process serves from
     delta pulls (refreshed each second): the serving invariants, the
     replica's launches per batch exactly, ``run_train``'s checks.
@@ -2479,14 +2506,18 @@ def run_mesh_phase(torch, api, spmd_rec):
 
 # ------------------------------------------------------------------- dryrun
 #: (a): the dry run's train_4k cell on 16 x 16 for every arch, and this
-#: arch's on 2 x 16 x 16, DRYRUN_JOBS CLI processes at a time on the
-#: host's cores, the slowest cells first (DRYRUN_FIRST), after every
-#: phase that times the card, beside (b), whose checks (values, counts,
+#: arch's on 2 x 16 x 16, and the prefill_32k cell on 16 x 16 of each of
+#: DRYRUN_PREFILL, DRYRUN_JOBS CLI processes at a time on the host's
+#: cores, the slowest cells first (DRYRUN_FIRST), after every phase that
+#: times the card, beside (b) and (c), whose checks (values, counts,
 #: launches, peaks) do not depend on the host's load
 DRYRUN_MULTI = "qwen1.5-32b"
 DRYRUN_FIRST = ("jamba-v0.1-52b", "qwen1.5-110b", "mistral-large-123b",
                 "chameleon-34b", "qwen1.5-32b")
 DRYRUN_JOBS = 6
+#: the transformers whose prefill_32k cell (16 x 16) runs partitioned
+DRYRUN_PREFILL = ("mistral-large-123b", "qwen1.5-110b", "chameleon-34b",
+                  "qwen1.5-32b", "qwen3-moe-235b-a22b", "deepseek-moe-16b")
 DRYRUN_TIMEOUT_S = 600.0
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
 #: (b): qwen1.5-32b at its published widths and the train_4k cell's own
@@ -2536,18 +2567,22 @@ class DryRunCells:
     def __init__(self, src: str, archs):
         self.src = os.path.join(ROOT, src)
         first = [a for a in DRYRUN_FIRST if a in archs]
-        self.cells = ([(a, "single") for a in first]
-                      + [(DRYRUN_MULTI, "multi")]
-                      + [(a, "single") for a in archs if a not in first])
+        train = ([(a, "single", "train_4k") for a in first]
+                 + [(DRYRUN_MULTI, "multi", "train_4k")]
+                 + [(a, "single", "train_4k") for a in archs
+                    if a not in first])
+        prefill = [(a, "single", "prefill_32k") for a in DRYRUN_PREFILL
+                   if a in archs]
+        self.cells = train[:DRYRUN_JOBS] + prefill + train[DRYRUN_JOBS:]
         self.procs = []
         self.done = {}
         self.thread = None
 
-    def _cmd(self, arch: str, mesh: str):
-        out = os.path.join(DRYRUN_DIR, f"{arch}-{mesh}.json")
+    def _cmd(self, arch: str, mesh: str, shape: str):
+        out = os.path.join(DRYRUN_DIR, f"{arch}-{mesh}-{shape}.json")
         return out, [sys.executable, "-W", "ignore::FutureWarning", "-m",
                      "repro_torch.launch.dryrun", "--arch", arch,
-                     "--shape", "train_4k", "--mesh", mesh, "--out", out]
+                     "--shape", shape, "--mesh", mesh, "--out", out]
 
     def start(self) -> None:
         import atexit
@@ -2587,7 +2622,7 @@ class DryRunCells:
     def collect(self) -> list:
         self.thread.join(DRYRUN_TIMEOUT_S * len(self.cells))
         rows = []
-        for cell in sorted(self.cells, key=lambda c: (c[1], c[0])):
+        for cell in sorted(self.cells, key=lambda c: (c[2], c[1], c[0])):
             if cell not in self.done:
                 fail(f"dryrun {cell}: did not finish")
             rc, out, seconds = self.done[cell]
@@ -2662,13 +2697,13 @@ def _part_step(torch, bundle, opt, cfg, device, mesh, p_sh, b_sh):
     return params, losses, counts, launches
 
 
-def part_rank(rank: int, world: int, shape, axes, one_path: str,
-              plant: bool):
-    """One rank of (b): ``PART_STEPS`` steps of the cell from the seed-0
-    parameters on ``MESH_DEVICE``: losses, per-step mesh counts and norm
-    launches, the peak of ``max_memory_allocated`` over the steps.  The
-    one-rank run saves its parameters and, per leaf, its largest update
-    ``max |p1 - p0|`` to ``one_path``; a rank of a larger mesh returns,
+def part_rank(mesh, one_path: str, plant: bool):
+    """One rank of (b) on ``mesh``: ``PART_STEPS`` steps of the cell from
+    the seed-0 parameters on ``MESH_DEVICE``: losses, per-step mesh
+    counts and norm launches, the peak of ``max_memory_allocated`` over
+    the steps.  On a one-rank mesh it saves its parameters and, per
+    leaf, its largest update ``max |p1 - p0|`` to ``one_path``; a rank
+    of a larger mesh returns,
     per leaf, the largest distance of its block from the block of that.
     With ``plant``, the step runs once more from the seed-0 parameters
     with the 'model' sum of every gradient dropped
@@ -2676,11 +2711,10 @@ def part_rank(rank: int, world: int, shape, axes, one_path: str,
     import torch
     from repro_torch import tree as tree_util
     from repro_torch.checkpoint.manager import keystr_names
-    from repro_torch.launch.mesh import block_view, make_mesh
+    from repro_torch.launch.mesh import block_view
     from repro_torch.models import registry
     from repro_torch.models.sharding import is_spec
     torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = make_mesh(shape, axes)
     cfg, opt, bundle = part_bundle(mesh)
     p_sh, _, _, b_sh, _ = bundle.in_shardings
     device = MESH_DEVICE
@@ -2693,7 +2727,7 @@ def part_rank(rank: int, world: int, shape, axes, one_path: str,
            "peak_bytes": torch.cuda.max_memory_allocated(device),
            "leaves": [name for name, _ in keystr_names(params)]}
     leaves = tree_util.leaves(params)
-    if world == 1:
+    if mesh.size() == 1:
         init = tree_util.leaves(registry.init_params(cfg, seed=0,
                                                      device=device))
         update = [float((p - p0).abs().max()) for p, p0 in zip(leaves, init)]
@@ -2735,6 +2769,278 @@ def part_check(update, err):
     return out
 
 
+#: (c): qwen1.5-32b's prefill at its published widths, cut in depth to
+#: PREFILL_LAYERS layer, bf16, its int8 KV cache, PREFILL_BATCH rows (one
+#: a 'data' rank on (2, 2)) of PREFILL_SEQ tokens: the prefill_32k
+#: cell's own length, the longest of the cell, which the four ranks fit
+#: (the dry run: 9.72 GB a rank on (1, 4), 8.46 on (2, 2), 29.75 GB the
+#: one rank; 4 x 9.72 GB of the card's 80).  In ``dryrun_rank``, after
+#: (b), the four gloo
+#: ranks sharing the card: rank 0 prefills alone on a (1, 1) mesh (the
+#: bundle's gather-whole path, no collective), then every rank prefills
+#: on blocks on each of PREFILL_SHAPES.  Each rank's greedy tokens must
+#: equal the one rank's rows; its cache block is held to the one rank's
+#: block as the serve checks hold int8 codes: at most one step apart,
+#: at most PREFILL_FLIP_SHARE of them moved, the f32 scales within
+#: PREFILL_SCALE_REL of the block's largest.  On PREFILL_PLANT the
+#: prefill runs once more with each block's rotary positions taken from
+#: 0 instead of its global offset: the check must fail it.
+PREFILL_ARCH = "qwen1.5-32b"
+PREFILL_LAYERS = 1
+PREFILL_SEQ = 32768
+PREFILL_BATCH = 2
+PREFILL_SHAPES = (((1, 4), ("data", "model")), ((2, 2), ("data", "model")))
+PREFILL_PLANT = (1, 4)
+PREFILL_FLIP_SHARE = 1e-3
+PREFILL_SCALE_REL = 2.0 ** -7
+
+
+def prefill_cell():
+    """The (c) cell: its config and shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    cfg = get_config(PREFILL_ARCH).scaled(n_layers=PREFILL_LAYERS,
+                                          dtype="bfloat16")
+    return cfg, ShapeSpec("prefill_32k", PREFILL_SEQ, PREFILL_BATCH,
+                          "prefill")
+
+
+def _prefill_once(torch, bundle, params, batch, device):
+    """One call of the prefill bundle: (tokens, cache, seconds, peak
+    bytes, mesh counts, norm launches)."""
+    from repro_torch.perfcount import LAUNCHES, MESH
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    MESH.reset()
+    before = LAUNCHES.snapshot()
+    t0 = time.monotonic()
+    tok, cache = bundle.fn(params, batch)
+    torch.cuda.synchronize(device)
+    return (tok, cache, time.monotonic() - t0,
+            torch.cuda.max_memory_allocated(device), MESH.snapshot(),
+            {k: v for k, v in LAUNCHES.delta(before).items() if v})
+
+
+def prefill_compare(torch, tok, cache, one, token_spec, cache_spec, mesh):
+    """This rank's tokens and cache blocks against the one rank's
+    blocks: whether the tokens are equal, per cache leaf the largest
+    code step and the share of codes moved (int8), or the largest
+    distance over the block's largest value (the scales)."""
+    from repro_torch.launch.mesh import block_view
+    want = block_view(one["tokens"], token_spec, mesh)
+    out = {"tokens_equal": bool(torch.equal(tok.cpu(), want))}
+    for k, v in cache.items():
+        got = v.cpu()
+        ref = block_view(one["cache"][k], cache_spec[k], mesh)
+        if got.dtype == torch.int8:
+            diff = (got.int() - ref.int()).abs()
+            out[k] = {"max_step": int(diff.max()),
+                      "moved_share": float((diff > 0).float().mean())}
+        else:
+            out[k] = {"max_rel": float((got - ref).abs().max()
+                                       / ref.abs().max())}
+    return out
+
+
+def prefill_check(cmp) -> list:
+    """What breaks (c)'s bounds in ``prefill_compare``'s record."""
+    out = [] if cmp["tokens_equal"] else ["tokens"]
+    for k, c in cmp.items():
+        if k == "tokens_equal":
+            continue
+        if "max_step" in c and not (c["max_step"] <= 1 and
+                                    c["moved_share"] <= PREFILL_FLIP_SHARE):
+            out.append((k, c))
+        if "max_rel" in c and not c["max_rel"] <= PREFILL_SCALE_REL:
+            out.append((k, c))
+    return out
+
+
+def prefill_rank(rank: int, world: int, one_path: str):
+    """Part (c) on one of four ranks: rank 0's prefill alone on a (1, 1)
+    mesh, saved to ``one_path``; then each of ``PREFILL_SHAPES`` on
+    blocks, held to the one rank's (``prefill_compare``), and on
+    ``PREFILL_PLANT`` once more with the planted fault."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, place
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = MESH_DEVICE
+    cfg, shape = prefill_cell()
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))).long()
+    batch = {"tokens": tokens.to(device), "labels": tokens.to(device)}
+    out = {}
+    one_mesh = make_mesh((1, 1), ("data", "model"), devices=[0])
+    if rank == 0:
+        bundle = build_prefill_step(cfg, one_mesh, shape)
+        params = registry.init_params(cfg, seed=0, device=device)
+        tok, cache, sec, peak, counts, launches = _prefill_once(
+            torch, bundle, params, batch, device)
+        torch.save({"tokens": tok.cpu(),
+                    "cache": {k: v.cpu() for k, v in cache.items()}},
+                   one_path)
+        out["one"] = {"partitioned": bundle.partitioned, "seconds": sec,
+                      "peak_bytes": peak, "counts": counts,
+                      "launches": launches, "tokens": tok.tolist()}
+        del bundle, params, tok, cache
+        release(torch)
+    dist.barrier()
+    one = torch.load(one_path)
+    for shape_, axes in PREFILL_SHAPES:
+        mesh = make_mesh(shape_, axes)
+        bundle = build_prefill_step(cfg, mesh, shape)
+        p_sh, b_sh = bundle.in_shardings
+        tok_sh, cache_sh = bundle.out_shardings
+        params = place(registry.init_params(cfg, seed=0, device=device),
+                       p_sh, mesh)
+        rows = place(batch, b_sh, mesh)
+        tok, cache, sec, peak, counts, launches = _prefill_once(
+            torch, bundle, params, rows, device)
+        rec = {"partitioned": bundle.partitioned, "seconds": sec,
+               "peak_bytes": peak, "counts": counts, "launches": launches,
+               "compare": prefill_compare(torch, tok, cache, one, tok_sh,
+                                          cache_sh, mesh)}
+        del tok, cache
+        if tuple(shape_) == PREFILL_PLANT:
+            part = bundle.fn.partition
+            part.positions = lambda l, device: torch.arange(
+                l // part.m, device=device)
+            tok, cache = _prefill_once(torch, bundle, params, rows,
+                                       device)[:2]
+            rec["planted"] = prefill_compare(torch, tok, cache, one, tok_sh,
+                                             cache_sh, mesh)
+            del tok, cache
+        out["x".join(map(str, shape_))] = rec
+        del params, rows, bundle
+        release(torch)
+    return out
+
+
+def prefill_predictions() -> dict:
+    """The dry run's count of (c)'s cell on a (1, 1) mesh and on each of
+    ``PREFILL_SHAPES``, by mesh shape."""
+    from repro_torch.launch import dryrun
+    cfg, shape = prefill_cell()
+    return {tuple(s): dryrun.run_cell(PREFILL_ARCH, "prefill_32k", False,
+                                      verbose=False, cfg=cfg, shape=shape,
+                                      mesh_shape=s)
+            for s in [(1, 1)] + [s for s, _ in PREFILL_SHAPES]}
+
+
+def prefill_report(outs, preds, seconds: float) -> None:
+    """(c)'s records: the four ranks' ``prefill_rank`` results beside the
+    dry run's count of each mesh's cell (``prefill_predictions``); fails
+    on a broken bound, an uncaught planted fault, collectives or norm
+    launches other than the dry run's."""
+    norms = ("rmsnorm", "residual_rmsnorm")
+    one, pred = outs[0]["one"], preds[(1, 1)]
+    say({"phase": "dryrun prefill one rank", "arch": PREFILL_ARCH,
+         "cut": f"{PREFILL_LAYERS} layer(s) of the published widths, bf16, "
+                f"int8 cache, batch {PREFILL_BATCH} x seq {PREFILL_SEQ}",
+         "partitioned": one["partitioned"], "seconds": one["seconds"],
+         "peak_gb": one["peak_bytes"] / 1e9,
+         "dryrun_peak_gb": pred["peak_gib_per_chip"] * 2**30 / 1e9,
+         "launches": one["launches"], "tokens": one["tokens"]})
+    for shape_, axes in PREFILL_SHAPES:
+        label = "x".join(map(str, shape_))
+        pred = preds[tuple(shape_)]
+        peak_pred = pred["peak_gib_per_chip"] * 2**30
+        recs = [o[label] for o in outs]
+        rec = {"phase": "dryrun prefill four ranks",
+               "mesh": dict(zip(axes, shape_)),
+               "partitioned": [r["partitioned"] for r in recs],
+               "seconds": [r["seconds"] for r in recs],
+               "peak_gb": [r["peak_bytes"] / 1e9 for r in recs],
+               "dryrun_peak_gb": peak_pred / 1e9,
+               "peak_gap_gb": [(r["peak_bytes"] - peak_pred) / 1e9
+                               for r in recs],
+               "collectives": recs[0]["counts"],
+               "dryrun_collectives": pred["collective_counts"],
+               "launches": recs[0]["launches"],
+               "dryrun_kernel_calls": pred["kernel_calls"],
+               "compare": [r["compare"] for r in recs],
+               "tol": {"code_step": 1, "moved_share": PREFILL_FLIP_SHARE,
+                       "scale_rel": PREFILL_SCALE_REL}}
+        if tuple(shape_) == PREFILL_PLANT:
+            rec["planted_fault"] = {
+                "fault": "each block's rotary positions from 0",
+                "caught_on_ranks": [i for i, r in enumerate(recs)
+                                    if prefill_check(r["planted"])],
+                "compare": [r["planted"] for r in recs]}
+        say(rec)
+        if not all(rec["partitioned"]):
+            fail(f"prefill {label}: a rank did not take the partitioned "
+                 "prefill")
+        broken = [(i, prefill_check(r["compare"]))
+                  for i, r in enumerate(recs) if prefill_check(r["compare"])]
+        if broken:
+            fail(f"prefill {label}: ranks off the one rank's: {broken}")
+        if tuple(shape_) == PREFILL_PLANT and \
+                not rec["planted_fault"]["caught_on_ranks"]:
+            fail(f"prefill {label}: the planted fault passed the check")
+        want_norms = {k: v for k, v in pred["kernel_calls"].items()
+                      if k in norms}
+        for i, r in enumerate(recs):
+            got = {MESH_KINDS[k]: v for k, v in r["counts"].items()
+                   if k in MESH_KINDS and v}
+            if got != pred["collective_counts"]:
+                fail(f"prefill {label} rank {i}: collectives {got}, the "
+                     f"dry run's {pred['collective_counts']}")
+            if r["launches"] != want_norms or not r["launches"]:
+                fail(f"prefill {label} rank {i}: launches {r['launches']}, "
+                     f"the dry run's {want_norms}")
+    say({"phase": "dryrun prefill", "seconds": seconds})
+
+
+#: the one spawn of four ranks that runs (b) and (c): its time limit
+DRYRUN_RANK_TIMEOUT_S = 900.0
+
+
+def dryrun_rank(rank: int, world: int, part_path: str, prefill_path: str):
+    """(b) and (c) on one of four ranks sharing the card, in one spawn:
+    (b)'s one-rank step on rank 0 alone (a (1, 1) mesh; the others
+    wait), (b) on each of ``PART_SHAPES`` (``part_rank``), then (c)
+    (``prefill_rank``).  Between them every rank frees what the part
+    left (``release``), so that four ranks fit the card as they did in
+    spawns of their own.  Returns each part's record, the bytes the rank
+    kept reserved after each (``reserved``) and the parts' wall seconds
+    (``b_seconds``, ``c_seconds``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.monotonic()
+    out = {"reserved": []}
+    one = make_mesh((1, 1), ("data", "model"), devices=[0])
+    if rank == 0:
+        out["one"] = part_rank(one, part_path, False)
+    out["reserved"].append(release(torch))
+    dist.barrier()
+    for shape, axes in PART_SHAPES:
+        out[tuple(shape)] = part_rank(make_mesh(shape, axes), part_path,
+                                      tuple(shape) == PART_PLANT)
+        out["reserved"].append(release(torch))
+    dist.barrier()
+    t1 = time.monotonic()
+    out["prefill"] = prefill_rank(rank, world, prefill_path)
+    out["reserved"].append(release(torch))
+    out["b_seconds"], out["c_seconds"] = t1 - t0, time.monotonic() - t1
+    return out
+
+
+def release(torch) -> int:
+    """Free the device memory that a finished part left to the garbage
+    collector and the allocator's cache; the bytes still reserved."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(MESH_DEVICE)
+
+
 def run_dryrun_phase(torch, src: str):
     """(a) the dry run's production cells, each row printed, any error
     fails; started first and run on the host's cores beside (b).  (b)
@@ -2746,7 +3052,10 @@ def run_dryrun_phase(torch, src: str):
     rank's ``max_memory_allocated`` beside the dry run's peak for the
     same cell on a fake mesh of that shape, the gap printed; each rank's
     collective counts per step equal to the dry run's; each rank's norm
-    launches per step equal to the dry run's stand-in calls."""
+    launches per step equal to the dry run's stand-in calls.  (c) the
+    partitioned prefill (``prefill_rank``, ``prefill_report``).  (b) and
+    (c) run in one spawn of four ranks (``dryrun_rank``): the dry run's
+    counts are made before it, the checks after it."""
     from repro_torch.configs import arch_names
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
@@ -2756,101 +3065,110 @@ def run_dryrun_phase(torch, src: str):
 
     work = os.path.join(ROOT, "build", "dryrun")
     one_path = os.path.join(work, "one_rank_params.pt")
+    prefill_path = os.path.join(work, "prefill_one_rank.pt")
+    cut, cell, opt = part_cell()
+    preds = {tuple(shape): dryrun.run_cell(
+        PART_ARCH, "train_4k", False, "bsp", verbose=False, cfg=cut,
+        shape=cell, mesh_shape=shape, optimizer=opt)
+        for shape, _ in PART_SHAPES}
+    prefill_preds = prefill_predictions()
     try:
         t1 = time.monotonic()
-        one = mesh_lib.run_ranks(part_rank, 1, work,
-                                 args=((1, 1), ("data", "model"), one_path,
-                                       False),
-                                 timeout=MESH_RANK_TIMEOUT_S, threads=2)[0]
-        update = one["update"]
-        say({"phase": "dryrun one rank", "arch": PART_ARCH,
-             "cut": f"{PART_LAYERS} layer(s) of the published widths, "
-                    f"f32, batch {PART_BATCH} x seq {PART_SEQ}, "
-                    f"{PART_ACCUM} microbatches, lr {PART_LR}",
-             "losses": one["losses"], "partitioned": one["partitioned"],
-             "peak_gb": one["peak_bytes"] / 1e9,
-             "max_abs_update": dict(zip(one["leaves"], update)),
-             "seconds": time.monotonic() - t1})
-        for shape, axes in PART_SHAPES:
-            cut, cell, opt = part_cell()
-            pred = dryrun.run_cell(PART_ARCH, "train_4k", False, "bsp",
-                                   verbose=False, cfg=cut, shape=cell,
-                                   mesh_shape=shape, optimizer=opt)
-            t1 = time.monotonic()
-            plant = tuple(shape) == PART_PLANT
-            outs = mesh_lib.run_ranks(part_rank, 4, work,
-                                      args=(shape, axes, one_path, plant),
-                                      timeout=MESH_RANK_TIMEOUT_S,
-                                      threads=2)
-            err = [max(o["err"][i] for o in outs)
-                   for i in range(len(update))]
-            peak_pred = pred["peak_gib_per_chip"] * 2**30
-            rec = {"phase": "dryrun four ranks",
-                   "mesh": dict(zip(axes, shape)),
-                   "seconds": time.monotonic() - t1,
-                   "max_abs_param_err": max(err),
-                   "err_over_update": {
-                       name: e / u if u else None
-                       for name, e, u in zip(one["leaves"], err, update)},
-                   "max_abs_loss_err": max(abs(a - b) for o in outs
-                                           for a, b in zip(o["losses"],
-                                                           one["losses"])),
-                   "tol": {"loss": PART_TOL, "rel": PART_REL,
-                           "floor": PART_FLOOR},
-                   "peak_gb": [o["peak_bytes"] / 1e9 for o in outs],
-                   "dryrun_peak_gb": peak_pred / 1e9,
-                   "peak_gap_gb": [(o["peak_bytes"] - peak_pred) / 1e9
-                                   for o in outs],
-                   "dryrun_argument_gb": pred["argument_gib_per_chip"]
-                   * 2**30 / 1e9,
-                   "collectives_per_step": outs[0]["counts"][0],
-                   "dryrun_collectives": pred["collective_counts"],
-                   "launches_per_step": outs[0]["launches"][0],
-                   "dryrun_kernel_calls": pred["kernel_calls"],
-                   "step_seconds": [o["seconds"] / PART_STEPS
-                                    for o in outs]}
-            broken = part_check(update, err)
-            if plant:
-                planted = [max(o["planted_err"][i] for o in outs)
-                           for i in range(len(update))]
-                caught = part_check(update, planted)
-                rec["planted_fault"] = {
-                    "fault": "the 'model' sum of every gradient dropped",
-                    "leaves_caught": [one["leaves"][i] for i, _, _ in caught],
-                    "max_err_over_update": max(
-                        e / u for e, u in zip(planted, update) if u)}
-            say(rec)
-            if not all(o["partitioned"] for o in outs):
-                fail(f"dryrun {shape}: a rank did not take the "
-                     "partitioned step")
-            if broken or not rec["max_abs_loss_err"] <= PART_TOL:
-                fail(f"dryrun {shape}: leaves from the one-rank step "
-                     f"{[(one['leaves'][i], e, b) for i, e, b in broken]}"
-                     f" / losses {rec['max_abs_loss_err']} (tol "
-                     f"{PART_TOL})")
-            if plant and not caught:
-                fail(f"dryrun {shape}: the planted fault passed the check")
-            norms = {k: v for k, v in pred["kernel_calls"].items()
-                     if k in ("rmsnorm", "residual_rmsnorm")}
-            for rank, o in enumerate(outs):
-                for step, (c, n) in enumerate(zip(o["counts"],
-                                                  o["launches"])):
-                    got = {MESH_KINDS[k]: v for k, v in c.items()
-                           if k in MESH_KINDS and v}
-                    if got != pred["collective_counts"]:
-                        fail(f"dryrun {shape} rank {rank} step {step}: "
-                             f"collectives {got}, the dry run's "
-                             f"{pred['collective_counts']}")
-                    if n != norms or not n:
-                        fail(f"dryrun {shape} rank {rank} step {step}: "
-                             f"launches {n}, the dry run's {norms}")
+        ranks = mesh_lib.run_ranks(dryrun_rank, 4, work,
+                                   args=(one_path, prefill_path),
+                                   timeout=DRYRUN_RANK_TIMEOUT_S, threads=2)
     finally:
-        if os.path.exists(one_path):
-            os.unlink(one_path)
+        for path in (one_path, prefill_path):
+            if os.path.exists(path):
+                os.unlink(path)
+    say({"phase": "dryrun ranks", "seconds": time.monotonic() - t1,
+         "b_seconds": ranks[0]["b_seconds"],
+         "c_seconds": ranks[0]["c_seconds"],
+         "reserved_gb_after_parts": [[b / 1e9 for b in r["reserved"]]
+                                     for r in ranks]})
+    one = ranks[0]["one"]
+    update = one["update"]
+    say({"phase": "dryrun one rank", "arch": PART_ARCH,
+         "cut": f"{PART_LAYERS} layer(s) of the published widths, "
+                f"f32, batch {PART_BATCH} x seq {PART_SEQ}, "
+                f"{PART_ACCUM} microbatches, lr {PART_LR}",
+         "losses": one["losses"], "partitioned": one["partitioned"],
+         "peak_gb": one["peak_bytes"] / 1e9,
+         "max_abs_update": dict(zip(one["leaves"], update)),
+         "seconds": one["seconds"]})
+    for shape, axes in PART_SHAPES:
+        pred = preds[tuple(shape)]
+        plant = tuple(shape) == PART_PLANT
+        outs = [r[tuple(shape)] for r in ranks]
+        err = [max(o["err"][i] for o in outs)
+               for i in range(len(update))]
+        peak_pred = pred["peak_gib_per_chip"] * 2**30
+        rec = {"phase": "dryrun four ranks",
+               "mesh": dict(zip(axes, shape)),
+               "seconds": max(o["seconds"] for o in outs),
+               "max_abs_param_err": max(err),
+               "err_over_update": {
+                   name: e / u if u else None
+                   for name, e, u in zip(one["leaves"], err, update)},
+               "max_abs_loss_err": max(abs(a - b) for o in outs
+                                       for a, b in zip(o["losses"],
+                                                       one["losses"])),
+               "tol": {"loss": PART_TOL, "rel": PART_REL,
+                       "floor": PART_FLOOR},
+               "peak_gb": [o["peak_bytes"] / 1e9 for o in outs],
+               "dryrun_peak_gb": peak_pred / 1e9,
+               "peak_gap_gb": [(o["peak_bytes"] - peak_pred) / 1e9
+                               for o in outs],
+               "dryrun_argument_gb": pred["argument_gib_per_chip"]
+               * 2**30 / 1e9,
+               "collectives_per_step": outs[0]["counts"][0],
+               "dryrun_collectives": pred["collective_counts"],
+               "launches_per_step": outs[0]["launches"][0],
+               "dryrun_kernel_calls": pred["kernel_calls"],
+               "step_seconds": [o["seconds"] / PART_STEPS
+                                for o in outs]}
+        broken = part_check(update, err)
+        if plant:
+            planted = [max(o["planted_err"][i] for o in outs)
+                       for i in range(len(update))]
+            caught = part_check(update, planted)
+            rec["planted_fault"] = {
+                "fault": "the 'model' sum of every gradient dropped",
+                "leaves_caught": [one["leaves"][i] for i, _, _ in caught],
+                "max_err_over_update": max(
+                    e / u for e, u in zip(planted, update) if u)}
+        say(rec)
+        if not all(o["partitioned"] for o in outs):
+            fail(f"dryrun {shape}: a rank did not take the "
+                 "partitioned step")
+        if broken or not rec["max_abs_loss_err"] <= PART_TOL:
+            fail(f"dryrun {shape}: leaves from the one-rank step "
+                 f"{[(one['leaves'][i], e, b) for i, e, b in broken]}"
+                 f" / losses {rec['max_abs_loss_err']} (tol "
+                 f"{PART_TOL})")
+        if plant and not caught:
+            fail(f"dryrun {shape}: the planted fault passed the check")
+        norms = {k: v for k, v in pred["kernel_calls"].items()
+                 if k in ("rmsnorm", "residual_rmsnorm")}
+        for rank, o in enumerate(outs):
+            for step, (c, n) in enumerate(zip(o["counts"],
+                                              o["launches"])):
+                got = {MESH_KINDS[k]: v for k, v in c.items()
+                       if k in MESH_KINDS and v}
+                if got != pred["collective_counts"]:
+                    fail(f"dryrun {shape} rank {rank} step {step}: "
+                         f"collectives {got}, the dry run's "
+                         f"{pred['collective_counts']}")
+                if n != norms or not n:
+                    fail(f"dryrun {shape} rank {rank} step {step}: "
+                         f"launches {n}, the dry run's {norms}")
+    prefill_report([r["prefill"] for r in ranks], prefill_preds,
+                   ranks[0]["c_seconds"])
 
     rows = cells.collect()
     for r in rows:
         say({"phase": "dryrun", "arch": r["arch"], "mesh": r["mesh"],
+             "shape": r["shape"],
              "partitioned": r["partitioned"], "fit": r["fit"],
              "fits_hbm": r["fits_hbm"],
              "argument_gib_per_chip": r["argument_gib_per_chip"],

@@ -40,7 +40,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,7 +114,11 @@ def from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3,
-                 async_save: bool = True, on_write=None):
+                 async_save: bool = True, on_write=None, tidy: bool = True):
+        """``tidy``: drop or roll back what a crash mid-save left
+        (``_gc_tmp``).  Where several processes open one directory, one
+        tidies while the others wait and open it with ``tidy=False``
+        (``launch.mesh.open_checkpoints``)."""
         self.directory = directory
         self.keep = keep
         self.async_save = async_save
@@ -124,7 +128,8 @@ class CheckpointManager:
         #: (``t0``: ``time.perf_counter()`` when the write began)
         self.on_write = on_write
         os.makedirs(directory, exist_ok=True)
-        self._gc_tmp()
+        if tidy:
+            self._gc_tmp()
 
     # ---------------------------------------------------------------- save
     def save(self, step: int, tree: Any,
@@ -151,6 +156,14 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
+    def write(self, step: int, host, extras: Dict[str, Any]) -> None:
+        """Write checkpoint ``step`` now from an iterable of ``(name, host
+        array, manifest dtype)`` in flatten order (``to_host``), each
+        written as it comes: a caller that makes the leaves one at a
+        time holds one on the host."""
+        self.wait()
+        self._write(step, host, extras)
+
     def _write_async(self, step: int, host, extras: Dict[str, Any]) -> None:
         try:
             self._write(step, host, extras)
@@ -165,9 +178,11 @@ class CheckpointManager:
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         manifest = {"step": step, "extras": extras, "leaves": []}
+        nbytes = 0
         for i, (name, arr, dtype) in enumerate(host):
             fname = f"arr_{i:05d}.npy"
             np.save(os.path.join(tmp, fname), arr)
+            nbytes += arr.nbytes
             manifest["leaves"].append(
                 {"name": name, "file": fname,
                  "shape": list(arr.shape), "dtype": dtype})
@@ -186,7 +201,7 @@ class CheckpointManager:
             shutil.rmtree(aside)
         self._gc()
         if self.on_write is not None:
-            self.on_write(step, t0, sum(arr.nbytes for _, arr, _ in host))
+            self.on_write(step, t0, nbytes)
 
     # -------------------------------------------------------------- restore
     def steps(self) -> List[int]:
@@ -217,15 +232,14 @@ class CheckpointManager:
                                "manifest.json")) as f:
             return json.load(f)["extras"]
 
-    def restore(self, step: int, like: Any) -> Tuple[Any, Dict[str, Any]]:
-        """Restore into the structure of ``like`` (names must match):
-        CPU tensors in the manifest's dtypes, and the extras."""
+    def leaves(self, step: int, like: Any) -> Iterator[torch.Tensor]:
+        """The CPU tensor of each leaf of ``like`` in flatten order, in
+        the manifest's dtype, read one at a time (names must match,
+        shapes must equal ``like``'s)."""
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_name = {entry["name"]: entry for entry in manifest["leaves"]}
-        _, treedef = tree_util.flatten(like)
-        leaves = []
         for name, ref_leaf in keystr_names(like):
             entry = by_name.get(name)
             if entry is None:
@@ -235,8 +249,14 @@ class CheckpointManager:
                 raise ValueError(
                     f"{name}: checkpoint shape {arr.shape} != "
                     f"expected {tuple(ref_leaf.shape)}")
-            leaves.append(from_host(arr, entry["dtype"]))
-        return tree_util.unflatten(treedef, leaves), manifest["extras"]
+            yield from_host(arr, entry["dtype"])
+
+    def restore(self, step: int, like: Any) -> Tuple[Any, Dict[str, Any]]:
+        """Restore into the structure of ``like`` (names must match):
+        CPU tensors in the manifest's dtypes, and the extras."""
+        _, treedef = tree_util.flatten(like)
+        leaves = list(self.leaves(step, like))
+        return tree_util.unflatten(treedef, leaves), self.peek_extras(step)
 
     def restore_latest(self, like: Any
                        ) -> Optional[Tuple[int, Any, Dict[str, Any]]]:

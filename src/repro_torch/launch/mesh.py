@@ -302,6 +302,59 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFromGroup.apply(x, group)
 
 
+class _MeanOverRanks(torch.autograd.Function):
+    """The mean of ``x`` over the ranks of ``groups`` forward (a sum over
+    each group, then one division by a tensor of their count ``n``);
+    the gradient unchanged backward.  Every rank's loss holds the same
+    mean, and the step divides the gradients summed over the batch's
+    ranks once by ``n``: each rank's ``d mean / d x`` is therefore 1,
+    not 1/n (``batch_means``)."""
+
+    @staticmethod
+    def forward(ctx, x, groups, n):
+        y = x.clone()
+        for g in groups:
+            all_reduce_sum_(y, g)
+        return y.div_(torch.full((), n, dtype=y.dtype, device=y.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def batch_means(mesh, axes: Sequence[str]):
+    """The MoE aux loss's hook (``models.moe.moe_block``) for a step whose
+    batch rows are split over ``axes``: ``frac`` and ``meanp`` averaged
+    over those ranks before their product, as the reference's means run
+    over the global batch; ``meanp`` keeps its gradient (one all-reduce
+    of both a live axis and MoE chunk).  None where no axis splits."""
+    sizes = mesh_axis_sizes(mesh)
+    live = [a for a in axes if sizes[a] > 1]
+    if not live:
+        return None
+    groups = [mesh.get_group(a) for a in live]
+    n = math.prod(sizes[a] for a in live)
+
+    def means(frac: torch.Tensor, meanp: torch.Tensor):
+        both = _MeanOverRanks.apply(torch.stack([frac, meanp]), groups, n)
+        return both[0], both[1]
+
+    return means
+
+
+def broadcast_(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """``t`` in place from ``group``'s rank ``src`` to all its ranks."""
+    _count("broadcast", t, group)
+    root = dist.get_global_rank(group, src)
+    if _gloo_staged(t, group):
+        host = t.cpu()
+        dist.broadcast(host, src=root, group=group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, src=root, group=group)
+    return t
+
+
 def broadcast_int(value: int, mesh) -> int:
     """The mesh's first rank's host int on every rank (the DSSP delay:
     a host decision every rank must share).  Over the default group, so
@@ -405,6 +458,74 @@ def place(tree: Any, specs: Any, mesh) -> Any:
 def gather(tree: Any, specs: Any, mesh) -> Any:
     """Whole leaves from this rank's blocks (``place``'s inverse)."""
     return _zip_map(lambda x, s: gather_leaf(x, s, mesh), tree, specs)
+
+
+def _first_rank(mesh) -> bool:
+    return dist.get_rank() == int(mesh.mesh.flatten()[0])
+
+
+def open_checkpoints(directory: str, mesh, **kw):
+    """A ``checkpoint.manager.CheckpointManager`` on ``directory`` for
+    each rank of ``mesh``: the mesh's first rank opens it first, which
+    rolls back what a crash mid-save left there, while the others wait;
+    they then open it without touching it, so every rank reads the same
+    steps.  Every rank of the mesh calls it."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    first = _first_rank(mesh)
+    if first:
+        manager = CheckpointManager(directory, **kw)
+    if mesh.size() > 1:
+        dist.barrier()
+    if not first:
+        manager = CheckpointManager(directory, tidy=False, **kw)
+    return manager
+
+
+def save_blocks(manager, step: int, tree: Any, specs: Any, mesh,
+                extras: Optional[Dict[str, Any]] = None) -> None:
+    """``tree``'s whole leaves, from this rank's blocks under ``specs``,
+    as checkpoint ``step`` of ``manager`` (``checkpoint.manager``: the
+    reference's format, one ``.npy`` per whole leaf in flatten order).
+    The leaves are gathered one at a time in flatten order; the mesh's
+    first rank moves each to its host and writes it while the others
+    wait, so no device holds more than one whole leaf beyond its
+    blocks.  Every rank of the mesh calls it; it returns when the
+    checkpoint is committed."""
+    from repro_torch.checkpoint.manager import keystr_names, to_host
+    first = _first_rank(mesh)
+    named, sp = keystr_names(tree), _spec_leaves(specs)
+    if len(named) != len(sp):
+        raise ValueError(f"{len(named)} leaves against {len(sp)} specs")
+
+    def wholes():
+        for (name, x), s in zip(named, sp):
+            whole = gather_leaf(x, s, mesh) if isinstance(
+                x, torch.Tensor) else x
+            if first:
+                yield (name,) + to_host(whole)
+
+    if first:
+        manager.write(step, wholes(), extras or {})
+    else:
+        for _ in wholes():
+            pass
+    if mesh.size() > 1:
+        dist.barrier()
+
+
+def restore_blocks(manager, step: int, blocks: Any, like: Any, specs: Any,
+                   mesh) -> Dict[str, Any]:
+    """Checkpoint ``step`` of ``manager`` into this rank's ``blocks`` (in
+    place) under ``specs``: each whole leaf read on the host one at a
+    time (``like``: the whole tree's shapes, ``meta`` tensors will do),
+    its block kept.  Returns the checkpoint's extras."""
+    flat, sp = tree_util.leaves(blocks), _spec_leaves(specs)
+    if not len(flat) == len(sp):
+        raise ValueError(f"{len(flat)} leaves against {len(sp)} specs")
+    with torch.no_grad():
+        for cur, s, whole in zip(flat, sp, manager.leaves(step, like)):
+            cur.copy_(block_view(whole, s, mesh))
+    return manager.peek_extras(step)
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor], axes: Sequence[str],

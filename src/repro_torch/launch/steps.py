@@ -23,12 +23,24 @@ port keeps the reference's values and its per-device storage:
   tensor-parallel), and the gradients arrive as blocks, summed over the
   axes the compute was split along, then divided once by the batch's
   ranks;
-* every other config (Jamba, xLSTM, Whisper, role 'dp') and the
-  prefill and decode bundles gather each parameter whole
+* their prefill computes on blocks the same way, under ``no_grad``
+  (``build_prefill_step``): attention over chunks of the rank's
+  queries, the rank's block of the KV cache as ``cache_specs`` gives
+  it, the greedy token an argmax over the vocabulary blocks; it
+  gathers no whole parameter;
+* every other config (Jamba, xLSTM, Whisper, role 'dp'), their prefill
+  and the decode bundle gather each parameter whole
   and run the model on the rank's batch rows, then average the
   gradients over the batch's mesh axes (an f32 ``all_reduce`` sum, a
   division by a tensor) and take each rank's block: ranks on one
-  'model' coordinate repeat the same work (ROADMAP queue 3);
+  'model' coordinate repeat the same work (ROADMAP queue 1, item 14);
+* an MoE's aux loss takes its two means over the global batch in both
+  train steps (``launch.mesh.batch_means``);
+* wire compression (``make_train_fn(compressor=)``, the ``Trainer``'s)
+  compresses each rank's gradient blocks before the ring, with the
+  error state in blocks; the one scalar per whole leaf (int8's max,
+  top-k's threshold) is reduced over the axes that split the leaf
+  (``block_reducers``);
 * the ring and the optimizer update each rank's blocks in place;
   Adafactor's means over whole leaves are sums over the blocks, summed
   over the axes that split them (``block_means``);
@@ -55,8 +67,8 @@ from repro_torch import tree as tree_util
 from repro_torch.configs.shapes import ShapeSpec, input_specs, state_sds
 from repro_torch.core import dssp_spmd
 from repro_torch.launch.mesh import (all_reduce_mean, all_reduce_sum_,
-                                     block_view, gather, gather_leaf,
-                                     spec_axes, split_dims)
+                                     batch_means, block_view, gather,
+                                     gather_leaf, spec_axes, split_dims)
 from repro_torch.launch.train import OPTIMIZER_RANGE, RING_RANGE
 from repro_torch.models import registry, transformer
 from repro_torch.models.config import ModelConfig
@@ -65,6 +77,8 @@ from repro_torch.models.partition import partition_for
 from repro_torch.models.sharding import (AxisRules, PartitionSpec, is_spec,
                                          mesh_axis_sizes, rules_for_mesh,
                                          use_rules)
+from repro_torch.optim.compression import (WHOLE_LEAF, Compressor,
+                                           LeafReducer)
 from repro_torch.optim.optimizers import (Optimizer, whole_mean,
                                           make_optimizer,
                                           state_partition_specs)
@@ -159,27 +173,35 @@ def _row_block(b_spec: Any, mesh) -> Tuple[int, int]:
     return idx, n
 
 
-def make_train_fn(mesh, rules: AxisRules, opt: Optimizer, loss_fn: Callable,
+def make_train_fn(mesh, rules: AxisRules, opt: Optimizer, cfg: ModelConfig,
                   p_spec: Any, o_spec: Any, b_spec: Any, *,
-                  use_pipeline: bool, accum: int = 1,
-                  cfg: Optional[ModelConfig] = None) -> Callable:
-    """The mesh train step ``(params, opt_state, pipeline, batch, delay)
-    -> (params, opt_state, pipeline, {"loss": loss})`` over this rank's
-    blocks (see the module docstring); params, optimizer state and ring
-    are updated in place.  ``delay`` is a host int, the same on every
-    rank.  With ``cfg`` a config that ``models.partition`` partitions,
-    the step computes on blocks (``Partition.loss``) and gathers no
-    whole parameter; otherwise it gathers each parameter whole and runs
-    ``loss_fn``."""
+                  use_pipeline: bool, accum: int = 1, partition: bool = True,
+                  compressor: Optional[Compressor] = None) -> Callable:
+    """The mesh train step ``(params, opt_state, pipeline, batch, delay,
+    err=()) -> (params, opt_state, pipeline, {"loss": loss})`` over this
+    rank's blocks (see the module docstring); params, optimizer state,
+    ring and error state are updated in place.  ``delay`` is a host int,
+    the same on every rank.  With ``cfg`` a config that
+    ``models.partition`` partitions (and ``partition``), the step
+    computes on blocks (``Partition.loss``) and gathers no whole
+    parameter; otherwise it gathers each parameter whole and runs
+    ``registry.loss_fn(cfg)`` (an MoE's with the aux loss over the
+    global batch).
+    With a ``compressor`` that is not the identity, the gradient blocks
+    are compressed before the ring against ``err``, the error state's
+    blocks (f32, the leaves' specs)."""
     sizes = mesh_axis_sizes(mesh)
     reduce_axes = tuple(a for a in _batch_axes(b_spec) if sizes[a] > 1)
     p_specs = tree_util.leaves(p_spec, is_leaf=is_spec)
     split = [bool(split_dims(s, mesh)) for s in p_specs]
     row_idx, row_blocks = _row_block(b_spec, mesh)
     part = (partition_for(cfg, mesh, rules, p_spec, _batch_axes(b_spec))
-            if cfg is not None else None)
+            if partition else None)
+    loss_fn = registry.loss_fn(cfg, batch_means(mesh, reduce_axes))
     opt_kw = ({"means": block_means(p_specs, mesh)}
               if opt.name == "adafactor" and any(split) else {})
+    compress = compressor is not None and compressor.name != "none"
+    reducers = block_reducers(p_specs, mesh) if compress else None
 
     def whole_grads(params, batch, row0):
         """Gradients of the gathered leaves, averaged over the batch's
@@ -195,7 +217,7 @@ def make_train_fn(mesh, rules: AxisRules, opt: Optimizer, loss_fn: Callable,
         return loss, [block_view(g, s, mesh) if sp else g
                       for g, s, sp in zip(grads, p_specs, split)]
 
-    def train_step(params, opt_state, pipeline, batch, delay):
+    def train_step(params, opt_state, pipeline, batch, delay, err=()):
         with use_rules(rules):
             leaves, treedef = tree_util.flatten(params)
             row0 = row_idx * tree_util.leaves(batch)[0].shape[0]
@@ -208,6 +230,13 @@ def make_train_fn(mesh, rules: AxisRules, opt: Optimizer, loss_fn: Callable,
             blocks = tree_util.unflatten(treedef, [
                 g.to(p.dtype) for g, p in zip(grads, leaves)])
             del grads
+            if compress:
+                blocks, new_err = compressor.apply(blocks, err, reducers)
+                with torch.no_grad():
+                    for e, n in zip(tree_util.leaves(err),
+                                    tree_util.leaves(new_err)):
+                        e.copy_(n)
+                del new_err
             if use_pipeline:
                 with torch.profiler.record_function(RING_RANGE):
                     blocks, valid, pipeline = dssp_spmd.push_pop(
@@ -223,6 +252,42 @@ def make_train_fn(mesh, rules: AxisRules, opt: Optimizer, loss_fn: Callable,
 
     train_step.partition = part
     return train_step
+
+
+class _BlockReducer(LeafReducer):
+    """A leaf split over ``groups`` (the live mesh axes that split it):
+    reductions over their ranks, ``n`` blocks in all."""
+
+    def __init__(self, groups, n: int):
+        self.groups, self.n = groups, n
+
+    def max_(self, t: torch.Tensor) -> torch.Tensor:
+        for g in self.groups:
+            all_reduce_sum_(t, g, op=torch.distributed.ReduceOp.MAX)
+        return t
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        for g in self.groups:
+            all_reduce_sum_(t, g)
+        return t
+
+    def numel(self, block: torch.Tensor) -> int:
+        return block.numel() * self.n
+
+
+def block_reducers(p_specs, mesh) -> list:
+    """Per leaf, the ``optim.compression.LeafReducer`` that reads the
+    whole leaf from this rank's block: over the live mesh axes that
+    split it; ``WHOLE_LEAF`` for a leaf no axis splits."""
+    sizes = mesh_axis_sizes(mesh)
+    out = []
+    for spec in p_specs:
+        axes = [a for ax in split_dims(spec, mesh).values() for a in ax
+                if sizes[a] > 1]
+        out.append(_BlockReducer([mesh.get_group(a) for a in axes],
+                                 math.prod(sizes[a] for a in axes))
+                   if axes else WHOLE_LEAF)
+    return out
 
 
 def block_means(p_specs, mesh) -> list:
@@ -286,9 +351,9 @@ def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
         pipe_sds, pipe_spec = (), ()
     accum = math.gcd(max(1, cfg.grad_accum), shape.global_batch)
 
-    fn = make_train_fn(mesh, rules, opt, registry.loss_fn(cfg), p_spec,
-                       o_spec, b_spec, use_pipeline=use_pipeline,
-                       accum=accum, cfg=cfg if partition else None)
+    fn = make_train_fn(mesh, rules, opt, cfg, p_spec, o_spec, b_spec,
+                       use_pipeline=use_pipeline, accum=accum,
+                       partition=partition)
     in_sh = (p_spec, o_spec, pipe_spec, b_spec, P())
     out_sh = (p_spec, o_spec, pipe_spec, {"loss": P()})
     input_sds = (p_sds, o_sds, pipe_sds, b_sds, _meta_scalar())
@@ -318,6 +383,10 @@ def _non_batch_dims(spec: PartitionSpec, mesh, batch_entry
 # ------------------------------------------------------------------ prefill
 def build_prefill_step(cfg: ModelConfig, mesh,
                        shape: ShapeSpec) -> StepBundle:
+    """The transformers under role 'tp' compute on blocks
+    (``models.partition``, ``serving=True``): the bundle gathers no
+    parameter and returns the rank's block of the token and of the
+    cache; every other config gathers its parameters whole."""
     # prefill/serve always use TP weight layouts: model_axis_role='dp' is
     # a training choice
     rules = rules_for_mesh(mesh, sp=cfg.sequence_parallel, role="tp")
@@ -329,20 +398,33 @@ def build_prefill_step(cfg: ModelConfig, mesh,
     fam = registry.family(cfg)
     b = shape.global_batch
     entry = _rows_axes_entry(rules, b)
+    part = None
 
     if cfg.family in ("dense", "moe", "vlm"):
         cache_spec = transformer.cache_specs(cfg, b, shape.seq_len, rules)
         tok_spec = rules.spec(("batch",), (b,))
+        if cfg.model_axis_role == "tp":
+            part = partition_for(cfg, mesh, rules, p_spec,
+                                 _batch_axes(b_spec), serving=True)
+        if part is not None:
+            part.check_cache(cache_spec)
 
-        def prefill(params, batch):
-            with use_rules(rules), torch.no_grad():
-                full = gather(params, p_spec, mesh)
-                logits, cache = transformer.forward_prefill(
-                    cfg, full, batch["tokens"])
-                token = torch.argmax(logits[:, -1], dim=-1)
-                cache = {k: _own_block(v, cache_spec[k], mesh, entry)
-                         for k, v in cache.items()}
-            return token, cache
+            def prefill(params, batch):
+                with use_rules(rules), torch.no_grad():
+                    logits, cache = transformer.forward_prefill(
+                        cfg, params, batch["tokens"], part)
+                    token = part.greedy(logits)
+                return token, cache
+        else:
+            def prefill(params, batch):
+                with use_rules(rules), torch.no_grad():
+                    full = gather(params, p_spec, mesh)
+                    logits, cache = transformer.forward_prefill(
+                        cfg, full, batch["tokens"])
+                    token = torch.argmax(logits[:, -1], dim=-1)
+                    cache = {k: _own_block(v, cache_spec[k], mesh, entry)
+                             for k, v in cache.items()}
+                return token, cache
 
         out_sh = (tok_spec, cache_spec)
     else:
@@ -360,7 +442,9 @@ def build_prefill_step(cfg: ModelConfig, mesh,
         out_sh = P()
 
     in_sh = (p_spec, b_spec)
-    return StepBundle(prefill, in_sh, out_sh, (), (p_sds, b_sds), rules)
+    prefill.partition = part
+    return StepBundle(prefill, in_sh, out_sh, (), (p_sds, b_sds), rules,
+                      part is not None)
 
 
 def _own_block(x: torch.Tensor, spec: PartitionSpec, mesh,

@@ -26,8 +26,16 @@ builds, over this rank's blocks (``launch/steps.py``): every rank
 generates the global batch and keeps its rows, and the controller's
 delay is the mesh's first rank's, broadcast each step.  On a mesh
 whose axes all have one rank it computes with the stored tensors and
-runs no collective.  Compression and checkpoints are not wired to a
-mesh.
+runs no collective.  Compression compresses each rank's gradient
+blocks with the error state in blocks, each leaf's scale or top-k
+threshold that of the whole leaf (``launch.steps.block_reducers``), as
+the reference compresses the whole summed gradient.  A checkpoint holds
+whole leaves in the reference's format: the mesh's first rank gathers
+and writes one leaf at a time while the others wait, and on resume
+every rank reads each whole leaf and keeps its block
+(``launch.mesh.save_blocks``/``restore_blocks``), so a mesh run and a
+one-device run, of either package, resume each other.  As in the
+reference the error state is not saved.
 
 Fault tolerance: atomic async checkpoints every ``save_every`` steps
 (params, optimizer state, DSSP ring buffer, data cursor) in the
@@ -82,6 +90,14 @@ class TrainLog:
 
 
 class Trainer:
+    """The SPMD trainer (module docstring).  With ``rules=`` whose mesh
+    is set, the parameters, optimizer state, ring and error state are
+    this rank's blocks, the step is ``launch.steps.make_train_fn``'s,
+    compression reduces each leaf's scale or threshold over the ranks
+    that split it, and ``save``/``resume`` write and read whole leaves
+    one at a time (``launch.mesh.save_blocks``/``restore_blocks``); every
+    rank of the mesh builds one and calls ``train`` alike."""
+
     def __init__(self, cfg, data_cfg: DataConfig, *, sync: str = "dssp",
                  s_lower: int = 0, s_upper: int = 3, lr: float = 3e-3,
                  optimizer: Optional[str] = None,
@@ -95,10 +111,6 @@ class Trainer:
                              "(asp exists in the PS layer only)")
         self.rules = rules
         self.mesh = getattr(rules, "mesh", None)
-        if self.mesh is not None and (compressor != "none"
-                                      or checkpoint_dir):
-            raise ValueError("compression and checkpoints are not wired "
-                             "to a mesh; it trains without")
         self.cfg = cfg
         self.data_cfg = data_cfg
         self.sync = sync
@@ -131,11 +143,13 @@ class Trainer:
             rows = {"tokens": rules.spec(("batch", None),
                                          (data_cfg.global_batch,
                                           data_cfg.seq_len))}
+            whole = registry.abstract_params(cfg)
+            self.state_specs = state_partition_specs(
+                self.opt, self.param_specs, whole)
             self._mesh_step = make_train_fn(
-                self.mesh, rules, self.opt, self.loss_fn, self.param_specs,
-                state_partition_specs(self.opt, self.param_specs,
-                                      self.params),
-                rows, use_pipeline=self.use_pipeline, cfg=cfg)
+                self.mesh, rules, self.opt, cfg, self.param_specs,
+                self.state_specs, rows, use_pipeline=self.use_pipeline,
+                compressor=self.compressor)
         self.opt_state = self.opt.init(self.params)
         self.pipeline = (dssp_spmd.init_pipeline(self.params, s_upper + 1)
                          if self.use_pipeline else ())
@@ -144,8 +158,14 @@ class Trainer:
                           if self.compressor.name != "none" else ())
         self.step_idx = 0
 
-        self.ckpt = (CheckpointManager(checkpoint_dir, keep=keep)
-                     if checkpoint_dir else None)
+        if not checkpoint_dir:
+            self.ckpt = None
+        elif self.mesh is not None:
+            from repro_torch.launch.mesh import open_checkpoints
+            self.ckpt = open_checkpoints(checkpoint_dir, self.mesh,
+                                         keep=keep)
+        else:
+            self.ckpt = CheckpointManager(checkpoint_dir, keep=keep)
         self.save_every = save_every
 
     # ------------------------------------------------------------ step
@@ -163,7 +183,8 @@ class Trainer:
                          self.mesh)
             (self.params, self.opt_state, self.pipeline,
              metrics) = self._mesh_step(self.params, self.opt_state,
-                                        self.pipeline, rows, delay)
+                                        self.pipeline, rows, delay,
+                                        self.err_state)
             return metrics["loss"]
         from repro_torch.models.sharding import use_rules
         with use_rules(self.rules):
@@ -195,11 +216,37 @@ class Trainer:
         return loss.detach()
 
     # ------------------------------------------------------------ resume
+    def _state(self):
+        return {"params": self.params, "opt": self.opt_state,
+                "pipeline": self.pipeline}
+
+    def _mesh_state(self):
+        """The state's specs and its whole shapes (``meta``) on a mesh."""
+        from repro_torch.core.dssp_spmd import pipeline_specs
+        whole = registry.abstract_params(self.cfg)
+        specs = {"params": self.param_specs, "opt": self.state_specs,
+                 "pipeline": (pipeline_specs(self.param_specs,
+                                             self.s_upper + 1)
+                              if self.use_pipeline else ())}
+        like = {"params": whole, "opt": self.opt.init(whole),
+                "pipeline": (dssp_spmd.init_pipeline(whole, self.s_upper + 1)
+                             if self.use_pipeline else ())}
+        return specs, like
+
     def resume(self) -> bool:
         if self.ckpt is None:
             return False
-        state = {"params": self.params, "opt": self.opt_state,
-                 "pipeline": self.pipeline}
+        state = self._state()
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import restore_blocks
+            step = self.ckpt.latest_step()
+            if step is None:
+                return False
+            specs, like = self._mesh_state()
+            extras = restore_blocks(self.ckpt, step, state, like, specs,
+                                    self.mesh)
+            self.step_idx = extras["next_step"]
+            return True
         got = self.ckpt.restore_latest(state)
         if got is None:
             return False
@@ -254,11 +301,15 @@ class Trainer:
         return self.log
 
     def save(self) -> None:
-        self.ckpt.save(self.step_idx, {
-            "params": self.params, "opt": self.opt_state,
-            "pipeline": self.pipeline,
-        }, extras={"next_step": self.step_idx,
-                   "data_seed": self.data_cfg.seed})
+        extras = {"next_step": self.step_idx,
+                  "data_seed": self.data_cfg.seed}
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import save_blocks
+            specs, _ = self._mesh_state()
+            save_blocks(self.ckpt, self.step_idx, self._state(), specs,
+                        self.mesh, extras)
+            return
+        self.ckpt.save(self.step_idx, self._state(), extras=extras)
 
 
 # ----------------------------------------------------- sharded-PS path

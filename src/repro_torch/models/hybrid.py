@@ -81,7 +81,8 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _slot_body(cfg: ModelConfig, mixer: str, ffn: str, x: torch.Tensor,
-               w: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+               w: Dict[str, Any], moe_means=moe_lib.local_means
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     h = L.apply_norm(cfg, x, w["mixer_norm"])
     if mixer == "attn":
         # rope is off for jamba (use_rope=False): no cos/sin
@@ -91,7 +92,7 @@ def _slot_body(cfg: ModelConfig, mixer: str, ffn: str, x: torch.Tensor,
     # fused residual-add + norm via the kernel registry
     x, h = L.residual_apply_norm(cfg, mix, x, w["ffn_norm"])
     if ffn == "moe":
-        out, aux = moe_lib.moe_block(cfg, h, w["moe"])
+        out, aux = moe_lib.moe_block(cfg, h, w["moe"], moe_means)
     else:
         out = L.mlp_block(cfg, h, w["mlp"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -99,8 +100,10 @@ def _slot_body(cfg: ModelConfig, mixer: str, ffn: str, x: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            moe_means=moe_lib.local_means
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training forward. tokens (b, l) -> logits (b, l, v), summed aux."""
+    """Training forward. tokens (b, l) -> logits (b, l, v), summed aux
+    (``moe_means``: the MoE aux loss's hook, ``moe.moe_block``)."""
     kinds = _slot_kinds(cfg)
     groups = cfg.n_layers // (cfg.attn_period or 1)
     x = L.embed(tokens, params["embed"]).to(torch_dtype(cfg.dtype))
@@ -111,10 +114,10 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
         for (mixer, ffn), ws in zip(kinds, per_slot):
             if cfg.remat == "full":
                 x, aux = checkpoint(_slot_body, cfg, mixer, ffn, x, ws[g],
-                                    use_reentrant=False,
+                                    moe_means, use_reentrant=False,
                                     context_fn=remat_contexts)
             else:
-                x, aux = _slot_body(cfg, mixer, ffn, x, ws[g])
+                x, aux = _slot_body(cfg, mixer, ffn, x, ws[g], moe_means)
             aux_total = aux_total + aux
     x = L.apply_norm(cfg, x, params["final_norm"])
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]

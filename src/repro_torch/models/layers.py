@@ -128,6 +128,29 @@ def _attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+#: f32 score bytes of one chunk of queries in ``grouped_attention`` when
+#: no gradient is taken (prefill): rows x heads x chunk x keys x 4
+NO_GRAD_SCORE_BYTES = 1 << 30
+
+
+def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """``_attention_grouped`` over full query heads: q (b, lq, hq, d),
+    k/v (b, lk, hkv, d), mask (lq, lk) -> (b, lq, hq, d).  Without a
+    gradient (prefill) the queries go in chunks whose f32 scores take at
+    most ``NO_GRAD_SCORE_BYTES``: each row's scores, mask and softmax
+    are the unchunked form's, and the scores of 32k keys fit a card."""
+    b, lq, hq, d = q.shape
+    hkv = k.shape[2]
+    rows = lq
+    if not torch.is_grad_enabled():
+        rows = max(1, NO_GRAD_SCORE_BYTES // (b * hq * k.shape[1] * 4))
+    outs = [_attention_grouped(
+        q[:, i:i + rows].reshape(b, -1, hkv, hq // hkv, d), k, v,
+        mask[i:i + rows]).reshape(b, -1, hq, d) for i in range(0, lq, rows)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
 def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, *, causal: bool = True,
               window: Optional[int] = None) -> torch.Tensor:
@@ -193,12 +216,10 @@ def masked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     ``cfg.attn_chunk`` divides lq into more than one chunk, the queries
     go in chunks of that many rows: the same rows, with the score block
     bounded to (chunk x lk) — not an online softmax."""
-    b, lq, hq, d = q.shape
-    hkv = k.shape[2]
-    g = hq // hkv
+    lq, hq = q.shape[1], q.shape[2]
+    g = hq // k.shape[2]
     if lq == 1 or sp_mode():
-        out = _attention_grouped(q.reshape(b, lq, hkv, g, d), k, v, mask)
-        return out.reshape(b, lq, hq, d)
+        return grouped_attention(q, k, v, mask)
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)

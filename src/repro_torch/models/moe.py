@@ -9,6 +9,12 @@ Pallas kernel here, so neither does the port.  On one device there is
 no expert parallelism: the reference's sharding annotations have no
 counterpart.
 
+The load-balancing loss's two means (``frac``, ``meanp``) run over the
+batch and the chunk; under GSPMD that batch is global.  ``moe_block``
+takes a hook ``means(frac, meanp)`` that a mesh's step gives to average
+them over the batch's ranks before the product; ``local_means``, the
+default, keeps the means over the rows the call sees.
+
 ``lax.top_k`` ranks equal probabilities by the lower expert index
 first; a stable descending sort does the same, so the capacity cut-off
 keeps the same tokens.
@@ -16,7 +22,7 @@ keeps the same tokens.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,7 +63,15 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
+def local_means(frac: torch.Tensor, meanp: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one-device hook of ``moe_block``: the aux loss's means over
+    the rows this call sees, unchanged."""
+    return frac, meanp
+
+
 def _route(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor,
+           means: Callable = local_means,
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (b, s, d) -> combine (b, s, e, c) f32, dispatch (same, model
     dtype), aux load-balance loss (scalar)."""
@@ -77,6 +91,7 @@ def _route(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor,
     # Load-balance aux loss (Switch/GShard): e * sum_e fraction_e * meanprob_e
     frac = _one_hot(expert_idx[..., 0], e).mean(dim=(0, 1))
     meanp = probs.mean(dim=(0, 1))
+    frac, meanp = means(frac, meanp)
     aux = e * torch.sum(frac * meanp)
 
     # Position-in-expert per (row, chunk) group, k slots in priority order.
@@ -107,9 +122,9 @@ def _expert_ffn(cfg: ModelConfig, xe: torch.Tensor,
 
 
 def _moe_chunk(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               means: Callable) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route + dispatch + compute + combine for one (b, chunk, d) slab."""
-    combine, dispatch, aux = _route(cfg, x, w["router"])
+    combine, dispatch, aux = _route(cfg, x, w["router"], means)
     xe = torch.einsum("bsd,bsec->ebcd", x, dispatch)
     ye = _expert_ffn(cfg, xe, w)
     y = torch.einsum("ebcd,bsec->bsd", ye, combine.to(x.dtype))
@@ -117,9 +132,11 @@ def _moe_chunk(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
 
 
 def moe_block(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
+              means: Callable = local_means,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (b, l, d) -> (y (b, l, d), aux scalar), over chunks of the
-    sequence."""
+    sequence; ``means`` the aux loss's hook (module docstring), applied
+    per chunk."""
     m = cfg.moe
     b, l, d = x.shape
     chunk = min(cfg.moe_chunk, l) if cfg.moe_chunk > 0 else l
@@ -132,12 +149,12 @@ def moe_block(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
         out_shared = (h @ w["shared_down"]).view(b, l, d)
 
     if chunk >= l or l % chunk != 0:   # decode / cost-mode: single dispatch
-        y, aux = _moe_chunk(cfg, x, w)
+        y, aux = _moe_chunk(cfg, x, w, means)
         return y + out_shared, aux
 
     ys, auxs = [], []
     for c0 in range(0, l, chunk):
-        y, aux = _moe_chunk(cfg, x[:, c0:c0 + chunk], w)
+        y, aux = _moe_chunk(cfg, x[:, c0:c0 + chunk], w, means)
         ys.append(y)
         auxs.append(aux)
     return torch.cat(ys, dim=1) + out_shared, torch.stack(auxs).mean()

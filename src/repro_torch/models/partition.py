@@ -38,7 +38,10 @@ loss of its batch rows through ``Partition.loss``, which runs
   SP each rank routes its own sequence block where the reference's
   chunks of ``cfg.moe_chunk`` tokens lie within it (the aux loss then
   averaged over 'model'), and otherwise the whole sequence, keeping its
-  block of the output; under TP every rank computes the FFN whole.
+  block of the output; under TP every rank computes the FFN whole.  The
+  aux loss's two means of each chunk are averaged over the batch's
+  ranks before their product (``launch.mesh.batch_means``), so its
+  value and gradient are the reference's over the global batch.
 
 Each leaf's gradient ends up summed over exactly the mesh axes along
 which its compute was split and its storage is not (``sum_axes``):
@@ -48,11 +51,32 @@ leaves that sequence parallelism computes on blocks (attention and
 norms) and, under tensor parallelism, for those a rank uses only a head
 block of.  Then one division by the batch's ranks.
 
+Prefill (``serving=True``, ``launch.steps.build_prefill_step``) runs
+``transformer.forward_prefill`` through the same hooks under
+``no_grad``: the FSDP gathers and the SP or TP layers as above, and
+
+* the cache: ``attention(collect_kv=True)`` returns the rank's own
+  post-rotary K/V block, the block ``transformer.cache_specs`` gives it
+  (batch rows over the data axes, ``cache_seq`` over 'model': under SP
+  the block before the sequence gather; under TP the heads gathered
+  over 'model', then the rank's sequence block).  qwen1.5-32b's
+  prefill_32k cache is ``P(None, 'data', 'model')`` on 16 x 16 and
+  ``P(None, ('pod', 'data'), 'model')`` on 2 x 16 x 16, for K, V and
+  the int8 scales alike; ``check_cache`` refuses a layout where the two
+  differ, and a sliding window's ring;
+* attention goes over chunks of the rank's queries
+  (``layers.grouped_attention`` without a gradient), each row's softmax
+  as before;
+* the last position: under SP the last 'model' rank's normed row is
+  broadcast to its group; each rank makes its vocabulary block of the
+  logits, and the greedy token is the first index of the largest value
+  over the blocks (``greedy``);
+* no aux loss is reduced (prefill has none).
+
 What this does not partition (``partition_for`` returns None and the
 step gathers whole leaves): Jamba, xLSTM and Whisper, role 'dp'
-configs, a mesh of one rank, and prefill and decode.  A transformer
-config under role 'tp' that it cannot split is refused, not gathered
-whole.
+configs, a mesh of one rank, and decode.  A transformer config under
+role 'tp' that it cannot split is refused, not gathered whole.
 """
 
 from __future__ import annotations
@@ -64,9 +88,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree as tree_util
-from repro_torch.launch.mesh import (all_reduce_sum_, copy_to_group,
+from repro_torch.launch.mesh import (all_gather_cat, all_reduce_sum_,
+                                     batch_means, broadcast_, copy_to_group,
                                      gather_grad, gather_replicated,
-                                     reduce_from_group, scatter_grad)
+                                     reduce_from_group, scatter_grad,
+                                     split_dims)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer
@@ -103,13 +129,15 @@ def _spec_paths(specs: Any, prefix: Tuple[str, ...] = ()
 
 
 def partition_for(cfg: ModelConfig, mesh, rules: AxisRules, p_spec: Any,
-                  batch_axes: Tuple[str, ...]) -> Optional["Partition"]:
+                  batch_axes: Tuple[str, ...], *, serving: bool = False
+                  ) -> Optional["Partition"]:
     """The partition of ``cfg``'s step on ``mesh``, or None where this
     module leaves the step to gather whole leaves (another family, role
     'dp', a mesh of one rank).  Raises for a transformer under role 'tp'
     that it cannot split: a GELU MLP, a batch that does not split over
     every axis but 'model', or a vocabulary or MLP width that 'model'
-    does not split."""
+    does not split.  ``serving``: the prefill's partition (no aux
+    loss)."""
     sizes = mesh_axis_sizes(mesh)
     if (cfg.family not in ("dense", "vlm", "moe")
             or rules.rules.get("model") != "model"
@@ -131,7 +159,7 @@ def partition_for(cfg: ModelConfig, mesh, rules: AxisRules, p_spec: Any,
     if why is not None:
         raise ValueError(f"{cfg.name}: the step on {sizes} cannot be "
                          f"partitioned: {why}")
-    return Partition(cfg, mesh, rules, p_spec)
+    return Partition(cfg, mesh, rules, p_spec, batch_axes, serving=serving)
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -152,8 +180,14 @@ class Partition(transformer.Whole):
     hooks of ``transformer.Whole`` over the rank's blocks."""
 
     def __init__(self, cfg: ModelConfig, mesh, rules: AxisRules,
-                 p_spec: Any):
+                 p_spec: Any, batch_axes: Tuple[str, ...] = (), *,
+                 serving: bool = False):
         sizes = mesh_axis_sizes(mesh)
+        self.serving = serving
+        self.batch_axes = tuple(batch_axes)
+        # the aux loss's means over the global batch (none in prefill)
+        means = None if serving else batch_means(mesh, batch_axes)
+        super().__init__(means or moe_lib.local_means)
         self.cfg = cfg
         self.mesh = mesh
         self.sizes = sizes
@@ -281,28 +315,30 @@ class Partition(transformer.Whole):
 
     def attention(self, cfg: ModelConfig, h: torch.Tensor,
                   w: Dict[str, torch.Tensor], cos: torch.Tensor,
-                  sin: torch.Tensor, collect_kv: bool = False
-                  ) -> torch.Tensor:
-        if collect_kv:
-            raise NotImplementedError("prefill is not partitioned")
+                  sin: torch.Tensor, collect_kv: bool = False):
+        """The attention sublayer on the rank's block; with
+        ``collect_kv`` (prefill) also the rank's block of the cache's
+        post-rotary (k, v) (module docstring)."""
         window = cfg.sliding_window
         if self.sp:
             q, k, v = L._qkv(cfg, h, w, cos, sin)
+            kv = (k, v)
             if self.m > 1:
                 k = gather_grad(k, self.mg, 1)
                 v = gather_grad(v, self.mg, 1)
-            b, lq, hq, d = q.shape
-            hkv = k.shape[2]
+            lq = q.shape[1]
             mask = L.causal_window_mask(lq, k.shape[1],
                                         q_offset=self.rank * lq,
                                         window=window, device=q.device)
-            out = L._attention_grouped(q.reshape(b, lq, hkv, hq // hkv, d),
-                                       k, v, mask).reshape(b, lq, hq, d)
-            return L._out_project(out, w["wo"])
+            out = L._out_project(L.grouped_attention(q, k, v, mask),
+                                 w["wo"])
+            return (out, kv) if collect_kv else out
         split = self.m > 1 and self.heads_split
         hf = copy_to_group(h, self.mg) if split else h
         q, k, v = L._qkv(cfg, hf, w, cos, sin)
         l, hq = q.shape[1], q.shape[2]
+        if collect_kv:
+            kv = (self._cache_block(k), self._cache_block(v))
         g = cfg.n_heads // cfg.n_kv_heads
         if g > 1:
             k = k.repeat_interleave(g, dim=2)
@@ -312,7 +348,45 @@ class Partition(transformer.Whole):
             v = v.narrow(2, self.rank * hq, hq)
         mask = L.causal_window_mask(l, l, window=window, device=q.device)
         out = L._out_project(L.heads_attention(cfg, q, k, v, mask), w["wo"])
-        return reduce_from_group(out, self.mg) if split else out
+        out = reduce_from_group(out, self.mg) if split else out
+        return (out, kv) if collect_kv else out
+
+    def _cache_block(self, t: torch.Tensor) -> torch.Tensor:
+        """Under TP: the cache's block of a whole-sequence K or V whose
+        heads this rank may hold a block of: every head, the rank's
+        sequence block."""
+        if self.m == 1:
+            return t
+        if self.heads_split and self.kv_split:
+            t = all_gather_cat(t, self.mg, 2)
+        l = t.shape[1]
+        if l % self.m:
+            raise ValueError(f"sequence {l} does not split over {self.m} "
+                             "'model' ranks")
+        lb = l // self.m
+        return t.narrow(1, self.rank * lb, lb).contiguous()
+
+    def check_cache(self, cache_spec: Dict[str, PartitionSpec]) -> None:
+        """Raise unless every cache leaf's spec splits exactly the rank's
+        blocks of the prefill: the batch rows over the batch's axes, the
+        sequence over 'model' (axes of one rank aside)."""
+        cfg, sizes = self.cfg, self.sizes
+        if cfg.sliding_window is not None:
+            raise ValueError(f"{cfg.name}: a sliding window's ring cache "
+                             "is not a block of the prefill's sequence")
+        want = {}
+        rows = tuple(a for a in self.batch_axes if sizes[a] > 1)
+        if rows:
+            want[1] = rows
+        if self.m > 1:
+            want[2] = ("model",)
+        for name, spec in cache_spec.items():
+            got = {d: tuple(a for a in axes if sizes[a] > 1)
+                   for d, axes in split_dims(spec, self.mesh).items()}
+            if got != want:
+                raise ValueError(
+                    f"{cfg.name}: cache {name!r} is split as {spec} "
+                    f"({got}), the prefill's blocks as {want}")
 
     def _mlp(self, h: torch.Tensor, w: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
@@ -336,15 +410,18 @@ class Partition(transformer.Whole):
         gradient reaches each rank as its share)."""
         cfg = self.cfg
         if self.m == 1 or not self.sp:
-            return moe_lib.moe_block(cfg, h, w)
+            return moe_lib.moe_block(cfg, h, w, self.moe_means)
         lb = h.shape[1]
         m = torch.full((), self.m, dtype=torch.float32, device=h.device)
         if 0 < cfg.moe_chunk <= lb and lb % cfg.moe_chunk == 0:
             # the reference's chunks lie within this block: route them
             # here; the aux loss is the mean of every chunk's
-            out, aux = moe_lib.moe_block(cfg, h, w)
+            out, aux = moe_lib.moe_block(cfg, h, w, self.moe_means)
+            if self.serving:
+                return out, aux
             return out, reduce_from_group(aux, self.mg) / m
-        out, aux = moe_lib.moe_block(cfg, gather_grad(h, self.mg, 1), w)
+        out, aux = moe_lib.moe_block(cfg, gather_grad(h, self.mg, 1), w,
+                                     self.moe_means)
         return (out.narrow(1, self.rank * lb, lb),
                 _ScaleGrad.apply(aux, 1.0 / self.m))
 
@@ -352,10 +429,41 @@ class Partition(transformer.Whole):
                 block: torch.Tensor, name: str) -> torch.Tensor:
         """This rank's vocabulary block of the logits (rows, l, v /
         model) in f32, the padded columns masked."""
-        table = self.fsdp(block, self.p_spec[name])
         if self.m > 1:
             x = (gather_grad(x, self.mg, 1) if self.sp
                  else copy_to_group(x, self.mg))
+        return self.unembed_row(cfg, x, block, name)
+
+    def last_row(self, cfg: ModelConfig, x: torch.Tensor,
+                 w: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The normed last position (rows, 1, d) on every rank: under SP
+        the last 'model' rank's, broadcast to its group."""
+        row = super().last_row(cfg, x, w)
+        if self.sp and self.m > 1:
+            broadcast_(row, self.mg, self.m - 1)
+        return row
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """``argmax`` over the vocabulary blocks of the last position's
+        logits: the largest value (an all-reduce MAX over 'model'), then
+        the least global index among the ranks that hold it (MIN), the
+        first index as ``argmax`` takes it."""
+        last = logits[:, -1]
+        idx = torch.argmax(last, dim=-1)
+        if self.m == 1:
+            return idx
+        vb = last.shape[-1]
+        val = torch.gather(last, -1, idx[:, None])[:, 0]
+        top = all_reduce_sum_(val.clone(), self.mg, op=dist.ReduceOp.MAX)
+        cand = torch.where(val == top, idx + self.rank * vb,
+                           torch.full_like(idx, vb * self.m))
+        return all_reduce_sum_(cand, self.mg, op=dist.ReduceOp.MIN)
+
+    def unembed_row(self, cfg: ModelConfig, x: torch.Tensor,
+                    block: torch.Tensor, name: str) -> torch.Tensor:
+        """The vocabulary block of the logits of rows every rank of the
+        'model' group holds whole."""
+        table = self.fsdp(block, self.p_spec[name])
         logits = L.unembed(x, table)
         vb = table.shape[0]
         v0 = self.rank * vb
@@ -395,3 +503,4 @@ class Partition(transformer.Whole):
         mean over the rank's rows, the same on every rank of one 'model'
         group."""
         return transformer.loss_fn(self.cfg, params, batch, self)
+

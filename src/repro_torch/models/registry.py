@@ -21,7 +21,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec, hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, moe, ssm, transformer
 from repro_torch.models import params as P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cross_entropy
@@ -46,8 +46,9 @@ def _ssm_loss(cfg: ModelConfig, params, batch):
     return cross_entropy(logits, batch["labels"]), {"aux_loss": aux}
 
 
-def _hybrid_loss(cfg: ModelConfig, params, batch):
-    logits, aux = hybrid.forward(cfg, params, batch["tokens"])
+def _hybrid_loss(cfg: ModelConfig, params, batch, moe_means=None):
+    logits, aux = hybrid.forward(cfg, params, batch["tokens"],
+                                 moe_means or moe.local_means)
     nll = cross_entropy(logits, batch["labels"])
     w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
     return nll + w * aux, {"loss": nll, "aux_loss": aux}
@@ -153,8 +154,16 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     return total
 
 
-def loss_fn(cfg: ModelConfig) -> Callable:
-    return functools.partial(family(cfg).loss_fn, cfg)
+def loss_fn(cfg: ModelConfig, moe_means: Optional[Callable] = None
+            ) -> Callable:
+    """``(params, batch) -> (loss, parts)``; ``moe_means`` replaces the
+    MoE aux loss's hook (``moe.moe_block``) of a model with experts."""
+    if moe_means is None or cfg.moe is None:
+        return functools.partial(family(cfg).loss_fn, cfg)
+    if cfg.family == "hybrid":
+        return functools.partial(_hybrid_loss, cfg, moe_means=moe_means)
+    return functools.partial(transformer.loss_fn, cfg,
+                             part=transformer.Whole(moe_means))
 
 
 def decode_fn(cfg: ModelConfig) -> Callable:

@@ -125,11 +125,12 @@ def _unstack_norm(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 # --------------------------------------------------------------- layer body
-def _ffn(cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any]):
+def _ffn(cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any],
+         moe_means=moe_lib.local_means):
     """The FFN sublayer: (out, the MoE's aux loss, or None for the dense
     MLP, whose aux is zero)."""
     if "moe" in w:
-        return moe_lib.moe_block(cfg, h, w["moe"])
+        return moe_lib.moe_block(cfg, h, w["moe"], moe_means)
     return L.mlp_block(cfg, h, w["mlp"]), None
 
 
@@ -138,7 +139,12 @@ class Whole:
     parameters and the compute that a mesh could split: here each
     computes the whole (one device, or a step that gathered every
     parameter).  ``models.partition.Partition`` overrides them with a
-    rank's block of the same values."""
+    rank's block of the same values.  ``moe_means`` is the MoE aux
+    loss's hook (``moe.local_means``; a mesh's gather-whole step passes
+    ``launch.mesh.batch_means``)."""
+
+    def __init__(self, moe_means=moe_lib.local_means):
+        self.moe_means = moe_means
 
     def layer(self, w: Dict[str, Any]) -> Dict[str, Any]:
         """Layer i's weights when layer i runs."""
@@ -161,11 +167,25 @@ class Whole:
         return L.attention_block(cfg, h, w, cos, sin, collect_kv=collect_kv)
 
     def ffn(self, cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any]):
-        return _ffn(cfg, h, w)
+        return _ffn(cfg, h, w, self.moe_means)
 
     def unembed(self, cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor,
                 name: str) -> torch.Tensor:
         return L.unembed(x, table, cfg.vocab_size)
+
+    def last_row(self, cfg: ModelConfig, x: torch.Tensor,
+                 w: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The final norm of the sequence's last position (b, 1, d)."""
+        return L.apply_norm(cfg, x[:, -1:].contiguous(), self.final_norm(w))
+
+    def unembed_row(self, cfg: ModelConfig, x: torch.Tensor,
+                    table: torch.Tensor, name: str) -> torch.Tensor:
+        """The logits of ``last_row``'s rows."""
+        return self.unembed(cfg, x, table, name)
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy token of the last position's logits (b, 1, v)."""
+        return torch.argmax(logits[:, -1], dim=-1)
 
     def cross_entropy(self, logits: torch.Tensor,
                       labels: torch.Tensor) -> torch.Tensor:
@@ -244,7 +264,7 @@ def loss_fn(cfg: ModelConfig, params: Dict[str, Any],
 
 # --------------------------------------------------------------- serving
 def forward_prefill(cfg: ModelConfig, params: Dict[str, Any],
-                    tokens: torch.Tensor
+                    tokens: torch.Tensor, part: Whole = WHOLE
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Serving prefill: last-position logits (b, 1, v) and the populated
     KV cache.
@@ -252,17 +272,21 @@ def forward_prefill(cfg: ModelConfig, params: Dict[str, Any],
     Only the final position is normed and unembedded; the per-layer
     post-rotary K/V are stacked into the decode cache layout
     (n_layers, b, l, hkv, hd), quantized when ``cfg.kv_cache_dtype ==
-    'int8'``.  An inference path: no remat."""
+    'int8'``.  An inference path: no remat.  ``part``: a rank's block of
+    the compute on a mesh (``models.partition``): the logits are then
+    the rank's vocabulary block (``part.greedy`` takes the token) and
+    the cache the rank's block of ``cache_specs``."""
     b, l = tokens.shape
     dt = torch_dtype(cfg.dtype)
-    x = L.embed(tokens, params["embed"]).to(dt)
-    positions = torch.arange(l, device=tokens.device)
+    x = part.embed(cfg, tokens, params["embed"]).to(dt)
+    positions = part.positions(l, tokens.device)
     cos, sin = L.rotary_embedding(positions, cfg.resolved_head_dim,
                                   cfg.rope_theta)
     quantized = cfg.kv_cache_dtype == "int8"
     kv = {}
     for w in layer_weights(params["layers"], cfg.n_layers):
-        x, _, (k, v) = _layer(cfg, x, w, cos, sin, collect_kv=True)
+        x, _, (k, v) = _layer(cfg, x, w, cos, sin, collect_kv=True,
+                              part=part)
         if quantized:
             for name, t in (("k", k), ("v", v)):
                 q, s = L.quantize_kv(t)
@@ -271,9 +295,9 @@ def forward_prefill(cfg: ModelConfig, params: Dict[str, Any],
         else:
             kv.setdefault("k", []).append(k.to(dt))
             kv.setdefault("v", []).append(v.to(dt))
-    x = L.apply_norm(cfg, x[:, -1:].contiguous(), params["final_norm"])
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return (L.unembed(x, table, cfg.vocab_size),
+    x = part.last_row(cfg, x, params["final_norm"])
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    return (part.unembed_row(cfg, x, params[name], name),
             {name: torch.stack(ts) for name, ts in kv.items()})
 
 

@@ -8,7 +8,8 @@ The same numpy inputs go through both packages:
   interpret mode within the reference's own atol of 1e-6;
 * the top-k kernel keeps about ``fraction`` of each tile and both obey
   the error-feedback identity ``decoded + residual == g + carried``;
-* the per-tensor tree compressors equal the reference's;
+* the per-tensor tree compressors equal the reference's, top-k's
+  threshold (an exact radix select, ``kth_largest``) on ties too;
 * a sharded server with fused int8 or top-k wire compression agrees
   with the reference server fed the same pushes, within 1e-5: the
   decoded gradients match, and the servers' applies differ by the
@@ -177,6 +178,52 @@ def test_tree_compressors_equal_the_reference(name):
     ident = tcomp.make_compressor("none")
     out, err = ident.apply(tg, ident.init_error(tg))
     assert out is tg and err["a"].dtype == torch.float32
+
+
+def _magnitudes(kind: str, n: int, rng) -> np.ndarray:
+    if kind == "ties":
+        a = rng.randint(-3, 4, n).astype(np.float32) / 8
+    elif kind == "subnormal":
+        a = (rng.randn(n) * 1e-40).astype(np.float32)
+    else:
+        a = rng.randn(n).astype(np.float32)
+    if kind == "inf_nan":
+        a[rng.randint(0, n, 3)] = np.inf
+        a[rng.randint(0, n, 2)] = np.nan
+    return np.abs(a)
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "subnormal", "inf_nan"])
+def test_kth_largest_is_the_kth_of_torch_topk(kind):
+    """The radix select's k-th largest (repeats counted) is
+    ``torch.topk``'s last value, for every k of small leaves."""
+    rng = np.random.RandomState(11)
+    for n in (1, 5, 257, 1000):
+        a = torch.from_numpy(_magnitudes(kind, n, rng))
+        for k in sorted({1, min(2, n), n // 3 + 1, n // 2 + 1, n}):
+            want = torch.topk(a, k).values[-1]
+            got = tcomp.kth_largest(a, k)
+            assert got.shape == () and got.dtype == torch.float32
+            assert torch.equal(got, want) or (got.isnan() and want.isnan())
+
+
+def test_tree_topk_equals_the_reference_on_ties():
+    """Leaves full of ties at the threshold: the kept set is the
+    reference's (ties kept), bit for bit."""
+    rng = np.random.RandomState(5)
+    tree = {"a": rng.randint(-4, 5, (16, 40)).astype(np.float32) / 8,
+            "b": rng.randint(-2, 3, 300).astype(np.float32) / 4}
+    ours = tcomp.make_compressor("topk", fraction=0.1)
+    theirs = jcomp.make_compressor("topk", fraction=0.1)
+    tg = from_numpy_tree(tree, "cpu")
+    jg = jax.tree_util.tree_map(jnp.asarray, tree)
+    terr, jerr = ours.init_error(tg), theirs.init_error(jg)
+    for _ in range(3):
+        tout, terr = ours.apply(tg, terr)
+        jout, jerr = theirs.apply(jg, jerr)
+        for a, b in zip(jax.tree_util.tree_leaves((tout, terr)),
+                        jax.tree_util.tree_leaves((jout, jerr))):
+            _bitwise(a, b)
 
 
 def test_packed_compressor_factory():

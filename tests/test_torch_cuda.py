@@ -135,6 +135,28 @@ def test_fused_compress_refuses_what_it_cannot_launch_on(gen):
     assert fc.fused_int8_ef(z, z)[0] is z
 
 
+@pytest.mark.parametrize("name", ["int8", "topk"])
+def test_tree_compressors_keep_the_host_out(gen, name):
+    """The per-leaf compressors (top-k's radix select, ``kth_largest``,
+    and int8's max) run with no host sync on the card, and top-k's
+    threshold is ``torch.topk``'s k-th value."""
+    from repro_torch.optim import compression as comp
+    g = {"a": _rand(gen, (96, 512), torch.float32).round(),
+         "b": _rand(gen, (4099,), torch.bfloat16)}
+    c = comp.make_compressor(name)
+    err = c.init_error(g)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, err = c.apply(g, err)
+        thresh = comp.kth_largest(g["a"].abs(), 1000)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(thresh,
+                       torch.topk(g["a"].abs().reshape(-1), 1000).values[-1])
+    assert out["a"].shape == g["a"].shape and err["b"].dtype == torch.float32
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 8), (3, 5, 2560), (7, 33), (2, 4096)])
 def test_norms_match_plain(gen, dtype, shape):

@@ -6,7 +6,8 @@
   blocks of the step's arguments (``tests/test_torch_sharding.py`` holds
   those specs equal to the reference's).
 * Its collective counts equal those a real four-rank gloo run of the
-  same cell records.
+  same cell records, for a train and a (partitioned) prefill cell.
+* The transformers under role 'tp' prefill on blocks (``partitioned``).
 * It leaves no process group, the kernel registry as it was, and the
   counters untouched; it refuses to start beside a group.
 * The partitioned step's peak per rank is below the gather-whole step's.
@@ -50,6 +51,11 @@ def test_run_cell_on_every_smoke_config_is_ok(arch):
         assert rep["flops_per_chip"] > 0 and rep["hbm_bytes_per_chip"] > 0
         assert 0 < rep["argument_gib_per_chip"] <= rep["peak_gib_per_chip"]
         assert rep["fits_hbm"]
+        if name == "prefill":
+            # the transformers under role 'tp' prefill on blocks
+            assert rep["partitioned"] == (
+                cfg.family in ("dense", "vlm", "moe")
+                and cfg.model_axis_role == "tp")
         if name == "train":
             assert rep["partitioned"] == (
                 cfg.family in ("dense", "vlm", "moe")
@@ -85,15 +91,25 @@ def test_argument_bytes_are_the_spec_blocks(arch):
     assert counts["peak_bytes"] > counts["argument_bytes"]
 
 
-def test_collective_counts_equal_a_real_four_rank_run(tmp_path):
+KINDS = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
+         "all_reduce": "all-reduce", "broadcast": "broadcast"}
+
+
+@pytest.fixture(scope="module")
+def real_counts(tmp_path_factory):
+    """``perfcount.MESH`` of four gloo ranks on (2, 2)
+    (``torch_mesh_ranks.dryrun_count_ranks``)."""
+    return mesh_lib.run_ranks(ranks.dryrun_count_ranks, 4,
+                              str(tmp_path_factory.mktemp("counts")),
+                              args=(ranks.SEQ, ranks.BATCH), timeout=120.0)
+
+
+def test_collective_counts_equal_a_real_four_rank_run(real_counts):
     """qwen1.5-32b's smoke step (partitioned, adafactor) and
     h2o-danube's (gather-whole) on (2, 2): the dry run's counts per kind
     against a gloo run's ``perfcount.MESH``."""
-    kinds = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
-             "all_reduce": "all-reduce"}
-    real = mesh_lib.run_ranks(ranks.dryrun_count_ranks, 4, str(tmp_path),
-                              args=(ranks.SEQ, ranks.BATCH),
-                              timeout=120.0)
+    kinds = KINDS
+    real = real_counts
     for arch in ("qwen1.5-32b", "h2o-danube-1.8b"):
         rep = dryrun.run_cell(arch, "train", False, verbose=False,
                               cfg=get_smoke_config(arch),
@@ -104,6 +120,24 @@ def test_collective_counts_equal_a_real_four_rank_run(tmp_path):
             got = {kinds[k]: rank_counts[arch][k] for k in kinds
                    if rank_counts[arch][k]}
             assert got == rep["collective_counts"], arch
+
+
+def test_prefill_collective_counts_equal_a_real_four_rank_run(real_counts):
+    """qwen1.5-32b's smoke prefill on (2, 2): partitioned in the dry run
+    and in a gloo run, with the same collectives per kind (the
+    broadcast of the last position among them)."""
+    rep = dryrun.run_cell("qwen1.5-32b", "prefill", False, verbose=False,
+                          cfg=get_smoke_config("qwen1.5-32b"),
+                          shape=ShapeSpec("prefill", ranks.SEQ, ranks.BATCH,
+                                          "prefill"),
+                          mesh_shape=(2, 2))
+    assert rep["partitioned"]
+    assert rep["collective_counts"]["broadcast"] == 1
+    for rank_counts in real_counts:
+        got = rank_counts["prefill"]
+        assert got["partitioned"]
+        assert {KINDS[k]: got[k] for k in KINDS if got[k]} == \
+            rep["collective_counts"]
 
 
 def test_dry_run_restores_the_process_state():

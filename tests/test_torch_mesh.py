@@ -358,20 +358,6 @@ def test_mesh_constructors_refuse_what_they_cannot_build(one_rank_mesh):
     assert tuple(m.shape) == (1, 1) and m.mesh_dim_names == ("data", "model")
 
 
-@pytest.mark.parametrize("extra", [{"compressor": "int8"},
-                                   {"checkpoint_dir": "ckpt"}])
-def test_mesh_trainer_refuses_compression_and_checkpoints(one_rank_mesh,
-                                                          extra):
-    """Every mesh, one rank too, trains through the mesh step, which has
-    neither wire compression nor checkpoints."""
-    cfg = get_smoke_config(ARCH)
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
-                      global_batch=BATCH)
-    with pytest.raises(ValueError, match="not wired to a mesh"):
-        Trainer(cfg, data, device="cpu",
-                rules=rules_for_mesh(one_rank_mesh), **extra)
-
-
 # ------------------------------------------------------------ four ranks
 def _run(fn, tmp_path, *args):
     return mesh_lib.run_ranks(fn, 4, str(tmp_path), args=args,

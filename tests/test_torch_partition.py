@@ -10,12 +10,12 @@ sequence-parallel (``sp=True``) and tensor-parallel (``sp=False``)
 rules: three DSSP steps of damped momentum with two microbatches and
 ``remat="full"``.  The MoE transformers (deepseek-moe-16b under SP and
 TP, qwen3-moe under SP) run on (1, 4), where every rank holds every
-batch row, and on (2, 2), where the aux loss is over a rank's own rows
-(ROADMAP queue 3) and the oracle is the port's gather-whole step on the
-same mesh.  The oracle is the reference's ``build_train_step`` on a
-one-device mesh (``tests/test_torch_mesh.py``'s): under GSPMD a sharding
-never changes a value, so one device is the answer for every mesh and
-both modes.  Losses and parameters are held within 1e-5, of the oracle
+batch row, and on (2, 2), where the aux loss's two means are averaged
+over the batch's ranks (``launch.mesh.batch_means``) in the partitioned
+and the gather-whole step alike.  The oracle is the reference's
+``build_train_step`` on a one-device mesh (``tests/test_torch_mesh.py``'s):
+under GSPMD a sharding never changes a value, so one device is the
+answer for every mesh and both modes.  Losses and parameters are held within 1e-5, of the oracle
 and (on (2, 2)) of the port's gather-whole step.  On (2, 2), where FSDP and
 the 'model' split meet, each step's allocations are watched.  The mesh
 counters of each step are held to the design exactly: each layer's FSDP gathers and, under
@@ -213,8 +213,8 @@ def test_partitioned_step_matches_the_reference(mesh, arch, mode, results):
         _close(rec0["run"]["params"], whole["params"])
 
 
-#: (1, 4): every rank holds every row, so the reference's aux loss is
-#: the port's; (2, 2): a rank's aux is over its own rows (queue 3)
+#: (1, 4): every rank holds every row; (2, 2): the aux loss's means are
+#: averaged over 'data'; the gather-whole step runs on (2, 2) too
 MOE_MESHES = ("1x4", "2x2")
 MOE_CASES = [(arch, mode) for arch, _, modes in ranks.PARTITION_MOE
              for mode in modes]
@@ -240,16 +240,21 @@ def test_partitioned_moe_step_matches_the_reference(mesh, arch, mode,
 @pytest.mark.parametrize("mesh,arch,mode", [("2x2",) + c for c in MOE_CASES])
 def test_partitioned_moe_step_matches_the_gather_whole_step(mesh, arch,
                                                            mode, results):
-    """On (2, 2) the MoE's aux loss is over a rank's own rows in both
-    the partitioned and the gather-whole step (the reference's is over
-    every row, ROADMAP queue 3): the two steps agree."""
+    """On (2, 2) each rank routes its own rows; the aux loss's two means
+    of each chunk are averaged over 'data' before their product, so the
+    term and its gradient are the reference's over the global batch:
+    the partitioned and the gather-whole step both land within 1e-5 of
+    the reference on one device."""
+    want = results["oracle"][arch]
     for out in results["ranks"]:
         rec = out[f"{mesh}/{arch}/{mode}"]
         assert rec["run"]["partitioned"] and not rec["whole"]["partitioned"]
-        np.testing.assert_allclose(rec["run"]["losses"],
-                                   rec["whole"]["losses"], atol=TOL, rtol=0)
+        for step in ("run", "whole"):
+            np.testing.assert_allclose(rec[step]["losses"], want["losses"],
+                                       atol=TOL, rtol=0)
     rec0 = results["ranks"][0][f"{mesh}/{arch}/{mode}"]
-    _close(rec0["run"]["params"], rec0["whole"]["params"])
+    _close(rec0["run"]["params"], want["params"])
+    _close(rec0["whole"]["params"], want["params"])
 
 
 @pytest.mark.parametrize("m", [2, 4])

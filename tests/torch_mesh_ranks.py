@@ -9,6 +9,9 @@ numpy values for the test process to hold against the reference.
 from __future__ import annotations
 
 import contextlib
+import math
+import os
+from unittest import mock
 
 import numpy as np
 import torch
@@ -325,10 +328,12 @@ PARTITION_MOE = (("deepseek-moe-16b", 8, ("sp", "tp")),
 PARTITION_DELAYS = (0, 1, 2)
 
 
-def _stacked_whole_shapes(cfg, p_spec, mesh):
+def _stacked_whole_shapes(cfg, p_spec, mesh, layer_blocks=False):
     """The shapes of the layer-stacked leaves that the mesh splits, but
     for those that are also some leaf's block (a block of wq can have
-    the whole wk's shape)."""
+    the whole wk's shape) or, with ``layer_blocks``, one layer of one
+    (a layer of deepseek's smoke expert block on (1, 4) has the whole
+    stacked shared experts' shape)."""
     from repro_torch.launch.mesh import block_view, split_dims
     from repro_torch.models import registry
     from repro_torch.models.sharding import is_spec
@@ -336,17 +341,37 @@ def _stacked_whole_shapes(cfg, p_spec, mesh):
     specs = tree_util.leaves(p_spec, is_leaf=is_spec)
     blocks = {tuple(block_view(torch.empty(d.shape, device="meta"), s,
                                mesh).shape) for d, s in zip(defs, specs)}
+    if layer_blocks:
+        blocks |= {b[1:] for b in blocks}
     layer_defs = tree_util.leaves(registry.param_defs(cfg)["layers"])
     layer_specs = tree_util.leaves(p_spec["layers"], is_leaf=is_spec)
     return {tuple(d.shape) for d, s in zip(layer_defs, layer_specs)
             if split_dims(s, mesh)} - blocks
 
 
+def _allocations(watch, seen):
+    """A dispatch mode that appends ``(op, shape)`` to ``seen`` for every
+    tensor an op that is not a view returns whose shape is in
+    ``watch``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Allocations(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.is_view:         # a view of a block allocates nothing
+                return out
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor) and tuple(t.shape) in watch:
+                    seen.append((str(func), tuple(t.shape)))
+            return out
+
+    return Allocations()
+
+
 def _step_run(mesh, cfg, init, lr, partition, watch=False):
     """Three DSSP steps of ``build_train_step`` (damped momentum) from
     ``init``; with ``watch``, every tensor the steps allocate whose shape
     is that of a whole layer-stacked leaf the mesh splits."""
-    from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.api.session import batch_tensors
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.core import dssp_spmd
@@ -358,15 +383,6 @@ def _step_run(mesh, cfg, init, lr, partition, watch=False):
     from repro_torch.perfcount import MESH
 
     seen = []
-
-    class Allocations(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            for t in (out if isinstance(out, (tuple, list)) else (out,)):
-                if isinstance(t, torch.Tensor) and tuple(t.shape) in watch:
-                    seen.append((str(func), tuple(t.shape)))
-            return out
-
     opt = make_optimizer("momentum", lr, staleness_damping=True)
     bundle = build_train_step(cfg, mesh, ShapeSpec("smoke", SEQ, BATCH,
                                                    "train"),
@@ -383,7 +399,8 @@ def _step_run(mesh, cfg, init, lr, partition, watch=False):
     for d in PARTITION_DELAYS:
         batch = place(batch_tensors(next(it), "cpu"), b_sh, mesh)
         MESH.reset()
-        with Allocations() if watch else contextlib.nullcontext():
+        with (_allocations(watch, seen) if watch
+              else contextlib.nullcontext()):
             params, state, pipe, m = bundle.fn(params, state, pipe, batch, d)
         counts.append(MESH.snapshot())
         losses.append(float(m["loss"]))
@@ -441,15 +458,16 @@ def partition_ranks(rank, world, meshes, inits, lr):
 def dryrun_count_ranks(rank, world, seq, batch):
     """One DSSP step (delay 1, the config's optimizer) of
     ``build_train_step`` on (2, 2) for qwen1.5-32b's and h2o-danube's
-    smoke configs: the step's ``perfcount.MESH`` counts per arch (what
-    ``launch.dryrun`` predicts for the same cell)."""
+    smoke configs, and qwen1.5-32b's ``build_prefill_step``: the
+    ``perfcount.MESH`` counts of each (what ``launch.dryrun`` predicts
+    for the same cell), the prefill's under ``"prefill"``."""
     from repro_torch.api.session import batch_tensors
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.core import dssp_spmd
     from repro_torch.data.synthetic import batches
     from repro_torch.launch.mesh import make_mesh, place
-    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.steps import build_prefill_step, build_train_step
     from repro_torch.models import registry
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.perfcount import MESH
@@ -470,6 +488,17 @@ def dryrun_count_ranks(rank, world, seq, batch):
         MESH.reset()
         bundle.fn(params, state, pipe, rows, 1)
         out[arch] = MESH.snapshot()
+    cfg = get_smoke_config("qwen1.5-32b")
+    pre = build_prefill_step(cfg, mesh, ShapeSpec("prefill", seq, batch,
+                                                  "prefill"))
+    params = place(registry.init_params(cfg, seed=0, device="cpu"),
+                   pre.in_shardings[0], mesh)
+    tokens = torch.zeros((batch, seq), dtype=torch.long)
+    rows = place({"tokens": tokens, "labels": tokens}, pre.in_shardings[1],
+                 mesh)
+    MESH.reset()
+    pre.fn(params, rows)
+    out["prefill"] = dict(MESH.snapshot(), partitioned=pre.partitioned)
     return out
 
 
@@ -513,4 +542,210 @@ def collective_branch_ranks(rank, world):
         finally:
             (mesh_lib._gloo, mesh_lib._ALL_GATHER,
              mesh_lib._REDUCE_SCATTER) = saved
+    return out
+
+
+#: the mesh Trainer's compression and checkpoint cases
+#: (``tests/test_torch_mesh_trainer.py``): qwen1.5-32b's f32 smoke
+#: config (partitioned on every mesh) under SP rules, damped momentum,
+#: DSSP [1, 3]
+TRAINER_ARCH = "qwen1.5-32b"
+TRAINER_STEPS = 3
+RESUMED_STEPS = 2
+COMPRESSORS = ("int8", "topk")
+
+
+def _mesh_trainer(cfg, mesh, init, lr, **kw):
+    from repro_torch.launch.mesh import place
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.params import from_numpy_tree
+    from repro_torch.models.sharding import rules_for_mesh
+    t = Trainer(cfg, _data(cfg), sync="dssp", s_lower=1, s_upper=3, lr=lr,
+                optimizer="momentum", device="cpu",
+                rules=rules_for_mesh(mesh, sp=True, role="tp"), **kw)
+    if init is not None:
+        t.params = place(from_numpy_tree(init, "cpu"), t.param_specs, mesh)
+    return t
+
+
+def _state_np(trainer, mesh):
+    """The trainer's whole state (params, optimizer, ring) as numpy
+    (every rank gathers)."""
+    from repro_torch.launch.mesh import gather
+    specs, _ = trainer._mesh_state()
+    return [np.asarray(x.detach().numpy()).copy() for x in tree_util.leaves(
+        gather(trainer._state(), specs, mesh))]
+
+
+def _compress_blocks(mesh, sds, specs, seed):
+    """Leaves of the params' shapes with many ties (values on a grid of
+    1/8), placed in blocks under ``specs`` and compressed on the mesh
+    (``launch.steps.block_reducers``), then gathered; against each
+    compressor's one-device apply on the whole leaves: per compressor,
+    the largest distances of the decoded leaves and of the new error,
+    and how many kept (non-zero) masks differ."""
+    from repro_torch.launch.mesh import gather, place
+    from repro_torch.launch.steps import block_reducers
+    from repro_torch.models.sharding import is_spec
+    from repro_torch.optim.compression import make_compressor
+    sp = tree_util.leaves(specs, is_leaf=is_spec)
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name in COMPRESSORS:
+        comp = make_compressor(name)
+        grads = tree_util.tree_map(
+            lambda s: torch.from_numpy(np.round(rng.randn(*s.shape) * 8)
+                                       .astype(np.float32) / 8), sds)
+        err = tree_util.tree_map(
+            lambda x: torch.from_numpy(rng.randn(*x.shape)
+                                       .astype(np.float32) / 64), grads)
+        want_g, want_e = comp.apply(grads, err)
+        got_g, got_e = comp.apply(place(grads, specs, mesh),
+                                  place(err, specs, mesh),
+                                  block_reducers(sp, mesh))
+        got_g, got_e = gather(got_g, specs, mesh), gather(got_e, specs, mesh)
+        pairs = list(zip(tree_util.leaves(got_g), tree_util.leaves(want_g),
+                         tree_util.leaves(got_e), tree_util.leaves(want_e)))
+        out[name] = {
+            "decoded": max(float((a - b).abs().max()) for a, b, _, _ in pairs),
+            "error": max(float((c - d).abs().max()) for _, _, c, d in pairs),
+            "masks_differ": sum(int(not torch.equal(a != 0, b != 0))
+                                for a, b, _, _ in pairs),
+            "kept": sum(int((b != 0).sum()) for _, b, _, _ in pairs)}
+    return out
+
+
+
+def mesh_trainer_ranks(rank, world, meshes, init, lr, ref_dir, out_dir,
+                       torn_dir):
+    """The mesh ``Trainer`` (``TRAINER_ARCH``) on each of ``meshes``
+    (``(label, shape, axes)``): (a) with each of ``COMPRESSORS``,
+    ``TRAINER_STEPS`` steps from ``init``: losses, delays, gathered
+    params (rank 0); the block compressors against the one-device ones
+    on leaves of the params' shapes; (b) on the first mesh only,
+    resumed from the reference's checkpoint in ``ref_dir``: its gathered
+    state, then ``RESUMED_STEPS`` more steps saved to ``out_dir``: the
+    gathered state again (rank 0); (c) on the first mesh, resumed from
+    ``torn_dir``, a save torn between its two renames: the step resumed,
+    the gathered state (rank 0), the folder's entries after, and how
+    often the rank tidied the folder (``CheckpointManager._gc_tmp``)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import gather, make_mesh, open_checkpoints
+    from repro_torch.models import registry
+    from repro_torch.models.sharding import rules_for_mesh
+    cfg = get_smoke_config(TRAINER_ARCH)
+    out = {}
+    for label, shape, axes in meshes:
+        mesh = make_mesh(shape, axes)
+        for name in COMPRESSORS:
+            t = _mesh_trainer(cfg, mesh, init, lr, compressor=name)
+            log = t.train(TRAINER_STEPS)
+            whole = _np_tree(gather(t.params, t.param_specs, mesh))
+            out[f"{label}/{name}"] = {
+                "losses": log.losses, "delays": log.delays,
+                "err_blocks": [tuple(e.shape) for e in
+                               tree_util.leaves(t.err_state)],
+                "param_blocks": [tuple(p.shape) for p in
+                                 tree_util.leaves(t.params)],
+                "params": whole if rank == 0 else None}
+        out[f"{label}/blocks"] = _compress_blocks(
+            mesh, registry.abstract_params(cfg), registry.param_specs(
+                cfg, rules_for_mesh(mesh, sp=True, role="tp")), 7)
+    label, shape, axes = meshes[0]
+    mesh = make_mesh(shape, axes)
+    t = _mesh_trainer(cfg, mesh, None, lr, checkpoint_dir=ref_dir)
+    assert t.resume()
+    state = _state_np(t, mesh)
+    resumed = {"step": t.step_idx, "state": state if rank == 0 else None}
+    t.ckpt = open_checkpoints(out_dir, mesh)
+    log = t.train(RESUMED_STEPS)
+    state = _state_np(t, mesh)
+    out["checkpoint"] = {"resumed": resumed, "losses": log.losses,
+                         "step": t.step_idx,
+                         "state": state if rank == 0 else None}
+    with mock.patch.object(CheckpointManager, "_gc_tmp", autospec=True,
+                           side_effect=CheckpointManager._gc_tmp) as tidy:
+        t = _mesh_trainer(cfg, mesh, None, lr, checkpoint_dir=torn_dir)
+    assert t.resume()
+    state = _state_np(t, mesh)
+    out["torn"] = {"step": t.step_idx, "state": state if rank == 0 else None,
+                   "entries": sorted(os.listdir(torn_dir)),
+                   "tidied": tidy.call_count}
+    return out
+
+
+#: prefill on blocks (``tests/test_torch_prefill_partition.py``): the
+#: int8 cache and QKV bias, the MoE with shared experts (its chunks of
+#: 8 within every sequence block)
+PREFILL_ARCHS = (("qwen1.5-32b", 0), ("deepseek-moe-16b", 8))
+
+
+def prefill_cfg(arch, chunk, sp):
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(arch).scaled(sequence_parallel=sp)
+    return cfg.scaled(moe_chunk=chunk) if chunk else cfg
+
+
+def _block_slices(shape, spec, mesh):
+    """This rank's block of a tensor of ``shape`` under ``spec``: one
+    (start, stop) per dimension."""
+    from repro_torch.launch.mesh import block_view
+    idx = torch.arange(math.prod(shape)).view(shape)
+    blk = block_view(idx, spec, mesh)
+    starts = np.unravel_index(int(blk.reshape(-1)[0]), shape)
+    return [(int(a), int(a) + blk.shape[d]) for d, a in enumerate(starts)]
+
+
+def prefill_ranks(rank, world, meshes, inits, tokens):
+    """``build_prefill_step`` on each of ``meshes`` for each of
+    ``PREFILL_ARCHS`` under SP and TP rules (f32 smoke configs, the
+    score budget cut so that the queries go in chunks of 2): per case
+    the partitioned flag, the rank's greedy tokens and cache blocks with
+    their place in the whole cache, the mesh counts of the call, and
+    the allocations of whole layer-stacked leaves it made."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh, place
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import layers
+    from repro_torch.models.params import from_numpy_tree
+    from repro_torch.models.sharding import is_spec
+    from repro_torch.perfcount import MESH
+    out = {}
+    toks = torch.from_numpy(tokens).long()
+    for label, shape, axes in meshes:
+        mesh = make_mesh(shape, axes)
+        for arch, chunk in PREFILL_ARCHS:
+            for sp in (True, False):
+                cfg = prefill_cfg(arch, chunk, sp)
+                bundle = build_prefill_step(
+                    cfg, mesh, ShapeSpec("p", SEQ, BATCH, "prefill"))
+                p_sh, b_sh = bundle.in_shardings
+                # two query rows a chunk at a rank's (rows, heads, keys)
+                layers.NO_GRAD_SCORE_BYTES = (
+                    2 * (BATCH // shape[0]) * cfg.n_heads * SEQ * 4)
+                params = place(from_numpy_tree(inits[arch], "cpu"), p_sh,
+                               mesh)
+                batch = place({"tokens": toks, "labels": toks}, b_sh, mesh)
+                watch = _stacked_whole_shapes(cfg, p_sh, mesh, True)
+                seen = []
+                MESH.reset()
+                with _allocations(watch, seen):
+                    tok, cache = bundle.fn(params, batch)
+                counts = MESH.snapshot()
+                cspec = bundle.out_shardings[1]
+                whole = {k: (cfg.n_layers, BATCH, SEQ) + tuple(v.shape[3:])
+                         for k, v in cache.items()}
+                out[f"{label}/{arch}/{'sp' if sp else 'tp'}"] = {
+                    "partitioned": bundle.partitioned,
+                    "tokens": tok.numpy(),
+                    "token_rows": _block_slices(
+                        (BATCH,), bundle.out_shardings[0], mesh)[0],
+                    "cache": {k: v.numpy() for k, v in cache.items()},
+                    "cache_slices": {k: _block_slices(whole[k], cspec[k],
+                                                      mesh)
+                                     for k in cache},
+                    "counts": counts, "allocated": seen,
+                    "watched": sorted(watch)}
+        layers.NO_GRAD_SCORE_BYTES = 1 << 30
     return out
