@@ -96,7 +96,8 @@ after an error:
            Then at smoke size: shmem with 2 workers, tcp with int8
            frames, and an inproc endpoint driven by one client of this
            process
-  ft       the transport configuration served by a restartable
+  ft       h2o-danube-1.8b at its published widths cut to
+           ``FT_LAYERS`` layers, served by a restartable
            ``ServerProcess`` on ``cuda:0`` (``repro_torch.ft``), traced:
            snapshots every 20 s (keep 2, under build/ft/, which git
            ignores, after a check of the free disk), a live reshard 4 -> 6 at push round
@@ -116,9 +117,10 @@ after an error:
            pushes/s, the restart's time to serve, the largest pauses
            beside the reference's 0.5 s bound, snapshot bytes and write
            seconds, each incarnation's peak memory, memory.used.  Then at
-           smoke size: a worker killed while gated over shmem and
-           respawned, push frames dropped over tcp with reconnects, and
-           a server killed inside its reshard that resumes untorn
+           smoke size, the three at once: a worker killed while gated
+           over shmem and respawned, push frames dropped over tcp with
+           reconnects, and a server killed inside its reshard that
+           resumes untorn
   serve parity
            the h2o-danube, Jamba (MoE on), deepseek-moe (shared experts),
            chameleon (q/k norms), qwen1.5-32b (QKV bias, int8 KV
@@ -129,22 +131,24 @@ after an error:
            how far it moves the plain logits from an f32 cache's, and
            the f32 cache within 2e-4); and the dense ring cache (window 16)
            decoded 40 positions, against the full forward at each
-  serve    the train configuration (full width, 2 trainer threads, the
-           second 2x slower) for 24 steps while 2 replica threads serve
+  serve    the train configuration (full width cut to ``SERVE_LAYERS``
+           layers, 2 trainer threads, the second 2x slower) for 24
+           steps while 2 replica threads serve
            16 requests each (prompts of 512, 32 new tokens, batches of
            8, admitted within 4 applied updates once the server has
            applied one): ``run_train``'s checks (arrival staleness up
            to s_upper + 1 in a run this long, no release past s_upper),
            every request served with no violation and a version above 0,
            and the launches of every decode batch, warm-ups included:
-           24 ``flash_attention_fwd``, 24 ``residual_rmsnorm`` and 25 +
-           49 x 31 ``rmsnorm``; requests/s, latency, each replica's
+           L ``flash_attention_fwd``, L ``residual_rmsnorm`` and L + 1
+           + (2L + 1) x 31 ``rmsnorm`` at L layers; requests/s, latency, each replica's
            refreshes and bytes, peaks; then one batch with the card to
            itself: its wall time, the prefill's and a token's time, and
            the device's idle share (``torch.profiler``)
   serve transport
-           the transport configuration (8 layers, 2 worker processes
-           over tcp) with 1 spawned replica process refreshing each
+           h2o-danube-1.8b cut to ``SERVE_TRANSPORT_LAYERS`` layers (2
+           worker processes over tcp) with 1 spawned replica process
+           refreshing each
            second: the same checks, the replica process's launches
            exactly per batch, its refresh bytes, and pushes/s beside the
            transport phase's; then one xlstm-125m decode batch (8
@@ -210,8 +214,9 @@ after an error:
            replicas equal bit for bit after each sync, apart before it
   dryrun   (a) ``python -m repro_torch.launch.dryrun`` for the train_4k
            cell of every arch on 16 x 16 (qwen1.5-32b's on 2 x 16 x 16
-           too) and the six transformers' prefill_32k cells, on the
-           host's cores beside (b) and (c), every row printed; (b) the
+           too) and the prefill_32k cells of the six transformers and
+           Jamba, on the host's cores beside (b)-(d) at the lowest
+           priority (``DRYRUN_NICE``), every row printed; (b) the
            partitioned train step at qwen1.5-32b's widths cut to one
            layer, one rank then four gloo ranks on (2, 2) and (1, 4),
            each leaf held to its own update, a planted fault caught;
@@ -220,8 +225,15 @@ after an error:
            and (2, 2) against one rank, tokens equal, cache blocks by
            the serve checks' rule for int8 codes, a planted fault
            (rotary positions from 0) caught; the peaks, collectives and
-           norm launches of (b) and (c) beside the dry run's; (b) and
-           (c) run in one spawn of the four ranks
+           norm launches of (b) and (c) beside the dry run's; (d)
+           jamba-v0.1-52b at its published widths cut to one period
+           group (``hybrid_config``), f32, ``HYB_SEQ`` tokens: one rank
+           then four gloo ranks on (2, 2) and (1, 4) as (b), the Mamba
+           on channel blocks (``ssm_scan`` on 8192 / m channels), its
+           ``ssm_scan`` and norm launches and collectives the dry run's,
+           a planted fault (``w_in``'s ``xin`` and ``z`` ranges swapped)
+           caught, and its prefill's loss on (1, 4) against one rank's;
+           (b), (c) and (d) run in one spawn of the four ranks
 
 Each phase boundary prints the script's elapsed seconds.  The last two
 lines of standard output are the JSON kernel table and the contract
@@ -1358,16 +1370,42 @@ def run_paths(torch, api):
 
 
 # ----------------------------------------------------------------- transport
+def danube_cut(layers: int):
+    """h2o-danube-1.8b at its published widths cut to ``layers`` of its
+    24 layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("h2o-danube-1.8b"),
+                               n_layers=layers)
+
+
+def dense_per_step(layers: int) -> dict:
+    """A dense worker step's kernel launches at ``layers`` layers under
+    remat: attention and the fused norm twice a layer (the recompute),
+    the norm twice a layer and the final one."""
+    return {"flash_attention_fwd": layers * 2,
+            "residual_rmsnorm": layers * 2, "rmsnorm": layers * 2 + 1}
+
+
 def transport_config():
     """h2o-danube-1.8b at its published widths cut to 8 of 24 layers: a
     packed bf16 pull (S=4) of 1,439,260,672 bytes, one frame each way.
     13 layers (2,133,999,616 bytes) is the deepest cut whose pull fits
-    the frame protocol's 2 GiB payload limit, but the transport, ft and
-    serve transport phases that share this cut spend most of their time
-    on the wire, and at 13 layers the script's end mark passed its
-    1200 s limit (PERF.md: NVIDIA H100 80GB HBM3, 700 W)."""
-    from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("h2o-danube-1.8b"), n_layers=8)
+    the frame protocol's 2 GiB payload limit, but the transport phase
+    spends most of its time on the wire, and at 13 layers the script's
+    end mark passed its 1200 s limit (PERF.md: NVIDIA H100 80GB HBM3,
+    700 W)."""
+    return danube_cut(8)
+
+
+#: the depth of the phases that prove semantics rather than width
+#: (PERF.md §4): ft (a snapshot, a live reshard, a kill and a restart),
+#: serve (training beside replicas, every decode batch's launches) and
+#: serve transport (a replica process beside worker processes).  Their
+#: widths stay h2o-danube-1.8b's; the transport phase keeps its 8
+#: layers, the wire measure.
+FT_LAYERS = 2
+SERVE_LAYERS = 4
+SERVE_TRANSPORT_LAYERS = 2
 
 
 class MemoryUsedSampler:
@@ -1820,9 +1858,10 @@ def run_serve(torch, api, per_step, *, device: str = "cuda:0"):
     replica threads serve from the in-heap server; every request served
     within the staleness bound, and the launches of every decode batch
     (warm-ups included) on top of the trainers'.  Then one batch timed
-    with the card to itself.  Returns the run's record."""
-    from repro_torch.configs import get_config
-    cfg = get_config("h2o-danube-1.8b")
+    with the card to itself.  The configuration is the train phase's
+    cut to ``SERVE_LAYERS`` layers (``per_step``: a worker step's
+    launches at that depth).  Returns the run's record."""
+    cfg = danube_cut(SERVE_LAYERS)
     spec = main_path_spec(api, full=True, workers=2, sync="dssp").replace(
         serve=api.ServeSpec(**SERVE))
     per_batch = serve_batch_launches(cfg, SERVE["max_new"])
@@ -1850,7 +1889,8 @@ def run_serve(torch, api, per_step, *, device: str = "cuda:0"):
 
     sampler = MemoryUsedSampler()
     rec = run_train(torch, api, "serve", spec, per_step, steps=SERVE_STEPS,
-                    also=also, extra=extra, arrival_slack=1)
+                    also=also, extra=extra, arrival_slack=1,
+                    model_config=cfg)
     sv = rec["serve"]
     say(f"serve: requests/s {sv['requests_per_s']}, p50 ms {sv['p50_ms']}, "
         f"p99 ms {sv['p99_ms']}, legal fraction {sv['legal_fraction']}, "
@@ -1871,12 +1911,13 @@ def run_serve(torch, api, per_step, *, device: str = "cuda:0"):
 
 
 def run_serve_transport(torch, api, per_step):
-    """The transport configuration (8 layers) trained by 2 worker
-    processes over tcp while 1 spawned replica process serves from
-    delta pulls (refreshed each second): the serving invariants, the
-    replica's launches per batch exactly, ``run_train``'s checks.
-    Returns the run's record."""
-    cut = transport_config()
+    """h2o-danube-1.8b cut to ``SERVE_TRANSPORT_LAYERS`` layers trained
+    by 2 worker processes over tcp while 1 spawned replica process
+    serves from delta pulls (refreshed each second): the serving
+    invariants, the replica's launches per batch exactly,
+    ``run_train``'s checks (``per_step``: a worker step's launches at
+    that depth).  Returns the run's record."""
+    cut = danube_cut(SERVE_TRANSPORT_LAYERS)
     sv = dict(SERVE, replicas=1, refresh_every_s=1.0)
     spec = main_path_spec(
         api, full=True, workers=2, sync="dssp",
@@ -2509,15 +2550,19 @@ def run_mesh_phase(torch, api, spmd_rec):
 #: arch's on 2 x 16 x 16, and the prefill_32k cell on 16 x 16 of each of
 #: DRYRUN_PREFILL, DRYRUN_JOBS CLI processes at a time on the host's
 #: cores, the slowest cells first (DRYRUN_FIRST), after every phase that
-#: times the card, beside (b) and (c), whose checks (values, counts,
+#: times the card, beside (b), (c) and (d), whose checks (values, counts,
 #: launches, peaks) do not depend on the host's load
 DRYRUN_MULTI = "qwen1.5-32b"
-DRYRUN_FIRST = ("jamba-v0.1-52b", "qwen1.5-110b", "mistral-large-123b",
-                "chameleon-34b", "qwen1.5-32b")
+DRYRUN_FIRST = ("mistral-large-123b", "qwen1.5-110b", "chameleon-34b",
+                "qwen1.5-32b")
 DRYRUN_JOBS = 6
-#: the transformers whose prefill_32k cell (16 x 16) runs partitioned
+#: (a)'s processes run at this niceness: the four ranks of (b)-(d) keep
+#: the cores they need, and (a) takes the rest
+DRYRUN_NICE = 19
+#: the archs whose prefill_32k cell (16 x 16) runs partitioned
 DRYRUN_PREFILL = ("mistral-large-123b", "qwen1.5-110b", "chameleon-34b",
-                  "qwen1.5-32b", "qwen3-moe-235b-a22b", "deepseek-moe-16b")
+                  "qwen1.5-32b", "qwen3-moe-235b-a22b", "deepseek-moe-16b",
+                  "jamba-v0.1-52b")
 DRYRUN_TIMEOUT_S = 600.0
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
 #: (b): qwen1.5-32b at its published widths and the train_4k cell's own
@@ -2554,7 +2599,8 @@ PART_SHAPES = (((2, 2), ("data", "model")), ((1, 4), ("data", "model")))
 PART_PLANT = (1, 4)
 #: the reference's collective kinds, by ``perfcount.MESH`` field
 MESH_KINDS = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
-              "all_reduce": "all-reduce", "broadcast": "broadcast"}
+              "all_reduce": "all-reduce", "broadcast": "broadcast",
+              "all_to_all": "all-to-all"}
 
 
 class DryRunCells:
@@ -2564,8 +2610,9 @@ class DryRunCells:
     waits for them.  Every process it started is stopped when the script
     exits."""
 
-    def __init__(self, src: str, archs):
+    def __init__(self, src: str, archs, nice: int = 0):
         self.src = os.path.join(ROOT, src)
+        self.nice = nice
         first = [a for a in DRYRUN_FIRST if a in archs]
         train = ([(a, "single", "train_4k") for a in first]
                  + [(DRYRUN_MULTI, "multi", "train_4k")]
@@ -2601,8 +2648,10 @@ class DryRunCells:
                 cell = pending.pop(0)
                 out, cmd = self._cmd(*cell)
                 log = open(out + ".log", "w")
-                p = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                     env=env, cwd=ROOT)
+                p = subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                    cwd=ROOT, preexec_fn=(lambda: os.nice(self.nice))
+                    if self.nice else None)
                 self.procs.append(p)
                 running.append((cell, out, p, log, time.monotonic()))
             for item in list(running):
@@ -2644,70 +2693,134 @@ class DryRunCells:
                 p.wait()
 
 
-def part_cell():
-    """The (b) cell: its config, shape and optimizer."""
+#: (d): jamba-v0.1-52b at its published widths as ``hybrid_config`` cuts
+#: it (one period group: 7 Mamba slots and attention at slot 3, every
+#: FFN the dense SwiGLU), f32, HYB_BATCH rows of HYB_SEQ tokens in
+#: PART_ACCUM microbatch, one BSP step of damped momentum at PART_LR, as
+#: (b): rank 0 alone, then four gloo ranks on each of HYB_SHAPES, each
+#: leaf held to its one-rank update by ``part_check``.  Each rank's
+#: Mamba runs its block of ``di / m`` channels over the whole sequence,
+#: ``ssm_scan`` on (rows, seq, 8192 / m).  On HYB_PLANT the step runs
+#: once more with each rank's ``w_in`` column ranges of ``xin`` and
+#: ``z`` swapped (the storage layout's trap): the check must fail it.
+#: Then the cut's loss over the same rows (``build_prefill_step``), one
+#: rank against four on HYB_PLANT, within HYB_LOSS_TOL.  HYB_SEQ is the
+#: cell's 4096 cut to the hybrid phase's 1024: at 4096 the four ranks'
+#: planted-fault step on (1, 4) runs the card out of memory, and a
+#: longer sequence lengthens the phase (PERF.md §4).
+HYB_SEQ = 1024
+HYB_BATCH = 2
+HYB_SHAPES = (((2, 2), ("data", "model")), ((1, 4), ("data", "model")))
+HYB_PLANT = (1, 4)
+HYB_LOSS_TOL = 1e-4
+#: the kernels whose launches a step of (b) or (d) holds to the dry
+#: run's stand-in calls
+PART_KERNELS = ("rmsnorm", "residual_rmsnorm", "ssm_scan")
+#: per train part: its arch, mesh shapes, the mesh of its planted fault
+#: and the fault
+PARTS = {
+    "b": (PART_ARCH, PART_SHAPES, PART_PLANT,
+          "the 'model' sum of every gradient dropped"),
+    "d": (JAMBA, HYB_SHAPES, HYB_PLANT,
+          "each rank's w_in column ranges of xin and z swapped"),
+}
+
+
+def part_cell(part: str = "b"):
+    """The (b) or (d) cell: its config, shape and optimizer."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.optim import make_optimizer
-    cfg = get_config(PART_ARCH).scaled(n_layers=PART_LAYERS, dtype="float32",
-                                       grad_accum=PART_ACCUM)
-    shape = ShapeSpec("train_4k", PART_SEQ, PART_BATCH, "train")
+    if part == "b":
+        cfg = get_config(PART_ARCH).scaled(
+            n_layers=PART_LAYERS, dtype="float32", grad_accum=PART_ACCUM)
+        shape = ShapeSpec("train_4k", PART_SEQ, PART_BATCH, "train")
+    else:
+        cfg = hybrid_config().scaled(dtype="float32",
+                                     grad_accum=PART_ACCUM)
+        shape = ShapeSpec("train_4k", HYB_SEQ, HYB_BATCH, "train")
     return cfg, shape, make_optimizer("momentum", PART_LR,
                                       staleness_damping=True)
 
 
-def part_bundle(mesh):
-    """The (b) cell's config, optimizer and ``build_train_step`` bundle
-    on ``mesh`` (BSP)."""
+def part_bundle(mesh, part: str = "b"):
+    """The cell's config, shape, optimizer and ``build_train_step``
+    bundle on ``mesh`` (BSP)."""
     from repro_torch.launch.steps import build_train_step
-    cfg, shape, opt = part_cell()
+    cfg, shape, opt = part_cell(part)
     bundle = build_train_step(cfg, mesh, shape, sync="bsp", optimizer=opt)
-    return cfg, opt, bundle
+    return cfg, shape, opt, bundle
 
 
-def _part_step(torch, bundle, opt, cfg, device, mesh, p_sh, b_sh):
-    """The (b) cell's ``PART_STEPS`` steps from the seed-0 parameters:
-    (params, losses, per-step mesh counts, per-step norm launches)."""
+def plant_fault(torch, part: str, partition) -> None:
+    """The part's planted fault on ``partition`` (``PARTS``)."""
+    if part == "b":
+        partition.sum_axes = [tuple(a for a in ax if a != "model")
+                              for ax in partition.sum_axes]
+        return
+    channels = partition._channels
+
+    def swapped(x):
+        xin, z = channels(x).chunk(2, dim=-1)
+        return torch.cat([z, xin], dim=-1)
+
+    partition._channels = swapped
+
+
+def _part_step(torch, bundle, opt, cfg, shape, device, mesh, p_sh, b_sh):
+    """The cell's ``PART_STEPS`` steps from the seed-0 parameters:
+    (params, losses, per-step mesh counts, per-step kernel launches,
+    the shapes ``ssm_scan`` was launched on)."""
+    from unittest import mock
     from repro_torch.api.session import batch_tensors
     from repro_torch.data.synthetic import DataConfig, batches
+    from repro_torch.kernels import registry as kreg
     from repro_torch.launch.mesh import place
     from repro_torch.models import registry
     from repro_torch.perfcount import LAUNCHES, MESH
     params = place(registry.init_params(cfg, seed=0, device=device), p_sh,
                    mesh)
     state = opt.init(params)
-    it = batches(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=PART_SEQ,
-                                 global_batch=PART_BATCH))
+    it = batches(cfg, DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=shape.seq_len,
+                                 global_batch=shape.global_batch))
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     LAUNCHES.reset()
+    scan, scans = kreg._scan.ssm_scan, set()
+
+    def scan_seen(u, *a, **kw):
+        scans.add(tuple(u.shape))
+        return scan(u, *a, **kw)
+
     losses, counts, launches = [], [], []
-    for _ in range(PART_STEPS):
-        rows = place(batch_tensors(next(it), device), b_sh, mesh)
-        MESH.reset()
-        before = LAUNCHES.snapshot()
-        params, state, _, m = bundle.fn(params, state, (), rows, 0)
-        counts.append(MESH.snapshot())
-        launches.append({k: v for k, v in LAUNCHES.delta(before).items()
-                         if v})
-        losses.append(float(m["loss"]))
+    with mock.patch.object(kreg._scan, "ssm_scan", scan_seen):
+        for _ in range(PART_STEPS):
+            rows = place(batch_tensors(next(it), device), b_sh, mesh)
+            MESH.reset()
+            before = LAUNCHES.snapshot()
+            params, state, _, m = bundle.fn(params, state, (), rows, 0)
+            counts.append(MESH.snapshot())
+            launches.append({k: v for k, v in LAUNCHES.delta(before).items()
+                             if v})
+            losses.append(float(m["loss"]))
     del state
     torch.cuda.synchronize(device)
-    return params, losses, counts, launches
+    return params, losses, counts, launches, sorted(scans)
 
 
-def part_rank(mesh, one_path: str, plant: bool):
-    """One rank of (b) on ``mesh``: ``PART_STEPS`` steps of the cell from
-    the seed-0 parameters on ``MESH_DEVICE``: losses, per-step mesh
-    counts and norm launches, the peak of ``max_memory_allocated`` over
-    the steps.  On a one-rank mesh it saves its parameters and, per
-    leaf, its largest update ``max |p1 - p0|`` to ``one_path``; a rank
-    of a larger mesh returns,
+def part_rank(mesh, one_path: str, plant: bool, part: str = "b"):
+    """One rank of (b) or (d) on ``mesh``: ``PART_STEPS`` steps of the
+    cell from the seed-0 parameters on ``MESH_DEVICE``: losses, per-step
+    mesh counts and kernel launches, the shapes ``ssm_scan`` ran on, the
+    peak of ``max_memory_allocated`` over the steps.  On a one-rank mesh
+    it saves its parameters and, per leaf, its largest update
+    ``max |p1 - p0|`` to ``one_path``; a rank of a larger mesh returns,
     per leaf, the largest distance of its block from the block of that.
     With ``plant``, the step runs once more from the seed-0 parameters
-    with the 'model' sum of every gradient dropped
-    (``Partition.sum_axes``), and its distances are returned too."""
+    with the part's planted fault (``plant_fault``), and its distances
+    are returned too."""
     import torch
     from repro_torch import tree as tree_util
     from repro_torch.checkpoint.manager import keystr_names
@@ -2715,14 +2828,14 @@ def part_rank(mesh, one_path: str, plant: bool):
     from repro_torch.models import registry
     from repro_torch.models.sharding import is_spec
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, opt, bundle = part_bundle(mesh)
+    cfg, shape, opt, bundle = part_bundle(mesh, part)
     p_sh, _, _, b_sh, _ = bundle.in_shardings
     device = MESH_DEVICE
     t0 = time.monotonic()
-    params, losses, counts, launches = _part_step(
-        torch, bundle, opt, cfg, device, mesh, p_sh, b_sh)
+    params, losses, counts, launches, scans = _part_step(
+        torch, bundle, opt, cfg, shape, device, mesh, p_sh, b_sh)
     out = {"losses": losses, "counts": counts, "launches": launches,
-           "partitioned": bundle.partitioned,
+           "scan_shapes": scans, "partitioned": bundle.partitioned,
            "seconds": time.monotonic() - t0,
            "peak_bytes": torch.cuda.max_memory_allocated(device),
            "leaves": [name for name, _ in keystr_names(params)]}
@@ -2746,12 +2859,55 @@ def part_rank(mesh, one_path: str, plant: bool):
     out["err"] = distances(leaves)
     if plant:
         del params, leaves
-        part = bundle.fn.partition
-        part.sum_axes = [tuple(a for a in ax if a != "model")
-                         for ax in part.sum_axes]
-        planted, _, _, _ = _part_step(torch, bundle, opt, cfg, device, mesh,
-                                      p_sh, b_sh)
+        plant_fault(torch, part, bundle.fn.partition)
+        planted = _part_step(torch, bundle, opt, cfg, shape, device, mesh,
+                             p_sh, b_sh)[0]
         out["planted_err"] = distances(tree_util.leaves(planted))
+    return out
+
+
+def hybrid_prefill_rank(rank: int, one):
+    """(d)'s prefill: the cut's loss over its rows
+    (``build_prefill_step``), rank 0 alone on the (1, 1) mesh ``one``
+    (every rank builds it: a mesh's groups are made by all), then the
+    four ranks on blocks on ``HYB_PLANT``: each loss, the rank's wall
+    seconds and peak."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api.session import batch_tensors
+    from repro_torch.data.synthetic import DataConfig, batches
+    from repro_torch.launch.mesh import make_mesh, place
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import registry
+    from repro_torch.configs.shapes import ShapeSpec
+    cfg, shape, _ = part_cell("d")
+    shape = ShapeSpec("prefill", shape.seq_len, shape.global_batch,
+                      "prefill")
+    device = MESH_DEVICE
+    rows = batch_tensors(next(batches(cfg, DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+        global_batch=shape.global_batch))), device)
+
+    def once(mesh):
+        bundle = build_prefill_step(cfg, mesh, shape)
+        p_sh, b_sh = bundle.in_shardings
+        params = place(registry.init_params(cfg, seed=0, device=device),
+                       p_sh, mesh)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.monotonic()
+        loss = float(bundle.fn(params, place(rows, b_sh, mesh)))
+        return {"loss": loss, "partitioned": bundle.partitioned,
+                "seconds": time.monotonic() - t0,
+                "peak_bytes": torch.cuda.max_memory_allocated(device)}
+
+    out = {}
+    if rank == 0:
+        out["one"] = once(one)
+    release(torch)
+    dist.barrier()
+    shape_, axes = next(s for s in HYB_SHAPES if s[0] == HYB_PLANT)
+    out["four"] = once(make_mesh(shape_, axes))
     return out
 
 
@@ -3001,109 +3157,134 @@ def prefill_report(outs, preds, seconds: float) -> None:
 DRYRUN_RANK_TIMEOUT_S = 900.0
 
 
-def dryrun_rank(rank: int, world: int, part_path: str, prefill_path: str):
-    """(b) and (c) on one of four ranks sharing the card, in one spawn:
-    (b)'s one-rank step on rank 0 alone (a (1, 1) mesh; the others
-    wait), (b) on each of ``PART_SHAPES`` (``part_rank``), then (c)
-    (``prefill_rank``).  Between them every rank frees what the part
-    left (``release``), so that four ranks fit the card as they did in
-    spawns of their own.  Returns each part's record, the bytes the rank
-    kept reserved after each (``reserved``) and the parts' wall seconds
-    (``b_seconds``, ``c_seconds``)."""
+def dryrun_rank(rank: int, world: int, part_path: str, prefill_path: str,
+                hybrid_path: str):
+    """(b), (c) and (d) on one of four ranks sharing the card, in one
+    spawn: (b)'s one-rank step on rank 0 alone (a (1, 1) mesh; the
+    others wait), (b) on each of ``PART_SHAPES`` (``part_rank``), then
+    (c) (``prefill_rank``), then (d) as (b) on ``HYB_SHAPES`` and its
+    prefill (``hybrid_prefill_rank``).  Between them every rank frees
+    what the part left (``release``), so that four ranks fit the card
+    as they did in spawns of their own.  Returns each part's record, the
+    bytes the rank kept reserved after each (``reserved``), the bytes of
+    pinned host exchange segments it mapped then (``exchange``) and the
+    parts' wall seconds (``b_seconds``, ``c_seconds``, ``d_seconds``)."""
     import torch
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import host_exchange_bytes, make_mesh
     t0 = time.monotonic()
-    out = {"reserved": []}
-    one = make_mesh((1, 1), ("data", "model"), devices=[0])
-    if rank == 0:
-        out["one"] = part_rank(one, part_path, False)
-    out["reserved"].append(release(torch))
-    dist.barrier()
-    for shape, axes in PART_SHAPES:
-        out[tuple(shape)] = part_rank(make_mesh(shape, axes), part_path,
-                                      tuple(shape) == PART_PLANT)
+    out = {"reserved": [], "exchange": []}
+
+    def freed() -> None:
         out["reserved"].append(release(torch))
-    dist.barrier()
+        out["exchange"].append(host_exchange_bytes())
+    one = make_mesh((1, 1), ("data", "model"), devices=[0])
+
+    def progress(what: str) -> None:
+        """A line on standard error as each piece starts: where a rank
+        was when the spawn's time limit cut it."""
+        print(json.dumps({"dryrun_rank": rank, "starts": what,
+                          "s": time.monotonic() - t0}), file=sys.stderr,
+              flush=True)
+
+    def train_part(part: str, path: str) -> None:
+        _, shapes, plant, _ = PARTS[part]
+        if rank == 0:
+            progress(f"({part}) one rank")
+            out[part, "one"] = part_rank(one, path, False, part)
+        freed()
+        dist.barrier()
+        for shape, axes in shapes:
+            progress(f"({part}) {shape}")
+            out[part, tuple(shape)] = part_rank(
+                make_mesh(shape, axes), path, tuple(shape) == plant, part)
+            freed()
+        dist.barrier()
+        if rank == 0:
+            os.unlink(path)
+
+    train_part("b", part_path)
     t1 = time.monotonic()
+    progress("(c)")
     out["prefill"] = prefill_rank(rank, world, prefill_path)
-    out["reserved"].append(release(torch))
-    out["b_seconds"], out["c_seconds"] = t1 - t0, time.monotonic() - t1
+    freed()
+    t2 = time.monotonic()
+    train_part("d", hybrid_path)
+    progress("(d) prefill")
+    out["d_prefill"] = hybrid_prefill_rank(rank, one)
+    freed()
+    out["b_seconds"], out["c_seconds"] = t1 - t0, t2 - t1
+    out["d_seconds"] = time.monotonic() - t2
     return out
 
 
 def release(torch) -> int:
     """Free the device memory that a finished part left to the garbage
-    collector and the allocator's cache; the bytes still reserved."""
+    collector, the scan backward's CUDA graphs and the allocator's
+    cache; the bytes still reserved.  The host exchanges' segments
+    (``launch.mesh``) stay mapped and pinned for the next part, whose
+    groups have the same ranks (``dryrun_rank`` reports their bytes
+    after each part)."""
     import gc
+    from repro_torch.kernels import registry as kreg
+    kreg.SCAN_BACKWARD_GRAPHS.clear()
     gc.collect()
     torch.cuda.empty_cache()
     return torch.cuda.memory_reserved(MESH_DEVICE)
 
 
-def run_dryrun_phase(torch, src: str):
-    """(a) the dry run's production cells, each row printed, any error
-    fails; started first and run on the host's cores beside (b).  (b)
-    the partitioned step on the card: ``PART_ARCH`` cut to
-    ``PART_LAYERS`` layers at its published widths, one rank, then four
-    ranks sharing the card over gloo on each of ``PART_SHAPES``: losses
-    within ``PART_TOL`` of the one rank's, every leaf by ``part_check``
-    (and on ``PART_PLANT`` a planted fault that it must catch); each
-    rank's ``max_memory_allocated`` beside the dry run's peak for the
-    same cell on a fake mesh of that shape, the gap printed; each rank's
-    collective counts per step equal to the dry run's; each rank's norm
-    launches per step equal to the dry run's stand-in calls.  (c) the
-    partitioned prefill (``prefill_rank``, ``prefill_report``).  (b) and
-    (c) run in one spawn of four ranks (``dryrun_rank``): the dry run's
-    counts are made before it, the checks after it."""
-    from repro_torch.configs import arch_names
+def part_predictions(part: str) -> dict:
+    """The dry run's count of the (b) or (d) cell on a (1, 1) mesh and on
+    each of its mesh shapes, by mesh shape."""
     from repro_torch.launch import dryrun
-    from repro_torch.launch import mesh as mesh_lib
-    t0 = time.monotonic()
-    cells = DryRunCells(src, arch_names())
-    cells.start()
+    arch, shapes, _, _ = PARTS[part]
+    cfg, shape, opt = part_cell(part)
+    return {tuple(s): dryrun.run_cell(arch, "train_4k", False, "bsp",
+                                      verbose=False, cfg=cfg, shape=shape,
+                                      mesh_shape=s, optimizer=opt)
+            for s in [(1, 1)] + [s for s, _ in shapes]}
 
-    work = os.path.join(ROOT, "build", "dryrun")
-    one_path = os.path.join(work, "one_rank_params.pt")
-    prefill_path = os.path.join(work, "prefill_one_rank.pt")
-    cut, cell, opt = part_cell()
-    preds = {tuple(shape): dryrun.run_cell(
-        PART_ARCH, "train_4k", False, "bsp", verbose=False, cfg=cut,
-        shape=cell, mesh_shape=shape, optimizer=opt)
-        for shape, _ in PART_SHAPES}
-    prefill_preds = prefill_predictions()
-    try:
-        t1 = time.monotonic()
-        ranks = mesh_lib.run_ranks(dryrun_rank, 4, work,
-                                   args=(one_path, prefill_path),
-                                   timeout=DRYRUN_RANK_TIMEOUT_S, threads=2)
-    finally:
-        for path in (one_path, prefill_path):
-            if os.path.exists(path):
-                os.unlink(path)
-    say({"phase": "dryrun ranks", "seconds": time.monotonic() - t1,
-         "b_seconds": ranks[0]["b_seconds"],
-         "c_seconds": ranks[0]["c_seconds"],
-         "reserved_gb_after_parts": [[b / 1e9 for b in r["reserved"]]
-                                     for r in ranks]})
-    one = ranks[0]["one"]
+
+def part_report(ranks, part: str, preds) -> dict:
+    """(b)'s or (d)'s records: the four ranks' ``part_rank`` results
+    beside the dry run's count of each mesh's cell
+    (``part_predictions``); fails where a rank did not take the
+    partitioned step, a leaf breaks ``part_check`` or a loss
+    ``PART_TOL``, the planted fault passes, or a step's collectives or
+    ``PART_KERNELS`` launches are not the dry run's.  Returns the
+    kernel launches of the part's steps, every rank's (the planted
+    fault's steps aside)."""
+    arch, shapes, plant_shape, fault = PARTS[part]
+    cfg, cell, _ = part_cell(part)
+    one = ranks[0][part, "one"]
     update = one["update"]
-    say({"phase": "dryrun one rank", "arch": PART_ARCH,
-         "cut": f"{PART_LAYERS} layer(s) of the published widths, "
-                f"f32, batch {PART_BATCH} x seq {PART_SEQ}, "
+    launched = {}
+
+    def add(steps):
+        for step in steps:
+            for k, v in step.items():
+                launched[k] = launched.get(k, 0) + v
+
+    add(one["launches"])
+    say({"phase": f"dryrun ({part}) one rank", "arch": arch,
+         "cut": f"{cfg.n_layers} layer(s) of the published widths, "
+                f"f32, batch {cell.global_batch} x seq {cell.seq_len}, "
                 f"{PART_ACCUM} microbatches, lr {PART_LR}",
          "losses": one["losses"], "partitioned": one["partitioned"],
          "peak_gb": one["peak_bytes"] / 1e9,
+         "dryrun_peak_gb": preds[(1, 1)]["peak_gib_per_chip"] * 2**30 / 1e9,
+         "scan_shapes": one["scan_shapes"],
+         "launches_per_step": one["launches"][0],
          "max_abs_update": dict(zip(one["leaves"], update)),
          "seconds": one["seconds"]})
-    for shape, axes in PART_SHAPES:
+    for shape, axes in shapes:
         pred = preds[tuple(shape)]
-        plant = tuple(shape) == PART_PLANT
-        outs = [r[tuple(shape)] for r in ranks]
+        plant = tuple(shape) == plant_shape
+        outs = [r[part, tuple(shape)] for r in ranks]
         err = [max(o["err"][i] for o in outs)
                for i in range(len(update))]
         peak_pred = pred["peak_gib_per_chip"] * 2**30
-        rec = {"phase": "dryrun four ranks",
+        rec = {"phase": f"dryrun ({part}) four ranks", "arch": arch,
                "mesh": dict(zip(axes, shape)),
                "seconds": max(o["seconds"] for o in outs),
                "max_abs_param_err": max(err),
@@ -3125,6 +3306,7 @@ def run_dryrun_phase(torch, src: str):
                "dryrun_collectives": pred["collective_counts"],
                "launches_per_step": outs[0]["launches"][0],
                "dryrun_kernel_calls": pred["kernel_calls"],
+               "scan_shapes": [o["scan_shapes"] for o in outs],
                "step_seconds": [o["seconds"] / PART_STEPS
                                 for o in outs]}
         broken = part_check(update, err)
@@ -3133,37 +3315,130 @@ def run_dryrun_phase(torch, src: str):
                        for i in range(len(update))]
             caught = part_check(update, planted)
             rec["planted_fault"] = {
-                "fault": "the 'model' sum of every gradient dropped",
+                "fault": fault,
                 "leaves_caught": [one["leaves"][i] for i, _, _ in caught],
                 "max_err_over_update": max(
                     e / u for e, u in zip(planted, update) if u)}
         say(rec)
         if not all(o["partitioned"] for o in outs):
-            fail(f"dryrun {shape}: a rank did not take the "
+            fail(f"dryrun ({part}) {shape}: a rank did not take the "
                  "partitioned step")
         if broken or not rec["max_abs_loss_err"] <= PART_TOL:
-            fail(f"dryrun {shape}: leaves from the one-rank step "
+            fail(f"dryrun ({part}) {shape}: leaves from the one-rank step "
                  f"{[(one['leaves'][i], e, b) for i, e, b in broken]}"
                  f" / losses {rec['max_abs_loss_err']} (tol "
                  f"{PART_TOL})")
         if plant and not caught:
-            fail(f"dryrun {shape}: the planted fault passed the check")
-        norms = {k: v for k, v in pred["kernel_calls"].items()
-                 if k in ("rmsnorm", "residual_rmsnorm")}
+            fail(f"dryrun ({part}) {shape}: the planted fault passed the "
+                 "check")
+        kernels = {k: v for k, v in pred["kernel_calls"].items()
+                   if k in PART_KERNELS}
         for rank, o in enumerate(outs):
+            add(o["launches"])
             for step, (c, n) in enumerate(zip(o["counts"],
                                               o["launches"])):
                 got = {MESH_KINDS[k]: v for k, v in c.items()
                        if k in MESH_KINDS and v}
                 if got != pred["collective_counts"]:
-                    fail(f"dryrun {shape} rank {rank} step {step}: "
-                         f"collectives {got}, the dry run's "
+                    fail(f"dryrun ({part}) {shape} rank {rank} step "
+                         f"{step}: collectives {got}, the dry run's "
                          f"{pred['collective_counts']}")
-                if n != norms or not n:
-                    fail(f"dryrun {shape} rank {rank} step {step}: "
-                         f"launches {n}, the dry run's {norms}")
-    prefill_report([r["prefill"] for r in ranks], prefill_preds,
+                if n != kernels or not n:
+                    fail(f"dryrun ({part}) {shape} rank {rank} step "
+                         f"{step}: launches {n}, the dry run's {kernels}")
+    return launched
+
+
+def hybrid_prefill_report(ranks) -> None:
+    """(d)'s prefill: every rank's loss on ``HYB_PLANT`` within
+    ``HYB_LOSS_TOL`` of rank 0's alone, on blocks."""
+    one = ranks[0]["d_prefill"]["one"]
+    four = [r["d_prefill"]["four"] for r in ranks]
+    rec = {"phase": "dryrun (d) prefill", "arch": JAMBA,
+           "mesh": dict(zip(("data", "model"), HYB_PLANT)),
+           "one_rank": one, "four_ranks": four,
+           "max_abs_loss_err": max(abs(f["loss"] - one["loss"])
+                                   for f in four),
+           "tol": HYB_LOSS_TOL}
+    say(rec)
+    if not all(f["partitioned"] for f in four):
+        fail("dryrun (d) prefill: a rank did not take the partitioned "
+             "prefill")
+    if not rec["max_abs_loss_err"] <= HYB_LOSS_TOL:
+        fail(f"dryrun (d) prefill: loss {rec['max_abs_loss_err']} from "
+             f"the one rank's (tol {HYB_LOSS_TOL})")
+
+
+def run_dryrun_phase(torch, src: str):
+    """(a) the dry run's production cells, each row printed, any error
+    fails: started first, on the host's cores beside (b), (c) and (d),
+    at the lowest priority (``DRYRUN_NICE``), so that the card's ranks
+    keep the cores they need.  (b)
+    the partitioned step on the card: ``PART_ARCH`` cut to
+    ``PART_LAYERS`` layers at its published widths, one rank, then four
+    ranks sharing the card over gloo on each of ``PART_SHAPES``: losses
+    within ``PART_TOL`` of the one rank's, every leaf by ``part_check``
+    (and on ``PART_PLANT`` a planted fault that it must catch); each
+    rank's ``max_memory_allocated`` beside the dry run's peak for the
+    same cell on a fake mesh of that shape, the gap printed; each rank's
+    collective counts per step equal to the dry run's; each rank's norm
+    launches per step equal to the dry run's stand-in calls.  (c) the
+    partitioned prefill (``prefill_rank``, ``prefill_report``).  (d)
+    Jamba's partitioned step as (b), ``ssm_scan`` on channel blocks
+    among the launches held to the dry run's, and its prefill
+    (``hybrid_prefill_report``).  (b), (c) and (d) run in one spawn of
+    four ranks (``dryrun_rank``): the dry run's counts are made on a
+    thread beside it, the checks after it.  Returns the kernel launches
+    of (d)'s steps (``part_report``)."""
+    import threading
+    from repro_torch.configs import arch_names
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.monotonic()
+    cells = DryRunCells(src, arch_names(), nice=DRYRUN_NICE)
+    cells.start()
+
+    work = os.path.join(ROOT, "build", "dryrun")
+    one_path = os.path.join(work, "one_rank_params.pt")
+    prefill_path = os.path.join(work, "prefill_one_rank.pt")
+    hybrid_path = os.path.join(work, "hybrid_one_rank_params.pt")
+    preds = {}
+
+    def predict():
+        try:
+            preds["b"] = part_predictions("b")
+            preds["c"] = prefill_predictions()
+            preds["d"] = part_predictions("d")
+        except BaseException as e:        # re-raised after the spawn
+            preds["error"] = e
+
+    thread = threading.Thread(target=predict)
+    thread.start()
+    try:
+        t1 = time.monotonic()
+        ranks = mesh_lib.run_ranks(dryrun_rank, 4, work,
+                                   args=(one_path, prefill_path,
+                                         hybrid_path),
+                                   timeout=DRYRUN_RANK_TIMEOUT_S, threads=2)
+    finally:
+        thread.join()
+        for path in (one_path, prefill_path, hybrid_path):
+            if os.path.exists(path):
+                os.unlink(path)
+    if "error" in preds:
+        raise preds["error"]
+    say({"phase": "dryrun ranks", "seconds": time.monotonic() - t1,
+         "b_seconds": ranks[0]["b_seconds"],
+         "c_seconds": ranks[0]["c_seconds"],
+         "d_seconds": ranks[0]["d_seconds"],
+         "reserved_gb_after_parts": [[b / 1e9 for b in r["reserved"]]
+                                     for r in ranks],
+         "exchange_gb_after_parts": [[b / 1e9 for b in r["exchange"]]
+                                     for r in ranks]})
+    part_report(ranks, "b", preds["b"])
+    prefill_report([r["prefill"] for r in ranks], preds["c"],
                    ranks[0]["c_seconds"])
+    launched = part_report(ranks, "d", preds["d"])
+    hybrid_prefill_report(ranks)
 
     rows = cells.collect()
     for r in rows:
@@ -3183,6 +3458,7 @@ def run_dryrun_phase(torch, src: str):
          "wall_seconds_since_start": time.monotonic() - cells.t0,
          "process_seconds": sum(r["process_seconds"] for r in rows)})
     say({"phase": "dryrun", "seconds": time.monotonic() - t0})
+    return launched
 
 
 # ----------------------------------------------------------------------- ft
@@ -3276,7 +3552,9 @@ def _last_sample(events, src):
 
 
 def run_ft(torch, api, per_step, *, device: str = "cuda:0"):
-    """The transport configuration through a restartable server process:
+    """h2o-danube-1.8b cut to ``FT_LAYERS`` layers through a restartable
+    server process (``per_step``: a worker step's launches at that
+    depth):
     snapshots every 20 s (keep 2), a live reshard 4 -> 6 at push round 4,
     and a SIGKILL by the server's own watchdog at round 10, after which
     the restart restores the 6-shard snapshot into a server the spec
@@ -3290,10 +3568,10 @@ def run_ft(torch, api, per_step, *, device: str = "cuda:0"):
              f"{FT_DISK_BYTES} for its snapshots")
     work = os.path.join(out, f"ft-{os.getpid()}")
     spill = os.path.join(work, "spill")
-    cut = transport_config()
+    cut = danube_cut(FT_LAYERS)
     spec = ft_spec(api, full=True, ft_dir=os.path.join(work, "ckpt"),
-                   snapshot_every_s=20.0, keep=2, reconnect_tries=40,
-                   reconnect_base_s=0.5, reconnect_max_s=5.0,
+                   snapshot_every_s=20.0, keep=2, reconnect_tries=120,
+                   reconnect_base_s=0.2, reconnect_max_s=1.0,
                    reshard_shards=6, reshard_round=4,
                    fault_kill_server_round=10)
     tag = f"ft (tcp, full width, {cut.n_layers} layers)"
@@ -3482,23 +3760,47 @@ def _run_ft(torch, api, per_step, spec, cut, spill, tag, work, device):
 
 
 def run_ft_paths(torch, api, per_step, *, device: str = "cuda:0"):
-    """At smoke size: a worker killed while gated over shmem, push frames
-    dropped over tcp, and a server killed inside a live reshard."""
-    import shutil
-    import tempfile
+    """At smoke size, the three at once, each on a thread of its own: a
+    worker killed while gated over shmem, push frames dropped over tcp,
+    and a server killed inside a live reshard.  Each spawns processes of
+    its own, whose start on the card is most of its time; each record
+    carries its wall seconds."""
+    import threading
+    paths = (_ft_worker_killed, _ft_frames_dropped, _ft_killed_mid_reshard)
+    recs, errors = [None] * len(paths), []
 
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.ft import FaultPlan, ServerProcess
+    def one(i, path):
+        t0 = time.monotonic()
+        try:
+            recs[i] = dict(path(torch, api, per_step, device),
+                           seconds=time.monotonic() - t0)
+        except BaseException as e:      # fail() exits: re-raised below
+            errors.append(e)
+
+    free_device_memory(torch)
+    threads = [threading.Thread(target=one, args=(i, path))
+               for i, path in enumerate(paths)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for rec in recs:
+        if rec is not None:
+            say(rec)
+    if errors:
+        raise errors[0]
+
+
+def _ft_worker_killed(torch, api, per_step, device):
+    """shmem: worker 1 SIGKILLs itself at iteration 2 while worker 0
+    waits on it at the BSP barrier; its seat is freed and the respawn
+    takes it back exactly once (a second seat would hang the barrier)."""
+    from repro_torch.ft import FaultPlan
     from repro_torch.launch.proc_pool import (ProcessWorkerPool, WorkerTask,
                                               raise_on_failure)
-    from repro_torch.wireformat import MSG_PUSH
-    # (a) shmem: worker 1 SIGKILLs itself at iteration 2 while worker 0
-    # waits on it at the BSP barrier; its seat is freed and the respawn
-    # takes it back exactly once (a second seat would hang the barrier)
     tag = "ft (shmem, a worker killed while gated)"
     spec = main_path_spec(api, full=False, workers=2, sync="bsp",
                           transport=api.TransportSpec(kind="shmem"))
-    free_device_memory(torch)
     with api.build_session(spec, external_workers=True) as s:
         task = dataclasses.replace(
             WorkerTask.from_spec(spec, 4, device=device),
@@ -3520,11 +3822,15 @@ def run_ft_paths(torch, api, per_step, *, device: str = "cuda:0"):
              f"{[r.iterations_done for r in results]}, seats {seats}, "
              f"pushes {pushes}")
     check_worker_launches(tag, results, per_step)
-    say({"phase": "ft paths", "run": tag, "respawned": pool.respawned,
-         "pushes": pushes})
-    # (b) tcp: a quarter of the push frames dropped before they leave the
-    # worker; each drop is a dead connection to the worker, which
-    # reconnects and sends its iteration again
+    return {"phase": "ft paths", "run": tag, "respawned": pool.respawned,
+            "pushes": pushes}
+
+
+def _ft_frames_dropped(torch, api, per_step, device):
+    """tcp: a quarter of the push frames dropped before they leave the
+    worker; each drop is a dead connection to the worker, which
+    reconnects and sends its iteration again."""
+    from repro_torch.wireformat import MSG_PUSH
     tag = "ft (tcp, push frames dropped)"
     spec = main_path_spec(api, full=False, workers=2, sync="dssp",
                           transport=api.TransportSpec(kind="tcp",
@@ -3532,7 +3838,6 @@ def run_ft_paths(torch, api, per_step, *, device: str = "cuda:0"):
     spec = spec.replace(ft=api.FtSpec(
         reconnect_tries=10, reconnect_base_s=0.05, reconnect_max_s=0.5,
         fault_drop_kind=MSG_PUSH, fault_drop_prob=0.25, fault_seed=3))
-    free_device_memory(torch)
     with api.build_session(spec, timeout=600.0) as s:
         m = s.run(16)
         results = s.results
@@ -3545,17 +3850,27 @@ def run_ft_paths(torch, api, per_step, *, device: str = "cuda:0"):
              f"{losses}")
     check_worker_launches(tag, [dataclasses.replace(
         r, iterations_done=len(r.compute_s)) for r in results], per_step)
-    say({"phase": "ft paths", "run": tag, "reconnects": reconnects,
-         "computed_steps": [len(r.compute_s) for r in results]})
-    # (c) the server SIGKILLed inside its live reshard 4 -> 6: the restart
-    # resumes from a pre-migration snapshot, its trigger finishes the
-    # move, and no snapshot on disk mixes two plans
+    return {"phase": "ft paths", "run": tag, "reconnects": reconnects,
+            "computed_steps": [len(r.compute_s) for r in results]}
+
+
+def _ft_killed_mid_reshard(torch, api, per_step, device):
+    """The server SIGKILLed inside its live reshard 4 -> 6: the restart
+    resumes from a pre-migration snapshot, its trigger finishes the
+    move, and no snapshot on disk mixes two plans."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.ft import ServerProcess
+    from repro_torch.launch.proc_pool import (ProcessWorkerPool, WorkerTask,
+                                              raise_on_failure)
+    from repro_torch.wireformat import MSG_PUSH
     tag = "ft (tcp, server killed mid-reshard)"
     os.makedirs(FT_WORK_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="ft-mid-", dir=FT_WORK_DIR)
     spec = ft_spec(api, full=False, ft_dir=os.path.join(work, "ckpt"),
-                   snapshot_every_s=0.05, keep=3, reconnect_tries=40,
-                   reconnect_base_s=0.2, reconnect_max_s=2.0,
+                   snapshot_every_s=0.05, keep=3, reconnect_tries=120,
+                   reconnect_base_s=0.2, reconnect_max_s=1.0,
                    reshard_shards=6, reshard_round=8,
                    fault_kill_mid_reshard=True, fault_delay_kind=MSG_PUSH,
                    fault_delay_ms=40.0)
@@ -3601,8 +3916,9 @@ def run_ft_paths(torch, api, per_step, *, device: str = "cuda:0"):
              f"{[r.rebuilds for r in results]}")
     check_worker_launches(tag, [dataclasses.replace(
         r, iterations_done=len(r.compute_s)) for r in results], per_step)
-    say({"phase": "ft paths", "run": tag, "resumed_step": sp.resumed_step,
-         "snapshots": plans, "restart_to_serve_s": sp.start_s[1]})
+    return {"phase": "ft paths", "run": tag,
+            "resumed_step": sp.resumed_step, "snapshots": plans,
+            "restart_to_serve_s": sp.start_s[1]}
 
 
 #: the port's own kernels, by function name (exactly; each norm's one
@@ -3888,7 +4204,6 @@ def main(argv=None) -> None:
 
     mark("parity, train, profile, server, paths")
     # -- parity, train, profile, server, paths ---------------------------
-    n_layers = 24
     check_parity(torch, api, "h2o-danube smoke", lambda kernels:
                  main_path_spec(api, full=False, workers=1, sync="bsp",
                                 kernels=kernels, straggler=1.0))
@@ -3896,9 +4211,7 @@ def main(argv=None) -> None:
     launches = run_train(
         torch, api, "train",
         main_path_spec(api, full=True, workers=2, sync="dssp"),
-        {"flash_attention_fwd": n_layers * 2,
-         "residual_rmsnorm": n_layers * 2,
-         "rmsnorm": n_layers * 2 + 1})["launches"]    # + the final norm
+        dense_per_step(24))["launches"]
     # straggler 1.0: the one worker is also the last, which the spec
     # would otherwise slow down by sleeping
     profile_step(torch, api, "train",
@@ -3952,10 +4265,8 @@ def main(argv=None) -> None:
 
     mark("transport")
     # -- transport, transport paths --------------------------------------
-    layers = transport_config().n_layers
-    per_step = {"flash_attention_fwd": layers * 2,
-                "residual_rmsnorm": layers * 2, "rmsnorm": layers * 2 + 1}
-    transport = run_transport(torch, api, per_step)
+    transport = run_transport(
+        torch, api, dense_per_step(transport_config().n_layers))
     smoke = get_smoke_config("h2o-danube-1.8b")
     passes = smoke.n_layers * (2 if smoke.remat == "full" else 1)
     run_transport_paths(torch, api, {"flash_attention_fwd": passes,
@@ -3964,9 +4275,7 @@ def main(argv=None) -> None:
 
     mark("ft")
     # -- ft, ft paths ----------------------------------------------------
-    run_ft(torch, api, {"flash_attention_fwd": layers * 2,
-                        "residual_rmsnorm": layers * 2,
-                        "rmsnorm": layers * 2 + 1})
+    run_ft(torch, api, dense_per_step(FT_LAYERS))
     run_ft_paths(torch, api, {"flash_attention_fwd": passes,
                               "residual_rmsnorm": passes,
                               "rmsnorm": passes + 1})
@@ -3974,15 +4283,15 @@ def main(argv=None) -> None:
     mark("serve")
     # -- serve parity, serve, serve transport ----------------------------
     check_serve_parity(torch)
-    serve = run_serve(torch, api, {"flash_attention_fwd": n_layers * 2,
-                                   "residual_rmsnorm": n_layers * 2,
-                                   "rmsnorm": n_layers * 2 + 1})
+    serve = run_serve(torch, api, dense_per_step(SERVE_LAYERS))
     for name in ("fused_update", "rmsnorm", "residual_rmsnorm",
                  "flash_attention_fwd"):
         launches[name] += serve["launches"][name]
-    served = run_serve_transport(torch, api, per_step)
+    served = run_serve_transport(
+        torch, api, dense_per_step(SERVE_TRANSPORT_LAYERS))
     say(f"serve transport: pushes/s {served['pushes_per_s']} with a "
-        f"replica (the transport phase's without one: "
+        f"replica at {SERVE_TRANSPORT_LAYERS} layers (the transport "
+        f"phase's without one at {transport_config().n_layers}: "
         f"{transport['pushes_per_s']}); replica refresh bytes "
         f"{served['replica_refresh_bytes']} in "
         f"{served['replica_refreshes']} refreshes")
@@ -4010,7 +4319,9 @@ def main(argv=None) -> None:
         launches[name] += n
     mark("dryrun")
     # -- the dry run's cells; the partitioned step on four ranks ----------
-    run_dryrun_phase(torch, args.src)
+    # (d)'s steps launch the scan and the norms on its four ranks
+    for name, n in run_dryrun_phase(torch, args.src).items():
+        launches[name] += n
 
     replaces = {
         "fused_update": "src/repro/kernels/fused_update.py:37",

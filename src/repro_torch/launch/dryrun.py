@@ -333,15 +333,19 @@ def depth_fit(cfg) -> Optional[Tuple[Any, Any, int, int, int]]:
     count of a homogeneous stack (flops, bytes, collectives, argument
     and peak bytes) is affine in its depth, so two depths give it
     exactly (the reference fits XLA's costs the same way,
-    ``repro/roofline/analysis.py:233``)."""
+    ``repro/roofline/analysis.py:233``).  A config of at most two units
+    is traced at its own depth (None)."""
     if cfg.family == "hybrid":
         p = cfg.attn_period or 1
-        return (cfg.scaled(n_layers=p), cfg.scaled(n_layers=2 * p), 1, 2,
-                cfg.n_layers // p)
-    if cfg.moe is not None:
-        return (cfg.scaled(n_layers=1), cfg.scaled(n_layers=2), 1, 2,
-                cfg.n_layers)
-    return None
+        units = cfg.n_layers // p
+        fit = (cfg.scaled(n_layers=p), cfg.scaled(n_layers=2 * p), 1, 2,
+               units)
+    elif cfg.moe is not None:
+        units = cfg.n_layers
+        fit = (cfg.scaled(n_layers=1), cfg.scaled(n_layers=2), 1, 2, units)
+    else:
+        return None
+    return fit if units > 2 else None
 
 
 def _cell_counts(cfg, mesh, shape, kw) -> Tuple[Dict[str, Any], bool]:

@@ -27,13 +27,15 @@ parallelism's activation gather), ``scatter_grad`` (its transpose),
 ``copy_to_group`` and ``reduce_from_group`` (Megatron's f and g).
 ``perfcount.MESH`` counts every collective and its result bytes;
 ``COLLECTIVE_LOG``, when the dry run sets it, records each one.
-Collectives on a gloo group stage CUDA tensors through host memory;
-gloo has no reduce-scatter, so there it is an all-reduce and a block.
+Collectives on a gloo group (its ranks on one host) pass through a
+shared-memory segment of the group's (``_HostExchange``), CUDA tensors
+through pinned host memory.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
@@ -138,8 +140,123 @@ def _gloo(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
-def _gloo_staged(t: torch.Tensor, group) -> bool:
-    return t.is_cuda and _gloo(group)
+class _HostExchange:
+    """The collectives of a gloo group pass through a shared-memory
+    segment of the group's, one slot a rank, not gloo's transport: a
+    rank writes its slot, the group meets at a barrier, each rank reads
+    what it needs (a reduction sums the slots in rank order, so every
+    rank gets the same bits), and meets the group again before the slots
+    are reused.  gloo serves ranks of one host (several ranks on one
+    card, which NCCL refuses, or CPU ranks); ranks on several hosts take
+    NCCL.  The segment grows to the largest message and is unlinked as
+    soon as every rank has mapped it; with CUDA in use each rank pins its
+    mapping (``cudaHostRegister``), so the copies to and from the card
+    are DMA, not staged through pageable memory."""
+
+    def __init__(self, group):
+        self.group = group
+        self.n, self.me = dist.get_world_size(group), dist.get_rank(group)
+        self.shm, self.buf, self.slot, self.pinned = None, None, 0, False
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
+
+    def slots(self, nbytes: int) -> list:
+        """One ``nbytes`` uint8 view a rank (every rank of the group
+        asks for the same size at the same collective)."""
+        if self.buf is None or nbytes > self.slot:
+            # at least double: each new segment is mapped, faulted in
+            # and pinned again
+            self._grow(max(nbytes, 2 * self.slot, 1))
+        return [self.buf.narrow(0, r * self.slot, nbytes)
+                for r in range(self.n)]
+
+    def _grow(self, nbytes: int) -> None:
+        import multiprocessing as mp
+        from multiprocessing import resource_tracker, shared_memory
+        self.close()
+        slot = -(-nbytes // (1 << 20)) << 20
+        name = torch.zeros(64, dtype=torch.uint8)
+        if self.me == 0:
+            shm = shared_memory.SharedMemory(
+                create=True, size=self.n * slot,
+                name=f"rmx-{os.getpid()}-{os.urandom(4).hex()}")
+            code = shm.name.encode()
+            name[:len(code)] = torch.tensor(list(code), dtype=torch.uint8)
+        dist.broadcast(name, src=dist.get_global_rank(self.group, 0),
+                       group=self.group)
+        if self.me != 0:
+            shm = shared_memory.SharedMemory(
+                name=bytes(name.tolist()).rstrip(b"\0").decode())
+            if mp.parent_process() is None:     # a tracker of its own
+                resource_tracker.unregister(shm._name, "shared_memory")
+        self.barrier()
+        if self.me == 0:
+            shm.unlink()           # the mappings live on until closed
+        self.shm, self.slot = shm, slot
+        self.buf = torch.frombuffer(shm.buf, dtype=torch.uint8)
+        if torch.cuda.is_initialized():
+            # cudaHostRegisterPortable; unpinned (pageable copies) if
+            # the driver refuses
+            self.pinned = int(torch.cuda.cudart().cudaHostRegister(
+                self.buf.data_ptr(), self.buf.numel(), 1)) == 0
+
+    def close(self) -> None:
+        if self.shm is not None:
+            if self.pinned:
+                torch.cuda.cudart().cudaHostUnregister(self.buf.data_ptr())
+                self.pinned = False
+            self.buf = None
+            try:
+                self.shm.close()
+            except BufferError:    # a view still exported: leave it mapped
+                _LEAKED.append(self.shm)
+            self.shm, self.slot = None, 0
+
+
+_EXCHANGES: Dict[Tuple[int, ...], _HostExchange] = {}
+_LEAKED: list = []
+
+
+def _exchange(group) -> Optional[_HostExchange]:
+    """The host exchange of a gloo ``group`` (None: the default group);
+    None for NCCL's."""
+    if not _gloo(group):
+        return None
+    group = dist.group.WORLD if group is None else group
+    key = tuple(dist.get_process_group_ranks(group))
+    ex = _EXCHANGES.get(key)
+    if ex is None:
+        if not _EXCHANGES:
+            import atexit
+            atexit.register(release_host_exchanges)
+        ex = _EXCHANGES[key] = _HostExchange(group)
+    ex.group = group
+    return ex
+
+
+def host_exchange_bytes() -> int:
+    """The bytes of the host exchanges' segments this rank maps now."""
+    return sum(ex.buf.numel() for ex in _EXCHANGES.values()
+               if ex.buf is not None)
+
+
+def release_host_exchanges() -> None:
+    """Unmap every host exchange's segment (the next collective maps a
+    new one).  Every rank of the groups calls it at the same point."""
+    for ex in _EXCHANGES.values():
+        ex.close()
+    _EXCHANGES.clear()
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+def _slot_as(slot: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
+    """A slot's bytes as a tensor of ``like``'s dtype and ``shape`` on
+    ``like``'s device (a copy)."""
+    return slot.view(like.dtype).view(shape).to(like.device, copy=True)
 
 
 def all_reduce_sum_(t: torch.Tensor, group, op=None) -> torch.Tensor:
@@ -147,10 +264,18 @@ def all_reduce_sum_(t: torch.Tensor, group, op=None) -> torch.Tensor:
     ``group``."""
     _count("all_reduce", t, group)
     op = dist.ReduceOp.SUM if op is None else op
-    if _gloo_staged(t, group):
-        host = t.cpu()
-        dist.all_reduce(host, op=op, group=group)
-        t.copy_(host)
+    ex = _exchange(group)
+    if ex is not None:
+        combine = {dist.ReduceOp.SUM: torch.add, dist.ReduceOp.MAX:
+                   torch.maximum, dist.ReduceOp.MIN: torch.minimum}[op]
+        slots = ex.slots(t.numel() * t.element_size())
+        slots[ex.me].copy_(_bytes(t))
+        ex.barrier()
+        acc = _slot_as(slots[0], t, t.shape)
+        for r in range(1, ex.n):
+            acc = combine(acc, _slot_as(slots[r], t, t.shape))
+        ex.barrier()
+        t.copy_(acc)
     else:
         dist.all_reduce(t, op=op, group=group)
     return t
@@ -161,15 +286,16 @@ def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     along ``dim``."""
     n = dist.get_world_size(group)
     src = t.contiguous()
-    if _gloo(group):
-        staged = src.is_cuda
-        if staged:
-            src = src.cpu()
-        out = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(out, src, group=group)
-        cat = torch.cat(out, dim=dim)
-        if staged:
-            cat = cat.to(t.device)
+    ex = _exchange(group)
+    if ex is not None:
+        slots = ex.slots(src.numel() * src.element_size())
+        slots[ex.me].copy_(_bytes(src))
+        ex.barrier()
+        out = torch.stack([_slot_as(x, src, src.shape) for x in slots])
+        ex.barrier()
+        shape = list(src.shape)
+        shape[dim] *= n
+        cat = out.movedim(0, dim).reshape(shape)
     else:
         out = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
                           device=src.device)
@@ -183,19 +309,27 @@ def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def reduce_scatter_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The sum of ``t`` over ``group``, cut into its ranks' blocks along
-    ``dim``: this rank's block.  gloo has no reduce-scatter: there it is
-    an all-reduce (staged through the host for CUDA tensors), then the
-    block."""
+    ``dim``: this rank's block."""
     n = dist.get_world_size(group)
     if t.shape[dim] % n:
         raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
                          f"split into {n} blocks")
     step = t.shape[dim] // n
-    if _gloo(group):
-        host = t.detach().to("cpu", copy=True).contiguous()
-        dist.all_reduce(host, group=group)
-        out = host.narrow(dim, dist.get_rank(group) * step, step)
-        out = out.to(t.device).contiguous()
+    ex = _exchange(group)
+    if ex is not None:
+        src = t.detach().movedim(dim, 0).contiguous()
+        row = src[0].numel() * src.element_size()
+        slots = ex.slots(src.numel() * src.element_size())
+        slots[ex.me].copy_(_bytes(src))
+        ex.barrier()
+        me, shape = dist.get_rank(group), (step,) + tuple(src.shape[1:])
+        acc = None
+        for x in slots:
+            part = _slot_as(x.narrow(0, me * step * row, step * row), src,
+                            shape)
+            acc = part if acc is None else acc + part
+        ex.barrier()
+        out = acc.movedim(0, dim).contiguous()
     else:
         src = t.movedim(dim, 0).contiguous()
         out = torch.empty((step,) + tuple(src.shape[1:]), dtype=t.dtype,
@@ -204,6 +338,88 @@ def reduce_scatter_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         out = out.movedim(0, dim).contiguous()
     _count("reduce_scatter", out, group)
     return out
+
+
+def all_to_all_cat(t: torch.Tensor, group, dim: int,
+                   routes: Sequence[Sequence[int]]) -> torch.Tensor:
+    """Chunks of every rank of ``group`` sent where ``routes`` says: the
+    ranks' tensors split along ``dim`` into equal chunks, chunk ``i`` of
+    group rank ``s`` going to group rank ``routes[s][i]``.  Returns this
+    rank's received chunks concatenated along ``dim``, in order of their
+    source rank, then of their index there."""
+    me, n = dist.get_rank(group), dist.get_world_size(group)
+    mine = routes[me]
+    src = t.movedim(dim, 0)
+    rows = src.shape[0] // len(mine)
+    order = sorted(range(len(mine)), key=lambda i: (mine[i], i))
+    send = torch.cat([src.narrow(0, i * rows, rows) for i in order]
+                     ).contiguous()
+    in_splits = [rows * sum(1 for d in mine if d == r) for r in range(n)]
+    out_splits = [rows * sum(1 for d in routes[u] if d == me)
+                  for u in range(n)]
+    shape = (sum(out_splits),) + tuple(send.shape[1:])
+    ex = _exchange(group)
+    if ex is not None:
+        row = send[0].numel() * send.element_size() if len(send) else 0
+        slots = ex.slots(max(rows * len(r) for r in routes) * row)
+        slots[ex.me].narrow(0, 0, send.numel() * send.element_size()).copy_(
+            _bytes(send))
+        ex.barrier()
+        parts = []
+        for u in range(n):
+            if not out_splits[u]:
+                continue
+            first = rows * sum(1 for d in routes[u] if d < me)
+            parts.append(_slot_as(
+                slots[u].narrow(0, first * row, out_splits[u] * row), send,
+                (out_splits[u],) + tuple(send.shape[1:])))
+        ex.barrier()
+        out = torch.cat(parts)
+    else:
+        out = torch.empty(shape, dtype=send.dtype, device=send.device)
+        dist.all_to_all_single(out, send, out_splits, in_splits,
+                               group=group)
+    out = out.movedim(0, dim)
+    _count("all_to_all", out, group)
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    """``all_to_all_cat`` forward; backward each received chunk's
+    gradient goes back to the rank and place it came from (every chunk
+    has one owner, so each is its whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, routes):
+        ctx.group, ctx.dim, ctx.routes = group, dim, routes
+        return all_to_all_cat(x, group, dim, routes)
+
+    @staticmethod
+    def backward(ctx, g):
+        routes, dim = ctx.routes, ctx.dim
+        me, n = dist.get_rank(ctx.group), dist.get_world_size(ctx.group)
+        # the received chunks return to their sources, where they arrive
+        # in order of (destination, index): put them back by index
+        got = all_to_all_cat(g, ctx.group, dim, _back_routes(routes, n))
+        mine = routes[me]
+        order = sorted(range(len(mine)), key=lambda i: (mine[i], i))
+        rows = got.shape[dim] // len(mine)
+        chunks = [None] * len(mine)
+        for p, i in enumerate(order):
+            chunks[i] = got.narrow(dim, p * rows, rows)
+        return torch.cat(chunks, dim), None, None, None
+
+
+def _back_routes(routes: Sequence[Sequence[int]], n: int) -> list:
+    """The routes that send every rank's received chunks (in
+    ``all_to_all_cat``'s order) back to their sources."""
+    return [[u for u in range(n) for d in routes[u] if d == r]
+            for r in range(n)]
+
+
+def exchange_grad(x: torch.Tensor, group, dim: int,
+                  routes: Sequence[Sequence[int]]) -> torch.Tensor:
+    return _Exchange.apply(x, group, dim, routes)
 
 
 class _GatherScatter(torch.autograd.Function):
@@ -345,13 +561,17 @@ def batch_means(mesh, axes: Sequence[str]):
 def broadcast_(t: torch.Tensor, group, src: int) -> torch.Tensor:
     """``t`` in place from ``group``'s rank ``src`` to all its ranks."""
     _count("broadcast", t, group)
-    root = dist.get_global_rank(group, src)
-    if _gloo_staged(t, group):
-        host = t.cpu()
-        dist.broadcast(host, src=root, group=group)
-        t.copy_(host)
+    ex = _exchange(group)
+    if ex is not None:
+        slots = ex.slots(t.numel() * t.element_size())
+        if ex.me == src:
+            slots[src].copy_(_bytes(t))
+        ex.barrier()
+        if ex.me != src:
+            t.copy_(_slot_as(slots[src], t, t.shape))
+        ex.barrier()
     else:
-        dist.broadcast(t, src=root, group=group)
+        dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
     return t
 
 
@@ -563,6 +783,7 @@ def _rank_main(fn, rank: int, world_size: int, store_path: str,
     except Exception:
         queue.put((rank, False, traceback.format_exc()))
     finally:
+        release_host_exchanges()
         if dist.is_initialized():
             dist.destroy_process_group()
 
@@ -579,7 +800,6 @@ def run_ranks(fn, world_size: int, workdir: str, *, args: tuple = (),
     with the rank's traceback when one fails, and when ``timeout``
     seconds pass first; every process is stopped either way."""
     import multiprocessing as mp
-    import os
     import queue as queue_mod
     import tempfile
     import time

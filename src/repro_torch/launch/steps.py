@@ -16,26 +16,27 @@ port keeps the reference's values and its per-device storage:
 * every tensor of the step is stored as its rank's block of the spec
   that ``AxisRules.spec`` gives it: params, optimizer state, the DSSP
   ring and the batch;
-* the transformers (dense, ``vlm``, MoE) under role 'tp' (``models/
-  partition.py``) compute on blocks too: layer i's parameters are
-  gathered over 'data' when layer i runs (FSDP; an MoE's experts whole),
-  the compute along 'model' is Megatron's (sequence-parallel or
-  tensor-parallel), and the gradients arrive as blocks, summed over the
-  axes the compute was split along, then divided once by the batch's
-  ranks;
+* the transformers (dense, ``vlm``, MoE) and the hybrid (Jamba) under
+  role 'tp' (``models/partition.py``) compute on blocks too: layer i's
+  parameters are gathered over 'data' when layer i runs (FSDP; an MoE's
+  experts whole), the compute along 'model' is Megatron's
+  (sequence-parallel or tensor-parallel; a Mamba's on its channel
+  block), and the gradients arrive as blocks, summed over the axes the
+  compute was split along, then divided once by the batch's ranks;
 * their prefill computes on blocks the same way, under ``no_grad``
-  (``build_prefill_step``): attention over chunks of the rank's
-  queries, the rank's block of the KV cache as ``cache_specs`` gives
-  it, the greedy token an argmax over the vocabulary blocks; it
+  (``build_prefill_step``): for the transformers attention over chunks
+  of the rank's queries, the rank's block of the KV cache as
+  ``cache_specs`` gives it, the greedy token an argmax over the
+  vocabulary blocks; for the hybrid its loss over the global batch; it
   gathers no whole parameter;
-* every other config (Jamba, xLSTM, Whisper, role 'dp'), their prefill
+* every other config (xLSTM, Whisper, role 'dp'), their prefill
   and the decode bundle gather each parameter whole
   and run the model on the rank's batch rows, then average the
   gradients over the batch's mesh axes (an f32 ``all_reduce`` sum, a
   division by a tensor) and take each rank's block: ranks on one
   'model' coordinate repeat the same work (ROADMAP queue 1, item 14);
 * an MoE's aux loss takes its two means over the global batch in both
-  train steps (``launch.mesh.batch_means``);
+  train steps and in the hybrid's prefill (``launch.mesh.batch_means``);
 * wire compression (``make_train_fn(compressor=)``, the ``Trainer``'s)
   compresses each rank's gradient blocks before the ring, with the
   error state in blocks; the one scalar per whole leaf (int8's max,
@@ -381,12 +382,15 @@ def _non_batch_dims(spec: PartitionSpec, mesh, batch_entry
 
 
 # ------------------------------------------------------------------ prefill
-def build_prefill_step(cfg: ModelConfig, mesh,
-                       shape: ShapeSpec) -> StepBundle:
+def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
+                       partition: bool = True) -> StepBundle:
     """The transformers under role 'tp' compute on blocks
     (``models.partition``, ``serving=True``): the bundle gathers no
     parameter and returns the rank's block of the token and of the
-    cache; every other config gathers its parameters whole."""
+    cache.  The hybrid under role 'tp' computes its loss on blocks
+    (``Partition.loss`` under ``no_grad``, the MoE aux loss over the
+    global batch), the same on every rank.  Every other config, a mesh
+    of one rank and ``partition=False`` gather the parameters whole."""
     # prefill/serve always use TP weight layouts: model_axis_role='dp' is
     # a training choice
     rules = rules_for_mesh(mesh, sp=cfg.sequence_parallel, role="tp")
@@ -395,7 +399,6 @@ def build_prefill_step(cfg: ModelConfig, mesh,
     p_spec = spec_tree(defs, rules)
     b_sds = input_specs(cfg, shape)
     b_spec = batch_specs(cfg, rules, b_sds)
-    fam = registry.family(cfg)
     b = shape.global_batch
     entry = _rows_axes_entry(rules, b)
     part = None
@@ -403,7 +406,7 @@ def build_prefill_step(cfg: ModelConfig, mesh,
     if cfg.family in ("dense", "moe", "vlm"):
         cache_spec = transformer.cache_specs(cfg, b, shape.seq_len, rules)
         tok_spec = rules.spec(("batch",), (b,))
-        if cfg.model_axis_role == "tp":
+        if cfg.model_axis_role == "tp" and partition:
             part = partition_for(cfg, mesh, rules, p_spec,
                                  _batch_axes(b_spec), serving=True)
         if part is not None:
@@ -431,11 +434,24 @@ def build_prefill_step(cfg: ModelConfig, mesh,
         # ssm/hybrid/audio: prefill = full forward, the loss over the
         # global batch (the reference's trunk compute)
         reduce_axes = _batch_axes(b_spec)
+        if (cfg.family == "hybrid" and cfg.model_axis_role == "tp"
+                and partition):
+            # the loss, not a cache: the aux loss's means are global
+            part = partition_for(cfg, mesh, rules, p_spec, reduce_axes)
+        if part is not None:
+            def loss_of(params, batch):
+                return part.loss(params, batch)[0]
+        else:
+            # an MoE's aux loss over the global batch, as in the train
+            # step (a product of the rank's means would not be)
+            loss_fn = registry.loss_fn(cfg, batch_means(mesh, reduce_axes))
+
+            def loss_of(params, batch):
+                return loss_fn(gather(params, p_spec, mesh), batch)[0]
 
         def prefill(params, batch):
             with use_rules(rules), torch.no_grad():
-                full = gather(params, p_spec, mesh)
-                loss = fam.loss_fn(cfg, full, batch)[0].float()
+                loss = loss_of(params, batch).float()
                 all_reduce_mean([loss], reduce_axes, mesh)
             return loss
 

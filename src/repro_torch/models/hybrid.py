@@ -13,7 +13,11 @@ loop walks them.  ``cfg.remat == "full"`` recomputes each slot in the
 backward pass (``torch.utils.checkpoint``), as the reference's per-slot
 ``jax.checkpoint`` does; the reference's outer checkpoint around the
 whole group only bounds what its scan saves, which a loop of per-slot
-checkpoints already does.
+checkpoints already does.  ``forward`` and ``loss_fn`` reach the
+parameters and the compute through ``transformer.Whole``'s hooks
+(``mamba`` among them), so one forward serves one device and a mesh
+(``models.partition``, whose per-slot gathers run inside each slot's
+checkpoint).
 
 Decode (``init_state``, ``forward_decode``) is the reference's: one
 token through every group, the attention slot over its KV cache and
@@ -81,47 +85,61 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _slot_body(cfg: ModelConfig, mixer: str, ffn: str, x: torch.Tensor,
-               w: Dict[str, Any], moe_means=moe_lib.local_means
+               w: Dict[str, Any], part: T.Whole = T.WHOLE, slot: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    w = part.layer(w, slot)
     h = L.apply_norm(cfg, x, w["mixer_norm"])
     if mixer == "attn":
         # rope is off for jamba (use_rope=False): no cos/sin
-        mix = L.attention_block(cfg, h, w["attn"], None, None)
+        mix = part.attention(cfg, h, w["attn"], None, None)
     else:
-        mix = ssm.mamba_block(cfg, h, w["mamba"])
+        mix = part.mamba(cfg, h, w["mamba"])
     # fused residual-add + norm via the kernel registry
     x, h = L.residual_apply_norm(cfg, mix, x, w["ffn_norm"])
-    if ffn == "moe":
-        out, aux = moe_lib.moe_block(cfg, h, w["moe"], moe_means)
-    else:
-        out = L.mlp_block(cfg, h, w["mlp"])
+    out, aux = part.ffn(cfg, h, w)
+    if aux is None:      # the dense SwiGLU
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + out, aux
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            moe_means=moe_lib.local_means
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training forward. tokens (b, l) -> logits (b, l, v), summed aux
-    (``moe_means``: the MoE aux loss's hook, ``moe.moe_block``)."""
+            part: T.Whole = T.WHOLE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward. tokens (b, l) -> logits (b, l, v), summed aux.
+    ``part``: the hooks of ``transformer.Whole`` (its ``moe_means`` the
+    MoE aux loss's), or a rank's block of the compute on a mesh
+    (``models.partition``; its logits are then the rank's vocabulary
+    block)."""
     kinds = _slot_kinds(cfg)
     groups = cfg.n_layers // (cfg.attn_period or 1)
-    x = L.embed(tokens, params["embed"]).to(torch_dtype(cfg.dtype))
+    x = part.embed(cfg, tokens, params["embed"]).to(torch_dtype(cfg.dtype))
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     # per slot: its weights of every group, as views of the stacked leaves
     per_slot = [T.layer_weights(slot, groups) for slot in params["slots"]]
     for g in range(groups):
-        for (mixer, ffn), ws in zip(kinds, per_slot):
+        for j, ((mixer, ffn), ws) in enumerate(zip(kinds, per_slot)):
             if cfg.remat == "full":
+                # a mesh's per-slot gathers run inside the checkpoint, so
+                # the recompute gathers again
                 x, aux = checkpoint(_slot_body, cfg, mixer, ffn, x, ws[g],
-                                    moe_means, use_reentrant=False,
+                                    part, j, use_reentrant=False,
                                     context_fn=remat_contexts)
             else:
-                x, aux = _slot_body(cfg, mixer, ffn, x, ws[g], moe_means)
+                x, aux = _slot_body(cfg, mixer, ffn, x, ws[g], part, j)
             aux_total = aux_total + aux
-    x = L.apply_norm(cfg, x, params["final_norm"])
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed(x, table, cfg.vocab_size), aux_total
+    x = L.apply_norm(cfg, x, part.final_norm(params["final_norm"]))
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    return part.unembed(cfg, x, params[name], name), aux_total
+
+
+def loss_fn(cfg: ModelConfig, params: Dict[str, Any],
+            batch: Dict[str, torch.Tensor], part: T.Whole = T.WHOLE
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``nll + aux_loss_weight · aux`` (the weight 0 without MoE), and
+    the parts: ``loss`` is the nll."""
+    logits, aux = forward(cfg, params, batch["tokens"], part)
+    nll = part.cross_entropy(logits, batch["labels"])
+    w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
+    return nll + w * aux, {"loss": nll, "aux_loss": aux}
 
 
 # --------------------------------------------------------------- serving

@@ -1,14 +1,16 @@
 """Partitioned compute on a mesh for the transformer family (``dense``,
-``vlm``, ``moe``): Megatron sequence- or tensor-parallel layers over
-'model' and per-layer FSDP gathers over 'data'.
+``vlm``, ``moe``) and the hybrid (Jamba): Megatron sequence- or
+tensor-parallel layers over 'model' and per-layer FSDP gathers over
+'data'.
 
-Counterpart of what GSPMD makes of ``repro/models/transformer.py`` under
-the reference's rules (``models/sharding.py``, role 'tp'): the values are
-the reference's, the memory and the work per rank the blocks that the
-specs give.  Every rank stores its block of each parameter
-(``launch.mesh.place``); the step (``launch/steps.py``) computes the
-loss of its batch rows through ``Partition.loss``, which runs
-``transformer.loss_fn`` itself with a ``Partition`` in place of its
+Counterpart of what GSPMD makes of ``repro/models/transformer.py`` and
+``repro/models/hybrid.py`` under the reference's rules
+(``models/sharding.py``, role 'tp'): the values are the reference's,
+the memory and the work per rank the blocks that the specs give.  Every
+rank stores its block of each parameter (``launch.mesh.place``); the
+step (``launch/steps.py``) computes the loss of its batch rows through
+``Partition.loss``, which runs the family's loss (``transformer.loss_fn``,
+``hybrid.loss_fn``) itself with a ``Partition`` in place of its
 ``Whole`` hooks (one forward serves one device and a mesh):
 
 * FSDP.  Layer i's blocks are gathered over 'data' when layer i runs and
@@ -43,13 +45,29 @@ loss of its batch rows through ``Partition.loss``, which runs
   ranks before their product (``launch.mesh.batch_means``), so its
   value and gradient are the reference's over the global batch.
 
+The hybrid runs the same hooks slot by slot (``layer(w, slot)``: each
+period slot has a tree of its own; its attention without rotary, its
+dense and MoE FFNs as above), and a Mamba slot splits its inner dim
+``di`` over 'model' as the reference's specs do (``repro/models/
+ssm.py``): each rank computes its ``di / m`` channels over the whole
+sequence (gathered under SP), its product with ``w_bcdt``'s row block
+summed over 'model' into the whole (B, C, dt), ``ssm_scan`` on
+``(rows, l, di / m)`` (the channels are independent), the partial sums
+of ``w_out``'s row block reduce-scattered to sequence blocks (SP) or
+all-reduced (TP).  ``w_in``'s storage block is not the rank's channels:
+the reference splits its ``2·di`` columns in one block a rank and then
+the product into ``xin`` and ``z``, so each layer moves the halves of
+the storage blocks to the ranks of their channels with one all-to-all
+over 'model' (``_channels``).
+
 Each leaf's gradient ends up summed over exactly the mesh axes along
 which its compute was split and its storage is not (``sum_axes``):
 'data' through the FSDP reduce-scatter (or an all-reduce for a leaf
 that 'data' does not split), 'pod' for every leaf, 'model' for the
 leaves that sequence parallelism computes on blocks (attention and
 norms) and, under tensor parallelism, for those a rank uses only a head
-block of.  Then one division by the batch's ranks.
+block of; never for a Mamba leaf, whose rank computes its channels over
+the whole sequence.  Then one division by the batch's ranks.
 
 Prefill (``serving=True``, ``launch.steps.build_prefill_step``) runs
 ``transformer.forward_prefill`` through the same hooks under
@@ -73,9 +91,12 @@ Prefill (``serving=True``, ``launch.steps.build_prefill_step``) runs
   over the blocks (``greedy``);
 * no aux loss is reduced (prefill has none).
 
+The hybrid's prefill (``build_prefill_step``) is its loss on blocks
+under ``no_grad``, the aux loss over the global batch as in training.
+
 What this does not partition (``partition_for`` returns None and the
-step gathers whole leaves): Jamba, xLSTM and Whisper, role 'dp'
-configs, a mesh of one rank, and decode.  A transformer config under
+step gathers whole leaves): xLSTM and Whisper, role 'dp' configs, a
+mesh of one rank, and decode.  A transformer or hybrid config under
 role 'tp' that it cannot split is refused, not gathered whole.
 """
 
@@ -90,12 +111,12 @@ import torch.distributed as dist
 from repro_torch import tree as tree_util
 from repro_torch.launch.mesh import (all_gather_cat, all_reduce_sum_,
                                      batch_means, broadcast_, copy_to_group,
-                                     gather_grad, gather_replicated,
-                                     reduce_from_group, scatter_grad,
-                                     split_dims)
+                                     exchange_grad, gather_grad,
+                                     gather_replicated, reduce_from_group,
+                                     scatter_grad, split_dims)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-from repro_torch.models import transformer
+from repro_torch.models import registry, ssm, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import (AxisRules, PartitionSpec,
                                          is_spec, mesh_axis_sizes)
@@ -117,15 +138,40 @@ def _split_over(spec: PartitionSpec, axis: str) -> bool:
     return any(axis in _axes(e) for e in spec)
 
 
-def _spec_paths(specs: Any, prefix: Tuple[str, ...] = ()
-               ) -> List[Tuple[Tuple[str, ...], PartitionSpec]]:
-    """(path, spec) of every leaf of a spec tree, in flatten order."""
+def _spec_paths(specs: Any, prefix: Tuple[Any, ...] = ()
+               ) -> List[Tuple[Tuple[Any, ...], PartitionSpec]]:
+    """(path, spec) of every leaf of a spec tree, in flatten order (a
+    tuple's entries, the hybrid's slots, by index)."""
     if is_spec(specs):
         return [(prefix, specs)]
+    if isinstance(specs, (list, tuple)):
+        keys = range(len(specs))
+    else:
+        keys = sorted(specs)
     out = []
-    for k in sorted(specs):
+    for k in keys:
         out.extend(_spec_paths(specs[k], prefix + (k,)))
     return out
+
+
+def _layer_specs(p_spec: Any) -> List[Any]:
+    """The spec trees of one layer: the transformer's, or each of the
+    hybrid's period slots."""
+    if "slots" in p_spec:
+        return list(p_spec["slots"])
+    return [p_spec["layers"]]
+
+
+def _leaf_kind(path: Tuple[Any, ...]) -> str:
+    """How ``Partition.layer`` fetches a layer leaf: ``"whole"`` (an MoE
+    FFN's, no expert parallelism), ``"w_in"`` (the Mamba's input
+    projection, whose storage block is not the rank's channels) or
+    ``"block"``."""
+    if path[0] == "moe":
+        return "whole"
+    if path == ("mamba", "w_in"):
+        return "w_in"
+    return "block"
 
 
 def partition_for(cfg: ModelConfig, mesh, rules: AxisRules, p_spec: Any,
@@ -135,27 +181,31 @@ def partition_for(cfg: ModelConfig, mesh, rules: AxisRules, p_spec: Any,
     module leaves the step to gather whole leaves (another family, role
     'dp', a mesh of one rank).  Raises for a transformer under role 'tp'
     that it cannot split: a GELU MLP, a batch that does not split over
-    every axis but 'model', or a vocabulary or MLP width that 'model'
-    does not split.  ``serving``: the prefill's partition (no aux
-    loss)."""
+    every axis but 'model', or a vocabulary, MLP width or Mamba inner
+    dim that 'model' does not split.  ``serving``: the transformers'
+    prefill partition (no aux loss)."""
     sizes = mesh_axis_sizes(mesh)
-    if (cfg.family not in ("dense", "vlm", "moe")
+    if (cfg.family not in ("dense", "vlm", "moe", "hybrid")
             or rules.rules.get("model") != "model"
             or math.prod(sizes.values()) == 1):
         return None
     why = None
     live = {a for a, n in sizes.items() if n > 1}
+    layers = _layer_specs(p_spec)
     if cfg.act != "silu":
         why = f"act={cfg.act!r} (only the SwiGLU MLP is split)"
     elif live - {"model"} != {a for a in batch_axes if sizes[a] > 1}:
         why = (f"the batch splits over {tuple(batch_axes)}, not every "
                f"axis but 'model' of {sizes}")
     elif sizes.get("model", 1) > 1:
-        mlp = p_spec["layers"].get("mlp")
         if not _split_over(p_spec["embed"], "model"):
             why = "'model' does not split the vocabulary"
-        elif mlp is not None and not _split_over(mlp["w_up"], "model"):
+        elif any("mlp" in w and not _split_over(w["mlp"]["w_up"], "model")
+                 for w in layers):
             why = "'model' does not split the MLP width"
+        elif any("mamba" in w and not _split_over(w["mamba"]["conv_b"],
+                                                  "model") for w in layers):
+            why = "'model' does not split the Mamba inner dim"
     if why is not None:
         raise ValueError(f"{cfg.name}: the step on {sizes} cannot be "
                          f"partitioned: {why}")
@@ -197,15 +247,25 @@ class Partition(transformer.Whole):
         self.rank = mesh.get_local_rank("model") if self.m > 1 else 0
         self.dg = mesh.get_group("data") if sizes.get("data", 1) > 1 \
             else None
+        # the Mamba's w_in: storage rank s's column blocks 2s and 2s + 1
+        # go to the ranks whose xin (block r) or z (block m + r) they are
+        m = self.m
+        self.w_in_routes = [[c if c < m else c - m
+                             for c in (2 * s, 2 * s + 1)] for s in range(m)]
         self.p_spec = p_spec
-        layer = _spec_paths(p_spec["layers"])
-        self.layer_specs = [P(*s[1:]) for _, s in layer]
-        # an MoE FFN's leaves are gathered whole (no expert parallelism)
-        self.layer_whole = [path[0] == "moe" for path, _ in layer]
-        attn = p_spec["layers"]["attn"]
+        # per slot (the transformer's one layer, the hybrid's period
+        # slots): each leaf's per-layer spec and how it is fetched
+        self.slot_specs, self.slot_kinds = [], []
+        for slot in _layer_specs(p_spec):
+            paths = _spec_paths(slot)
+            self.slot_specs.append([P(*s[1:]) for _, s in paths])
+            self.slot_kinds.append([_leaf_kind(path) for path, _ in paths])
+        attn = [w["attn"] for w in _layer_specs(p_spec) if "attn" in w]
         # per-layer dims: wq (d, hq, hd), wk (d, hkv, hd)
-        self.heads_split = "model" in _dim_axes(attn["wq"], 2)
-        self.kv_split = "model" in _dim_axes(attn["wk"], 2)
+        self.heads_split = bool(attn) and "model" in _dim_axes(
+            attn[0]["wq"], 2)
+        self.kv_split = bool(attn) and "model" in _dim_axes(
+            attn[0]["wk"], 2)
         self.batch_ranks = math.prod(
             n for a, n in sizes.items() if a != "model")
         self.sum_axes = [self._sum_axes(path, spec)
@@ -220,7 +280,11 @@ class Partition(transformer.Whole):
         for a in ("pod", "data"):
             if self.sizes.get(a, 1) > 1 and not _split_over(spec, a):
                 out.append(a)
-        if self.m > 1 and not _split_over(spec, "model"):
+        # a Mamba leaf's compute is the rank's channels over the whole
+        # sequence under SP and TP alike: it is its own block's whole
+        # gradient ('model' splits every one of them, ``partition_for``)
+        if (self.m > 1 and not _split_over(spec, "model")
+                and "mamba" not in path):
             name = path[-1]
             if self.sp:
                 out.append("model")
@@ -275,12 +339,31 @@ class Partition(transformer.Whole):
                 x = gather(x, self.mg, i)
         return x
 
-    def layer(self, w: Dict[str, Any]) -> Dict[str, Any]:
+    def _channels(self, x: torch.Tensor) -> torch.Tensor:
+        """The Mamba ``w_in`` columns of this rank's channels from its
+        storage block.  The reference splits the ``2·di`` columns in one
+        block a rank and then the product into ``xin`` and ``z``
+        (``repro/models/ssm.py``), so a rank's block is not its
+        channels: with ``cb = di / m``, column block ``c`` (``cb``
+        columns) lies in storage rank ``c // 2``'s block, and rank ``r``
+        needs blocks ``r`` (``xin``) and ``m + r`` (``z``).  One
+        all-to-all over 'model' sends each half of a storage block to the
+        rank of its channels (``w_in_routes``); it arrives as ``[xin,
+        z]``.  Backward, each half's gradient returns to its one owner."""
+        if self.m == 1:
+            return x
+        return exchange_grad(x, self.mg, x.dim() - 1, self.w_in_routes)
+
+    def layer(self, w: Dict[str, Any], slot: int = 0) -> Dict[str, Any]:
         flat, treedef = tree_util.flatten(w)
-        return tree_util.unflatten(treedef, [
-            self._whole(self.fsdp(x, s), s) if whole else self.fsdp(x, s)
-            for x, s, whole in zip(flat, self.layer_specs,
-                                   self.layer_whole)])
+        out = []
+        for x, s, kind in zip(flat, self.slot_specs[slot],
+                              self.slot_kinds[slot]):
+            if kind == "w_in":
+                x = self._channels(x)
+            x = self.fsdp(x, s)
+            out.append(self._whole(x, s) if kind == "whole" else x)
+        return tree_util.unflatten(treedef, out)
 
     def final_norm(self, w: Dict[str, torch.Tensor]):
         return {k: self.fsdp(v, self.p_spec["final_norm"][k])
@@ -399,6 +482,29 @@ class Partition(transformer.Whole):
             return scatter_grad(out, self.mg, 1)
         return reduce_from_group(out, self.mg)
 
+    def mamba(self, cfg: ModelConfig, h: torch.Tensor,
+              w: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The Mamba sublayer on the rank's block of channels over the
+        whole sequence (the scan and the conv need it): the input
+        gathered along the sequence (SP) or entering split compute (TP);
+        the product with ``w_bcdt``'s row block summed over 'model' into
+        the whole (B, C, dt) forward and its gradient summed backward
+        (every rank's channels read it); ``ssm_scan`` on ``(rows, l,
+        di / m)``; the partial sums of ``w_out``'s row block
+        reduce-scattered back to sequence blocks (SP) or all-reduced
+        (TP)."""
+        if self.m == 1:
+            return ssm.mamba_block(cfg, h, w)
+        mg = self.mg
+        hg = gather_grad(h, mg, 1) if self.sp else copy_to_group(h, mg)
+        out = ssm.mamba_block(
+            cfg, hg, w,
+            reduce_bcdt=lambda t: copy_to_group(reduce_from_group(t, mg),
+                                                mg))
+        if self.sp:
+            return scatter_grad(out, mg, 1)
+        return reduce_from_group(out, mg)
+
     def ffn(self, cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any]):
         if "moe" in w:
             return self._moe(h, w["moe"])
@@ -499,8 +605,10 @@ class Partition(transformer.Whole):
 
     def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """``transformer.loss_fn`` on the rank's blocks: the loss is the
-        mean over the rank's rows, the same on every rank of one 'model'
+        """The family's loss (``transformer.loss_fn``,
+        ``hybrid.loss_fn``) on the rank's blocks: the loss is the mean
+        over the rank's rows, the same on every rank of one 'model'
         group."""
-        return transformer.loss_fn(self.cfg, params, batch, self)
+        return registry.family(self.cfg).loss_fn(self.cfg, params, batch,
+                                                 self)
 

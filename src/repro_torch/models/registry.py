@@ -21,7 +21,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec, hybrid, moe, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models import params as P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cross_entropy
@@ -44,14 +44,6 @@ class Family:
 def _ssm_loss(cfg: ModelConfig, params, batch):
     logits, aux = ssm.xlstm_forward(cfg, params, batch["tokens"])
     return cross_entropy(logits, batch["labels"]), {"aux_loss": aux}
-
-
-def _hybrid_loss(cfg: ModelConfig, params, batch, moe_means=None):
-    logits, aux = hybrid.forward(cfg, params, batch["tokens"],
-                                 moe_means or moe.local_means)
-    nll = cross_entropy(logits, batch["labels"])
-    w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
-    return nll + w * aux, {"loss": nll, "aux_loss": aux}
 
 
 def _encdec_loss(cfg: ModelConfig, params, batch):
@@ -101,7 +93,7 @@ FAMILIES: Dict[str, Family] = {
     "vlm": _LM,
     "ssm": Family(ssm.xlstm_param_defs, _ssm_loss, ssm.xlstm_decode,
                   ssm.xlstm_init_state, _ssm_state_specs),
-    "hybrid": Family(hybrid.param_defs, _hybrid_loss, hybrid.forward_decode,
+    "hybrid": Family(hybrid.param_defs, hybrid.loss_fn, hybrid.forward_decode,
                      hybrid.init_state, _hybrid_state_specs),
     "audio": Family(encdec.param_defs, _encdec_loss, encdec.forward_decode,
                     encdec.init_cache, encdec.cache_specs),
@@ -160,9 +152,7 @@ def loss_fn(cfg: ModelConfig, moe_means: Optional[Callable] = None
     MoE aux loss's hook (``moe.moe_block``) of a model with experts."""
     if moe_means is None or cfg.moe is None:
         return functools.partial(family(cfg).loss_fn, cfg)
-    if cfg.family == "hybrid":
-        return functools.partial(_hybrid_loss, cfg, moe_means=moe_means)
-    return functools.partial(transformer.loss_fn, cfg,
+    return functools.partial(family(cfg).loss_fn, cfg,
                              part=transformer.Whole(moe_means))
 
 

@@ -33,7 +33,7 @@ plainly.  Decode state (per layer), the analogue of a KV cache:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,15 +94,25 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.reshape(b * l, d) @ w).view(b, l, w.shape[-1])
 
 
-def mamba_block(cfg: ModelConfig, x: torch.Tensor,
-                w: Dict[str, Any]) -> torch.Tensor:
+def mamba_block(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
+                reduce_bcdt: Optional[Callable] = None) -> torch.Tensor:
+    """The Mamba sublayer over the channels ``w`` holds: every one of
+    ``cfg.expand * d_model``, or on a mesh a rank's block of them
+    (``models.partition``: ``w_in``'s ``xin`` and ``z`` columns of the
+    block, the block's rows of ``w_bcdt`` and ``w_out``).  Then
+    ``reduce_bcdt`` sums the block's partial product with ``w_bcdt``
+    (in f32) into the whole (B, C, dt) over the ranks, and the result is
+    the block's partial sum of the output."""
     b, l, d = x.shape
-    di = cfg.expand * d
+    di = w["conv_b"].shape[-1]
     ds = cfg.d_state
     xin, z = _matmul(x, w["w_in"]).split(di, dim=-1)
     xc, _ = _causal_conv(xin, w["conv_w"], w["conv_b"])
     xc = F.silu(xc.float()).to(x.dtype)
-    bcdt = _matmul(xc, w["w_bcdt"]).float()
+    bcdt = _matmul(xc, w["w_bcdt"])
+    if reduce_bcdt is not None:
+        bcdt = reduce_bcdt(bcdt.float()).to(x.dtype)
+    bcdt = bcdt.float()
     # the kernel reads B and C contiguous; they are (b, l, ds), small
     bmat = bcdt[..., :ds].contiguous()
     cmat = bcdt[..., ds:2 * ds].contiguous()

@@ -135,8 +135,9 @@ def _ffn(cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any],
 
 
 class Whole:
-    """The hooks through which ``forward`` and ``loss_fn`` reach the
-    parameters and the compute that a mesh could split: here each
+    """The hooks through which ``forward`` and ``loss_fn`` (and the
+    hybrid's, ``models/hybrid.py``) reach the parameters and the compute
+    that a mesh could split: here each
     computes the whole (one device, or a step that gathered every
     parameter).  ``models.partition.Partition`` overrides them with a
     rank's block of the same values.  ``moe_means`` is the MoE aux
@@ -146,8 +147,9 @@ class Whole:
     def __init__(self, moe_means=moe_lib.local_means):
         self.moe_means = moe_means
 
-    def layer(self, w: Dict[str, Any]) -> Dict[str, Any]:
-        """Layer i's weights when layer i runs."""
+    def layer(self, w: Dict[str, Any], slot: int = 0) -> Dict[str, Any]:
+        """Layer i's weights when layer i runs (``slot``: the hybrid's
+        period slot, whose tree is its own)."""
         return w
 
     def final_norm(self, w: Dict[str, torch.Tensor]):
@@ -168,6 +170,12 @@ class Whole:
 
     def ffn(self, cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any]):
         return _ffn(cfg, h, w, self.moe_means)
+
+    def mamba(self, cfg: ModelConfig, h: torch.Tensor,
+              w: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The hybrid's Mamba sublayer (``ssm.mamba_block``)."""
+        from repro_torch.models import ssm   # ssm imports this module
+        return ssm.mamba_block(cfg, h, w)
 
     def unembed(self, cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor,
                 name: str) -> torch.Tensor:

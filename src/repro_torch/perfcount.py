@@ -107,14 +107,17 @@ class MeshCounters(_CounterBase):
     all_gather: int = 0
     reduce_scatter: int = 0
     broadcast: int = 0
+    all_to_all: int = 0
     block_copies: int = 0
     #: the result bytes of each kind (an all-gather's gathered tensor, a
-    #: reduce-scatter's block, an all-reduce's tensor), the ``S`` of the
-    #: roofline's ring model (``repro_torch.roofline``)
+    #: reduce-scatter's block, an all-reduce's tensor, an all-to-all's
+    #: received chunks), the ``S`` of the roofline's ring model
+    #: (``repro_torch.roofline``)
     all_reduce_bytes: int = 0
     all_gather_bytes: int = 0
     reduce_scatter_bytes: int = 0
     broadcast_bytes: int = 0
+    all_to_all_bytes: int = 0
 
 
 #: Process-global counters — reset + snapshot around the region of

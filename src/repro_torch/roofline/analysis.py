@@ -57,9 +57,11 @@ ICI_BW = NIC_BW              # the rate of a group that spans nodes
 
 #: the reference's collective kinds (HLO op names), keyed by the port's
 #: record kinds (``perfcount.MeshCounters`` field names); the port runs
-#: no all-to-all or collective-permute
+#: no collective-permute (its all-to-all moves the Mamba's ``w_in``
+#: blocks, ``models.partition``)
 KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
-         "reduce_scatter": "reduce-scatter", "broadcast": "broadcast"}
+         "reduce_scatter": "reduce-scatter", "broadcast": "broadcast",
+         "all_to_all": "all-to-all"}
 
 
 def shape_bytes(shape: Sequence[int], dtype: torch.dtype) -> int:

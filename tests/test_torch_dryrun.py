@@ -6,8 +6,10 @@
   blocks of the step's arguments (``tests/test_torch_sharding.py`` holds
   those specs equal to the reference's).
 * Its collective counts equal those a real four-rank gloo run of the
-  same cell records, for a train and a (partitioned) prefill cell.
-* The transformers under role 'tp' prefill on blocks (``partitioned``).
+  same cell records, for a train and a (partitioned) prefill cell, and
+  for Jamba's partitioned train cell with its ``ssm_scan`` calls.
+* The transformers and the hybrid under role 'tp' prefill on blocks
+  (``partitioned``).
 * It leaves no process group, the kernel registry as it was, and the
   counters untouched; it refuses to start beside a group.
 * The partitioned step's peak per rank is below the gather-whole step's.
@@ -52,13 +54,14 @@ def test_run_cell_on_every_smoke_config_is_ok(arch):
         assert 0 < rep["argument_gib_per_chip"] <= rep["peak_gib_per_chip"]
         assert rep["fits_hbm"]
         if name == "prefill":
-            # the transformers under role 'tp' prefill on blocks
+            # the transformers and the hybrid under role 'tp' prefill
+            # on blocks
             assert rep["partitioned"] == (
-                cfg.family in ("dense", "vlm", "moe")
+                cfg.family in ("dense", "vlm", "moe", "hybrid")
                 and cfg.model_axis_role == "tp")
         if name == "train":
             assert rep["partitioned"] == (
-                cfg.family in ("dense", "vlm", "moe")
+                cfg.family in ("dense", "vlm", "moe", "hybrid")
                 and cfg.model_axis_role == "tp")
             assert rep["collective_counts"]["all-gather"] > 0
             # the norms' stand-ins ran in place of the kernels
@@ -92,7 +95,8 @@ def test_argument_bytes_are_the_spec_blocks(arch):
 
 
 KINDS = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
-         "all_reduce": "all-reduce", "broadcast": "broadcast"}
+         "all_reduce": "all-reduce", "broadcast": "broadcast",
+         "all_to_all": "all-to-all"}
 
 
 @pytest.fixture(scope="module")
@@ -120,6 +124,26 @@ def test_collective_counts_equal_a_real_four_rank_run(real_counts):
             got = {kinds[k]: rank_counts[arch][k] for k in kinds
                    if rank_counts[arch][k]}
             assert got == rep["collective_counts"], arch
+
+
+def test_hybrid_counts_equal_a_real_four_rank_run(real_counts):
+    """Jamba's smoke step (partitioned: the Mamba on channel blocks,
+    adafactor) on (2, 2): the dry run's collectives per kind and its
+    ``ssm_scan`` stand-in calls against a gloo run's ``perfcount.MESH``
+    and its calls of the registry's scan."""
+    arch = ranks.HYBRID_ARCH
+    rep = dryrun.run_cell(arch, "train", False, verbose=False,
+                          cfg=get_smoke_config(arch),
+                          shape=ShapeSpec("train", ranks.SEQ, ranks.BATCH,
+                                          "train"),
+                          mesh_shape=(2, 2))
+    assert rep["partitioned"]
+    assert rep["kernel_calls"]["ssm_scan"] > 0
+    for rank_counts in real_counts:
+        got = rank_counts[arch]
+        assert {KINDS[k]: got[k] for k in KINDS if got[k]} == \
+            rep["collective_counts"]
+        assert got["ssm_scan"] == rep["kernel_calls"]["ssm_scan"]
 
 
 def test_prefill_collective_counts_equal_a_real_four_rank_run(real_counts):

@@ -280,8 +280,8 @@ def test_seq_block_mask_and_rotary_are_the_whole_sequences_rows(m, window):
 
 def test_partition_covers_only_the_transformer_with_tp_role():
     """``partition_for`` splits the transformers' compute (dense, vlm,
-    moe) under role 'tp' and leaves every other config to the
-    gather-whole step."""
+    moe) and the hybrid's (Jamba) under role 'tp' and leaves every other
+    config to the gather-whole step."""
     from repro_torch.models.partition import partition_for
 
     class Mesh:                      # the sizes and names are all it reads
@@ -299,7 +299,7 @@ def test_partition_covers_only_the_transformer_with_tp_role():
                        ("deepseek-moe-16b", True),
                        ("qwen3-moe-235b-a22b", True),
                        ("h2o-danube-1.8b", False),     # role 'dp'
-                       ("jamba-v0.1-52b", False), ("xlstm-125m", False),
+                       ("jamba-v0.1-52b", True), ("xlstm-125m", False),
                        ("whisper-tiny", False)):
         cfg = get_smoke_config(arch)
         rules = _rules(sizes, True) if cfg.model_axis_role == "tp" else \

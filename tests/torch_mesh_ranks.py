@@ -328,23 +328,35 @@ PARTITION_MOE = (("deepseek-moe-16b", 8, ("sp", "tp")),
 PARTITION_DELAYS = (0, 1, 2)
 
 
-def _stacked_whole_shapes(cfg, p_spec, mesh, layer_blocks=False):
+def _stacked_whole_shapes(cfg, p_spec, mesh, layer_blocks=False,
+                          gathered=False):
     """The shapes of the layer-stacked leaves that the mesh splits, but
     for those that are also some leaf's block (a block of wq can have
     the whole wk's shape) or, with ``layer_blocks``, one layer of one
     (a layer of deepseek's smoke expert block on (1, 4) has the whole
-    stacked shared experts' shape)."""
+    stacked shared experts' shape) or, with ``gathered``, one layer of
+    one gathered over 'data' (a layer of the hybrid smoke's expert
+    block on (2, 2), gathered, has the whole stacked dense MLP's
+    shape)."""
     from repro_torch.launch.mesh import block_view, split_dims
     from repro_torch.models import registry
-    from repro_torch.models.sharding import is_spec
+    from repro_torch.models.sharding import PartitionSpec, is_spec
     defs = tree_util.leaves(registry.param_defs(cfg))
     specs = tree_util.leaves(p_spec, is_leaf=is_spec)
     blocks = {tuple(block_view(torch.empty(d.shape, device="meta"), s,
                                mesh).shape) for d, s in zip(defs, specs)}
     if layer_blocks:
         blocks |= {b[1:] for b in blocks}
-    layer_defs = tree_util.leaves(registry.param_defs(cfg)["layers"])
-    layer_specs = tree_util.leaves(p_spec["layers"], is_leaf=is_spec)
+    if gathered:
+        def model_only(spec):
+            return PartitionSpec(*[None if e == "data" else e
+                                   for e in spec])
+        blocks |= {tuple(block_view(torch.empty(d.shape, device="meta"),
+                                    model_only(s), mesh).shape)[1:]
+                   for d, s in zip(defs, specs)}
+    key = "slots" if cfg.family == "hybrid" else "layers"
+    layer_defs = tree_util.leaves(registry.param_defs(cfg)[key])
+    layer_specs = tree_util.leaves(p_spec[key], is_leaf=is_spec)
     return {tuple(d.shape) for d, s in zip(layer_defs, layer_specs)
             if split_dims(s, mesh)} - blocks
 
@@ -390,7 +402,8 @@ def _step_run(mesh, cfg, init, lr, partition, watch=False):
                               partition=partition)
     p_sh, _, _, b_sh, _ = bundle.in_shardings
     watch_ = watch
-    watch = _stacked_whole_shapes(cfg, p_sh, mesh)
+    watch = _stacked_whole_shapes(cfg, p_sh, mesh,
+                                  gathered=cfg.family == "hybrid")
     params = place(from_numpy_tree(init, "cpu"), p_sh, mesh)
     state = opt.init(params)
     pipe = dssp_spmd.init_pipeline(params, 4)
@@ -457,10 +470,11 @@ def partition_ranks(rank, world, meshes, inits, lr):
 
 def dryrun_count_ranks(rank, world, seq, batch):
     """One DSSP step (delay 1, the config's optimizer) of
-    ``build_train_step`` on (2, 2) for qwen1.5-32b's and h2o-danube's
-    smoke configs, and qwen1.5-32b's ``build_prefill_step``: the
+    ``build_train_step`` on (2, 2) for qwen1.5-32b's, h2o-danube's and
+    Jamba's smoke configs, and qwen1.5-32b's ``build_prefill_step``: the
     ``perfcount.MESH`` counts of each (what ``launch.dryrun`` predicts
-    for the same cell), the prefill's under ``"prefill"``."""
+    for the same cell), the prefill's under ``"prefill"``, and Jamba's
+    calls of the kernel registry's ``ssm_scan`` (``"ssm_scan"``)."""
     from repro_torch.api.session import batch_tensors
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.shapes import ShapeSpec
@@ -471,9 +485,17 @@ def dryrun_count_ranks(rank, world, seq, batch):
     from repro_torch.models import registry
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.perfcount import MESH
+    from repro_torch.kernels import registry as kreg
     mesh = make_mesh((2, 2), ("data", "model"))
     out = {}
-    for arch in ("qwen1.5-32b", "h2o-danube-1.8b"):
+    scans = []
+    scan = kreg.ssm_scan
+
+    def counted(*a, **kw):
+        scans.append(1)
+        return scan(*a, **kw)
+
+    for arch in ("qwen1.5-32b", "h2o-danube-1.8b", HYBRID_ARCH):
         cfg = get_smoke_config(arch)
         bundle = build_train_step(cfg, mesh, ShapeSpec("train", seq, batch,
                                                        "train"))
@@ -486,8 +508,10 @@ def dryrun_count_ranks(rank, world, seq, batch):
         rows = place(batch_tensors(next(batches(cfg, _data(cfg, batch))),
                                    "cpu"), b_sh, mesh)
         MESH.reset()
-        bundle.fn(params, state, pipe, rows, 1)
-        out[arch] = MESH.snapshot()
+        scans.clear()
+        with mock.patch.object(kreg, "ssm_scan", counted):
+            bundle.fn(params, state, pipe, rows, 1)
+        out[arch] = dict(MESH.snapshot(), ssm_scan=len(scans))
     cfg = get_smoke_config("qwen1.5-32b")
     pre = build_prefill_step(cfg, mesh, ShapeSpec("prefill", seq, batch,
                                                   "prefill"))
@@ -505,7 +529,8 @@ def dryrun_count_ranks(rank, world, seq, batch):
 def collective_branch_ranks(rank, world):
     """``all_gather_cat`` and ``reduce_scatter_cat`` along dims 0, 1 and
     2 of a (4, 8, 12) tensor whose values name the rank, through the
-    gloo branch and through the single-tensor branch (NCCL's on the
+    gloo groups' branch (the host exchange) and through the
+    single-tensor branch (NCCL's on the
     card), the latter driven here by list-based equivalents of
     ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` with their
     flat semantics (rank r's chunk is the r-th of the flattened
@@ -749,3 +774,138 @@ def prefill_ranks(rank, world, meshes, inits, tokens):
                     "watched": sorted(watch)}
         layers.NO_GRAD_SCORE_BYTES = 1 << 30
     return out
+
+
+#: the hybrid's partition cases (``tests/test_torch_hybrid_partition.py``)
+HYBRID_ARCH = "jamba-v0.1-52b"
+
+
+def hybrid_cfg(sp):
+    """Jamba's f32 smoke config (MoE with 4 experts, ``di`` 128) as the
+    hybrid partition cases run it."""
+    from repro_torch.configs import get_smoke_config
+    return get_smoke_config(HYBRID_ARCH).scaled(
+        sequence_parallel=sp, grad_accum=2, remat="full")
+
+
+def swap_w_in_ranges(part):
+    """A planted fault: ``part`` takes ``w_in``'s ``z`` columns for
+    ``xin`` and the reverse (the storage layout's trap)."""
+    channels = part._channels
+
+    def swapped(x):
+        xin, z = channels(x).chunk(2, dim=-1)
+        return torch.cat([z, xin], dim=-1)
+
+    part._channels = swapped
+
+
+def hybrid_partition_ranks(rank, world, meshes, init, lr, tokens, plant):
+    """The hybrid's partitioned train step on each of ``meshes``
+    (``(label, shape, axes)``, every mesh over the same four ranks)
+    under SP and TP rules, each over ``PARTITION_DELAYS`` DSSP steps
+    with ``grad_accum=2`` and ``remat="full"``, the allocations watched
+    on (2, 2); on ``plant`` (a mesh label) the SP step once more with
+    ``w_in``'s ranges swapped (``swap_w_in_ranges``); on (2, 2) the
+    prefill's loss of ``tokens``, partitioned and gathered whole
+    (``partition=False``).  Returns per case the ``_step_run`` record
+    (parameters on rank 0 only) and the prefill values."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh, place
+    from repro_torch.models.params import from_numpy_tree
+    out = {}
+    for label, shape, axes in meshes:
+        mesh = make_mesh(shape, axes)
+        for sp in (True, False):
+            cfg = hybrid_cfg(sp)
+            rec = {"run": _step_run(mesh, cfg, init, lr, True,
+                                    watch=label == "2x2")}
+            if label == plant and sp:
+                build = steps.build_train_step
+
+                def planted(*a, **kw):
+                    bundle = build(*a, **kw)
+                    swap_w_in_ranges(bundle.fn.partition)
+                    return bundle
+
+                steps.build_train_step = planted
+                try:
+                    rec["planted"] = _step_run(mesh, cfg, init, lr, True)
+                finally:
+                    steps.build_train_step = build
+            if rank != 0:
+                for r in rec.values():
+                    r["params"] = None
+            out[f"{label}/{'sp' if sp else 'tp'}"] = rec
+        if label == "2x2":
+            cfg = hybrid_cfg(True)
+            toks = torch.from_numpy(tokens).long()
+            for partition in (True, False):
+                bundle = steps.build_prefill_step(
+                    cfg, mesh, ShapeSpec("p", SEQ, BATCH, "prefill"),
+                    partition=partition)
+                p_sh, b_sh = bundle.in_shardings
+                params = place(from_numpy_tree(init, "cpu"), p_sh, mesh)
+                batch = place({"tokens": toks, "labels": toks}, b_sh, mesh)
+                out[f"prefill/{partition}"] = {
+                    "partitioned": bundle.partitioned,
+                    "loss": float(bundle.fn(params, batch))}
+    return out
+
+
+def host_exchange_ranks(rank, world):
+    """Every collective of ``launch.mesh`` on the groups of a (2, 2) and
+    a (1, 4) mesh, through the host exchange that serves gloo groups,
+    beside the result each should give, made on this rank from every
+    rank's input (rank r holds ``_exchange_input(r)``): per case the
+    pairs.  The tensors hold small integers, so every sum is exact in
+    any order."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    out = {}
+    x = _exchange_input(rank)
+    routes = {2: [[0, 1], [1, 0]], 4: [[0, 1], [2, 3], [0, 1], [2, 3]]}
+    for label, shape in (("2x2", (2, 2)), ("1x4", (1, 4))):
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+        for axis in ("data", "model"):
+            if mesh_lib.mesh_axis_sizes(mesh)[axis] == 1:
+                continue
+            group = mesh.get_group(axis)
+            members = dist.get_process_group_ranks(group)
+            n, me = len(members), dist.get_rank(group)
+            xs = [_exchange_input(r) for r in members]
+            rec = {}
+            for dim in (0, 1, 2):
+                rec[f"gather{dim}"] = (
+                    mesh_lib.all_gather_cat(x, group, dim),
+                    torch.cat(xs, dim))
+                if x.shape[dim] % n == 0:
+                    step = x.shape[dim] // n
+                    rec[f"scatter{dim}"] = (
+                        mesh_lib.reduce_scatter_cat(x, group, dim),
+                        sum(xs).narrow(dim, me * step, step))
+                even = 2 * (x.shape[dim] // 2)
+                rec[f"a2a{dim}"] = (
+                    mesh_lib.all_to_all_cat(x.narrow(dim, 0, even), group,
+                                            dim, routes[n]),
+                    torch.cat([xs[u].narrow(dim, 0, even).chunk(2, dim)[i]
+                               for u in range(n) for i in range(2)
+                               if routes[n][u][i] == me], dim))
+            stack = torch.stack(xs)
+            for op, want in (("SUM", stack.sum(0)), ("MAX", stack.amax(0)),
+                             ("MIN", stack.amin(0))):
+                rec[op] = (mesh_lib.all_reduce_sum_(
+                    x.clone(), group, op=getattr(dist.ReduceOp, op)), want)
+            rec["broadcast"] = (mesh_lib.broadcast_(x.clone(), group, n - 1),
+                                xs[n - 1])
+            out[f"{label}/{axis}"] = {
+                k: (got.numpy(), want.numpy()) for k, (got, want)
+                in rec.items()}
+    mesh_lib.release_host_exchanges()
+    return out
+
+
+def _exchange_input(rank):
+    return (torch.arange(4 * 6 * 8, dtype=torch.float32).view(4, 6, 8) % 7
+            + rank)
