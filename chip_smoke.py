@@ -93,9 +93,8 @@ after an error:
            on every shard in frames of the plan's size; wall time,
            pushes/s, compute and wire share, frame bytes per push and
            pull, each process's peak memory and the card's memory.used.
-           Then at smoke size: shmem with 2 workers, tcp with int8
-           frames, and an inproc endpoint driven by one client of this
-           process
+           (Its smoke-size paths run in the serve phase, beside serve
+           transport.)
   ft       h2o-danube-1.8b at its published widths cut to
            ``FT_LAYERS`` layers, served by a restartable
            ``ServerProcess`` on ``cuda:0`` (``repro_torch.ft``), traced:
@@ -151,7 +150,11 @@ after an error:
            refreshing each
            second: the same checks, the replica process's launches
            exactly per batch, its refresh bytes, and pushes/s beside the
-           transport phase's; then one xlstm-125m decode batch (8
+           transport phase's.  At once, in a process of its own, the
+           transport paths at smoke size: shmem with 2 workers, tcp with
+           int8 frames, and an inproc endpoint driven by one client of
+           that process (each with its own launch checks); then one
+           xlstm-125m decode batch (8
            prompts of 512, prefilled token by token, 32 new tokens) with
            the card to itself: prefill and token times, its ``rmsnorm``
            launches a token exactly, kernels a token and idle share
@@ -233,7 +236,16 @@ after an error:
            ``ssm_scan`` and norm launches and collectives the dry run's,
            a planted fault (``w_in``'s ``xin`` and ``z`` ranges swapped)
            caught, and its prefill's loss on (1, 4) against one rank's;
-           (b), (c) and (d) run in one spawn of the four ranks
+           (e) the partitioned decode at (c)'s cut from (c)'s saved
+           one-rank prefill cache (``DECODE_STEPS`` teacher-forced
+           tokens, a cache of ``PREFILL_SEQ + DECODE_STEPS`` slots):
+           rank 0 alone, then four ranks on (2, 2) (the cache's sequence
+           over ('data', 'model')) and (1, 4), tokens equal, the last
+           logits' vocabulary block and the cache blocks held to the one
+           rank's, the combine over the sequence blocks dropped as a
+           planted fault that must be caught, collectives and ``rmsnorm``
+           launches the dry run's; (b), (c), (e) and (d) run in one spawn
+           of the four ranks
 
 Each phase boundary prints the script's elapsed seconds.  The last two
 lines of standard output are the JSON kernel table and the contract
@@ -612,6 +624,10 @@ ARCH_NORM_ROWS = (QK_NORM_ROWS, (2, 1024, 2048), (2, 1024, 5120),
 #: decode step's (8, 1); a bf16 row is 96 16-byte vectors, one warp with
 #: three vectors a lane
 XLSTM_NORM_ROWS = ((2, 1024, 768), (8, 1, 768))
+#: the dryrun phase's decode on blocks (part (e)): qwen1.5-32b's two
+#: replicated rows, on every rank (``rmsnorm`` only: decode adds its
+#: residual plainly)
+MESH_DECODE_ROWS = (2, 1, 5120)
 
 
 def check_norms(torch, timer, rn, rrn):
@@ -621,13 +637,15 @@ def check_norms(torch, timer, rn, rrn):
     #: serving's (a decode step's rows and a prefill batch), the
     #: transformer families' (ARCH_NORM_ROWS) and xLSTM's
     timed_device = ((4, 1024, 2560), (2, 1024, 4096), SERVE_DECODE_ROWS,
-                    SERVE_PREFILL_ROWS) + ARCH_NORM_ROWS + XLSTM_NORM_ROWS
+                    SERVE_PREFILL_ROWS) + ARCH_NORM_ROWS + XLSTM_NORM_ROWS \
+        + (MESH_DECODE_ROWS,)
     for dt, shape in ((torch.bfloat16, (4, 1024, 2560)),
                       (torch.bfloat16, (2, 1024, 4096)),
                       (torch.bfloat16, SERVE_DECODE_ROWS),
                       (torch.bfloat16, SERVE_PREFILL_ROWS),
                       *((torch.bfloat16, rows) for rows in ARCH_NORM_ROWS),
                       *((torch.bfloat16, rows) for rows in XLSTM_NORM_ROWS),
+                      (torch.bfloat16, MESH_DECODE_ROWS),
                       (torch.float32, (4, 1024, 2560)),
                       (torch.float32, (3, 7, 2561)),
                       (torch.bfloat16, (5, 1000))):
@@ -639,8 +657,10 @@ def check_norms(torch, timer, rn, rrn):
         rows = x.numel() // d
         for name in ("rmsnorm", "residual_rmsnorm"):
             if name == "residual_rmsnorm" and (
-                    shape == QK_NORM_ROWS or shape in XLSTM_NORM_ROWS):
-                continue    # the q/k norms and xLSTM's have no residual
+                    shape in (QK_NORM_ROWS, MESH_DECODE_ROWS)
+                    or shape in XLSTM_NORM_ROWS):
+                continue    # the q/k norms, xLSTM's and decode's have
+                #             no fused residual
             if name == "rmsnorm":
                 kern = lambda: rn.rmsnorm(x, w)
                 plain = lambda: rn.rmsnorm_plain(x, w)
@@ -1572,6 +1592,76 @@ def run_transport_paths(torch, api, per_step):
              f"push to {live} shards")
     say({"phase": "transport paths", "run": "inproc endpoint, external "
          "client", "rows": rows, "applied_updates": version})
+
+
+def transport_paths_main() -> None:
+    """``run_transport_paths`` in a process of its own (``python3 -c``
+    from ``run_serve_transport_beside_paths``): the kernels the parent
+    built, TF32 off as in ``main``; exits non-zero on any failed check."""
+    import torch
+    from repro_torch import api
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda.library()
+    smoke = get_smoke_config("h2o-danube-1.8b")
+    passes = smoke.n_layers * (2 if smoke.remat == "full" else 1)
+    run_transport_paths(torch, api, {"flash_attention_fwd": passes,
+                                     "residual_rmsnorm": passes,
+                                     "rmsnorm": passes + 1})
+
+
+def run_serve_transport_beside_paths(torch, api, src: str):
+    """Serve transport (``run_serve_transport``) and the transport paths
+    (``run_transport_paths``) at once, a thread each, as
+    ``run_ft_paths`` runs ft's three paths.  Each has an in-process
+    server whose kernel launches, trace events and peak memory its
+    checks read exactly, so the paths run in a process of their own
+    (``transport_paths_main``), the thread waiting on it; every check
+    stays as it is.  Returns serve transport's record; each record
+    carries its wall seconds."""
+    import threading
+    recs, errors = {}, []
+
+    def serve():
+        t0 = time.monotonic()
+        try:
+            recs["serve transport"] = dict(run_serve_transport(
+                torch, api, dense_per_step(SERVE_TRANSPORT_LAYERS)),
+                seconds=time.monotonic() - t0)
+        except BaseException as e:      # fail() exits: re-raised below
+            errors.append(e)
+
+    def paths():
+        t0 = time.monotonic()
+        code = (f"import sys; sys.path.insert(0, {os.path.join(ROOT, src)!r})"
+                "; import chip_smoke; chip_smoke.transport_paths_main()")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              env=dict(os.environ, PYTHONPATH=ROOT),
+                              timeout=900)
+        recs["transport paths"] = {"phase": "transport paths",
+                                   "run": "a process of its own",
+                                   "exit": proc.returncode,
+                                   "seconds": time.monotonic() - t0}
+        if proc.returncode != 0:
+            errors.append(RuntimeError(
+                f"transport paths: exit {proc.returncode}"))
+
+    free_device_memory(torch)
+    threads = [threading.Thread(target=f) for f in (serve, paths)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for rec in recs.values():
+        say({k: v for k, v in rec.items() if k in ("phase", "run", "exit",
+                                                    "seconds")})
+    if errors:
+        if isinstance(errors[0], RuntimeError):
+            fail(str(errors[0]))
+        raise errors[0]
+    return recs["serve transport"]
 
 
 # -------------------------------------------------------------------- serve
@@ -2845,9 +2935,11 @@ def part_rank(mesh, one_path: str, plant: bool, part: str = "b"):
                                                      device=device))
         update = [float((p - p0).abs().max()) for p, p0 in zip(leaves, init)]
         del init
+        t1 = time.monotonic()
         torch.save({"params": [x.cpu() for x in leaves], "update": update},
                    one_path)
         out["update"] = update
+        out["save_seconds"] = time.monotonic() - t1
         return out
     one = torch.load(one_path, mmap=True)["params"]
     specs = tree_util.leaves(p_sh, is_leaf=is_spec)
@@ -2980,15 +3072,24 @@ def _prefill_once(torch, bundle, params, batch, device):
 
 def prefill_compare(torch, tok, cache, one, token_spec, cache_spec, mesh):
     """This rank's tokens and cache blocks against the one rank's
-    blocks: whether the tokens are equal, per cache leaf the largest
-    code step and the share of codes moved (int8), or the largest
-    distance over the block's largest value (the scales)."""
+    blocks: whether the tokens are equal, and ``cache_compare``'s
+    figures."""
     from repro_torch.launch.mesh import block_view
     want = block_view(one["tokens"], token_spec, mesh)
-    out = {"tokens_equal": bool(torch.equal(tok.cpu(), want))}
+    return {"tokens_equal": bool(torch.equal(tok.cpu(), want)),
+            **cache_compare(torch, cache, one["cache"], cache_spec, mesh)}
+
+
+def cache_compare(torch, cache, one, cache_spec, mesh) -> dict:
+    """Per leaf of this rank's cache blocks against the one rank's cache
+    ``one``: the largest code step and the share of codes moved (int8),
+    or the largest distance over the block's largest value (the
+    scales)."""
+    from repro_torch.launch.mesh import block_view
+    out = {}
     for k, v in cache.items():
         got = v.cpu()
-        ref = block_view(one["cache"][k], cache_spec[k], mesh)
+        ref = block_view(one[k], cache_spec[k], mesh)
         if got.dtype == torch.int8:
             diff = (got.int() - ref.int()).abs()
             out[k] = {"max_step": int(diff.max()),
@@ -3153,22 +3254,308 @@ def prefill_report(outs, preds, seconds: float) -> None:
     say({"phase": "dryrun prefill", "seconds": seconds})
 
 
-#: the one spawn of four ranks that runs (b) and (c): its time limit
+#: (e): qwen1.5-32b's decode on blocks, (c)'s cut (PREFILL_LAYERS
+#: layer of the published widths, bf16, the int8 cache, PREFILL_BATCH
+#: rows, replicated: ``decode_batch_shard=False``) with a cache of
+#: PREFILL_SEQ + DECODE_STEPS slots whose first PREFILL_SEQ hold (c)'s
+#: one-rank prefill cache, so no new prefill runs.  DECODE_STEPS tokens
+#: are decoded at positions PREFILL_SEQ on, teacher-forced: the first is
+#: (c)'s one-rank greedy token, each next the one rank's previous
+#: output.  In ``dryrun_rank`` after (c): rank 0 decodes alone on a (1,
+#: 1) mesh (the bundle's gather-whole path, no collective), then every
+#: rank on blocks on each of DECODE_SHAPES: the cache's sequence over
+#: ('data', 'model') on (2, 2) and over 'model' on (1, 4), 8193 slots a
+#: rank.  Each rank's tokens must equal the one rank's; its vocabulary
+#: block of the last call's logits (taken at ``Partition.greedy``) must
+#: lie within DECODE_LOGIT_REL of the block's largest one-rank logit
+#: (bf16: a combine in f32 against the one rank's probabilities rounded
+#: to bf16 moves hidden values by an ulp here and there); its cache
+#: block, the written slots' codes and scales included, is held by (c)'s
+#: rule (``prefill_check``).  On DECODE_PLANT the decode runs once more
+#: with the combine over the cache's sequence axes dropped (each rank
+#: attends over its own block alone): the check must fail it.
+DECODE_STEPS = 4
+DECODE_SHAPES = (((2, 2), ("data", "model")), ((1, 4), ("data", "model")))
+DECODE_PLANT = (1, 4)
+DECODE_LOGIT_REL = 2.0 ** -7
+
+
+def decode_cell():
+    """The (e) cell: (c)'s config and the decode shape."""
+    from repro_torch.configs.shapes import ShapeSpec
+    cfg, _ = prefill_cell()
+    return cfg, ShapeSpec("decode_32k", PREFILL_SEQ + DECODE_STEPS,
+                          PREFILL_BATCH, "decode")
+
+
+def _decode_calls(torch, bundle, params, cache, first, forced, device):
+    """``DECODE_STEPS`` calls of the decode bundle from position
+    ``PREFILL_SEQ``: the first fed ``first``, each next ``forced[i]`` or,
+    without ``forced``, the previous output.  (tokens a call, cache,
+    seconds, peak bytes, mesh counts a call, kernel launches a call)."""
+    from repro_torch.perfcount import LAUNCHES, MESH
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    tokens, counts, launches = [], [], []
+    token = first
+    t0 = time.monotonic()
+    for i in range(DECODE_STEPS):
+        if forced is not None:
+            token = forced[i]
+        MESH.reset()
+        before = LAUNCHES.snapshot()
+        token, cache = bundle.fn(params, token, cache, PREFILL_SEQ + i)
+        torch.cuda.synchronize(device)
+        counts.append(MESH.snapshot())
+        launches.append({k: v for k, v in LAUNCHES.delta(before).items()
+                         if v})
+        tokens.append(token[:, 0].cpu())
+    return (tokens, cache, time.monotonic() - t0,
+            torch.cuda.max_memory_allocated(device), counts, launches)
+
+
+def decode_compare(torch, tokens, logits, cache, one, token_spec,
+                   cache_spec, mesh):
+    """This rank's tokens, last logits and cache blocks against the one
+    rank's blocks: whether every call's tokens are equal, the logits'
+    largest distance over the block's largest one-rank logit, and
+    ``cache_compare``'s figures."""
+    from repro_torch.launch.mesh import block_view
+    from repro_torch.models.sharding import PartitionSpec
+    rows = PartitionSpec(*token_spec[:1])
+    out = {"tokens_equal": all(
+        bool(torch.equal(t, block_view(o, rows, mesh)))
+        for t, o in zip(tokens, one["tokens"]))}
+    ref = block_view(one["logits"], PartitionSpec(
+        rows[0] if len(rows) else None, "model"), mesh)
+    out["logits"] = {"max_rel": float((logits - ref).abs().max()
+                                      / ref.abs().max())}
+    return dict(out, **cache_compare(torch, cache, one["cache"], cache_spec,
+                                     mesh))
+
+
+def decode_check(cmp) -> list:
+    """What breaks (e)'s bounds in ``decode_compare``'s record."""
+    out = prefill_check({k: v for k, v in cmp.items() if k != "logits"})
+    if not cmp["logits"]["max_rel"] <= DECODE_LOGIT_REL:
+        out.append(("logits", cmp["logits"]))
+    return out
+
+
+def decode_rank(rank: int, world: int, prefill_path: str,
+                one_path: str):
+    """Part (e) on one of four ranks: rank 0's decode alone on a (1, 1)
+    mesh from (c)'s saved one-rank prefill (``prefill_path``), its
+    tokens, last logits and cache saved to ``one_path``; then each of
+    ``DECODE_SHAPES`` on blocks, teacher-forced with the one rank's
+    tokens and held to its values (``decode_compare``), and on
+    ``DECODE_PLANT`` once more with the planted fault."""
+    from unittest import mock
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, place
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import layers, registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = MESH_DEVICE
+    cfg, shape = decode_cell()
+    pre = torch.load(prefill_path)
+    first = pre["tokens"].long()[:, None]
+    whole = {}
+    for k, v in pre["cache"].items():
+        w = torch.zeros(v.shape[:2] + (shape.seq_len,) + v.shape[3:],
+                        dtype=v.dtype)
+        w[:, :, :v.shape[2]] = v
+        whole[k] = w
+    del pre
+    out = {}
+    one_mesh = make_mesh((1, 1), ("data", "model"), devices=[0])
+    if rank == 0:
+        bundle = build_serve_step(cfg, one_mesh, shape)
+        params = registry.init_params(cfg, seed=0, device=device)
+        cache = {k: v.to(device) for k, v in whole.items()}
+        seen = []
+        unembed = layers.unembed
+
+        def captured(*a, **kw):
+            logits = unembed(*a, **kw)
+            seen[:] = [logits[:, -1].float().cpu()]
+            return logits
+
+        with mock.patch.object(layers, "unembed", captured):
+            tokens, cache, sec, peak, counts, launches = _decode_calls(
+                torch, bundle, params, cache, first.to(device), None,
+                device)
+        torch.save({"tokens": tokens, "logits": seen[0],
+                    "cache": {k: v.cpu() for k, v in cache.items()}},
+                   one_path)
+        out["one"] = {"partitioned": bundle.partitioned, "seconds": sec,
+                      "peak_bytes": peak, "counts": counts,
+                      "launches": launches,
+                      "tokens": [t.tolist() for t in tokens]}
+        del bundle, params, cache
+        release(torch)
+    dist.barrier()
+    one = torch.load(one_path)
+    forced = [first] + [t[:, None] for t in one["tokens"][:-1]]
+    for shape_, axes in DECODE_SHAPES:
+        mesh = make_mesh(shape_, axes)
+        bundle = build_serve_step(cfg, mesh, shape)
+        p_sh, tok_sh, c_sh, _ = bundle.in_shardings
+        part = bundle.fn.partition
+        params = place(registry.init_params(cfg, seed=0, device=device),
+                       p_sh, mesh)
+        feed = [place(t, tok_sh, mesh).to(device) for t in forced]
+        seen = []
+        greedy = part.greedy
+
+        def captured(logits):
+            seen[:] = [logits[:, -1].float().cpu()]
+            return greedy(logits)
+
+        part.greedy = captured
+
+        def decode():
+            cache = {k: v.to(device)
+                     for k, v in place(whole, c_sh, mesh).items()}
+            tokens, cache, sec, peak, counts, launches = _decode_calls(
+                torch, bundle, params, cache, None, feed, device)
+            return (decode_compare(torch, tokens, seen[0], cache, one,
+                                   tok_sh, c_sh, mesh),
+                    sec, peak, counts, launches)
+
+        cmp, sec, peak, counts, launches = decode()
+        rec = {"partitioned": bundle.partitioned, "seconds": sec,
+               "peak_bytes": peak, "counts": counts, "launches": launches,
+               "seq_axes": part.seq_axes, "compare": cmp}
+        if tuple(shape_) == DECODE_PLANT:
+            part.seq_groups = []
+            rec["planted"] = decode()[0]
+        out["x".join(map(str, shape_))] = rec
+        del params, bundle, part, feed
+        release(torch)
+    return out
+
+
+def decode_predictions() -> dict:
+    """The dry run's count of (e)'s cell on a (1, 1) mesh and on each of
+    ``DECODE_SHAPES``, by mesh shape."""
+    from repro_torch.launch import dryrun
+    cfg, shape = decode_cell()
+    return {tuple(s): dryrun.run_cell(PREFILL_ARCH, "decode_32k", False,
+                                      verbose=False, cfg=cfg, shape=shape,
+                                      mesh_shape=s)
+            for s in [(1, 1)] + [s for s, _ in DECODE_SHAPES]}
+
+
+def decode_report(outs, preds, seconds: float) -> dict:
+    """(e)'s records: the four ranks' ``decode_rank`` results beside the
+    dry run's count of each mesh's cell (``decode_predictions``); fails
+    on a broken bound, an uncaught planted fault, or a call's
+    collectives or ``rmsnorm`` launches other than the dry run's.
+    Returns the kernel launches of (e)'s calls, every rank's (the
+    planted fault's aside)."""
+    norms = ("rmsnorm", "residual_rmsnorm")
+    launched = {}
+
+    def add(calls):
+        for call in calls:
+            for k, v in call.items():
+                launched[k] = launched.get(k, 0) + v
+
+    one, pred = outs[0]["one"], preds[(1, 1)]
+    add(one["launches"])
+    say({"phase": "dryrun decode one rank", "arch": PREFILL_ARCH,
+         "cut": f"{PREFILL_LAYERS} layer(s) of the published widths, bf16, "
+                f"int8 cache of {PREFILL_SEQ} + {DECODE_STEPS} slots, "
+                f"{PREFILL_BATCH} rows, {DECODE_STEPS} tokens",
+         "partitioned": one["partitioned"], "seconds": one["seconds"],
+         "peak_gb": one["peak_bytes"] / 1e9,
+         "dryrun_peak_gb": pred["peak_gib_per_chip"] * 2**30 / 1e9,
+         "launches_per_call": one["launches"][0],
+         "tokens": one["tokens"]})
+    for shape_, axes in DECODE_SHAPES:
+        label = "x".join(map(str, shape_))
+        pred = preds[tuple(shape_)]
+        peak_pred = pred["peak_gib_per_chip"] * 2**30
+        recs = [o[label] for o in outs]
+        rec = {"phase": "dryrun decode four ranks",
+               "mesh": dict(zip(axes, shape_)),
+               "partitioned": [r["partitioned"] for r in recs],
+               "cache_seq_axes": recs[0]["seq_axes"],
+               "seconds": [r["seconds"] for r in recs],
+               "call_seconds": [r["seconds"] / DECODE_STEPS for r in recs],
+               "peak_gb": [r["peak_bytes"] / 1e9 for r in recs],
+               "dryrun_peak_gb": peak_pred / 1e9,
+               "peak_gap_gb": [(r["peak_bytes"] - peak_pred) / 1e9
+                               for r in recs],
+               "collectives_per_call": recs[0]["counts"][0],
+               "dryrun_collectives": pred["collective_counts"],
+               "launches_per_call": recs[0]["launches"][0],
+               "dryrun_kernel_calls": pred["kernel_calls"],
+               "compare": [r["compare"] for r in recs],
+               "tol": {"tokens": "equal", "logits_rel": DECODE_LOGIT_REL,
+                       "code_step": 1, "moved_share": PREFILL_FLIP_SHARE,
+                       "scale_rel": PREFILL_SCALE_REL}}
+        if tuple(shape_) == DECODE_PLANT:
+            planted = [r["planted"] for r in recs]
+            rec["planted_fault"] = {
+                "fault": "the combine over the cache's sequence axes "
+                         "dropped",
+                "caught_on_ranks": [i for i, p in enumerate(planted)
+                                    if decode_check(p)],
+                "logits_rel_over_tol": [p["logits"]["max_rel"]
+                                        / DECODE_LOGIT_REL
+                                        for p in planted],
+                "compare": planted}
+        say(rec)
+        if not all(rec["partitioned"]):
+            fail(f"decode {label}: a rank did not take the partitioned "
+                 "decode")
+        broken = [(i, decode_check(r["compare"]))
+                  for i, r in enumerate(recs) if decode_check(r["compare"])]
+        if broken:
+            fail(f"decode {label}: ranks off the one rank's: {broken}")
+        if tuple(shape_) == DECODE_PLANT and \
+                len(rec["planted_fault"]["caught_on_ranks"]) != len(recs):
+            fail(f"decode {label}: the planted fault passed the check on "
+                 "a rank")
+        want_norms = {k: v for k, v in pred["kernel_calls"].items()
+                      if k in norms}
+        for i, r in enumerate(recs):
+            add(r["launches"])
+            for call, (c, n) in enumerate(zip(r["counts"], r["launches"])):
+                got = {MESH_KINDS[k]: v for k, v in c.items()
+                       if k in MESH_KINDS and v}
+                if got != pred["collective_counts"]:
+                    fail(f"decode {label} rank {i} call {call}: collectives "
+                         f"{got}, the dry run's {pred['collective_counts']}")
+                if n != want_norms or not n:
+                    fail(f"decode {label} rank {i} call {call}: launches "
+                         f"{n}, the dry run's {want_norms}")
+    say({"phase": "dryrun decode", "seconds": seconds})
+    return launched
+
+
+#: the one spawn of four ranks that runs (b)-(e): its time limit
 DRYRUN_RANK_TIMEOUT_S = 900.0
 
 
 def dryrun_rank(rank: int, world: int, part_path: str, prefill_path: str,
-                hybrid_path: str):
-    """(b), (c) and (d) on one of four ranks sharing the card, in one
-    spawn: (b)'s one-rank step on rank 0 alone (a (1, 1) mesh; the
-    others wait), (b) on each of ``PART_SHAPES`` (``part_rank``), then
-    (c) (``prefill_rank``), then (d) as (b) on ``HYB_SHAPES`` and its
-    prefill (``hybrid_prefill_rank``).  Between them every rank frees
-    what the part left (``release``), so that four ranks fit the card
-    as they did in spawns of their own.  Returns each part's record, the
-    bytes the rank kept reserved after each (``reserved``), the bytes of
-    pinned host exchange segments it mapped then (``exchange``) and the
-    parts' wall seconds (``b_seconds``, ``c_seconds``, ``d_seconds``)."""
+                hybrid_path: str, decode_path: str):
+    """(b)-(e) on one of four ranks sharing the card, in one spawn:
+    (b)'s one-rank step on rank 0 alone (a (1, 1) mesh; the others
+    wait), (b) on each of ``PART_SHAPES`` (``part_rank``), then (c)
+    (``prefill_rank``), then (e) from (c)'s saved prefill
+    (``decode_rank``), then (d) as (b) on ``HYB_SHAPES`` and its prefill
+    (``hybrid_prefill_rank``).  Between them every rank frees what the
+    part left (``release``), so that four ranks fit the card as they did
+    in spawns of their own.  Returns each part's record, the bytes the
+    rank kept reserved after each (``reserved``), the bytes of pinned
+    host exchange segments it mapped then (``exchange``) and the parts'
+    wall seconds (``b_seconds``, ``c_seconds``, ``e_seconds``,
+    ``d_seconds``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import host_exchange_bytes, make_mesh
@@ -3209,12 +3596,16 @@ def dryrun_rank(rank: int, world: int, part_path: str, prefill_path: str,
     out["prefill"] = prefill_rank(rank, world, prefill_path)
     freed()
     t2 = time.monotonic()
+    progress("(e)")
+    out["decode"] = decode_rank(rank, world, prefill_path, decode_path)
+    freed()
+    t3 = time.monotonic()
     train_part("d", hybrid_path)
     progress("(d) prefill")
     out["d_prefill"] = hybrid_prefill_rank(rank, one)
     freed()
     out["b_seconds"], out["c_seconds"] = t1 - t0, t2 - t1
-    out["d_seconds"] = time.monotonic() - t2
+    out["e_seconds"], out["d_seconds"] = t3 - t2, time.monotonic() - t3
     return out
 
 
@@ -3276,7 +3667,7 @@ def part_report(ranks, part: str, preds) -> dict:
          "scan_shapes": one["scan_shapes"],
          "launches_per_step": one["launches"][0],
          "max_abs_update": dict(zip(one["leaves"], update)),
-         "seconds": one["seconds"]})
+         "seconds": one["seconds"], "save_seconds": one["save_seconds"]})
     for shape, axes in shapes:
         pred = preds[tuple(shape)]
         plant = tuple(shape) == plant_shape
@@ -3388,8 +3779,10 @@ def run_dryrun_phase(torch, src: str):
     among the launches held to the dry run's, and its prefill
     (``hybrid_prefill_report``).  (b), (c) and (d) run in one spawn of
     four ranks (``dryrun_rank``): the dry run's counts are made on a
-    thread beside it, the checks after it.  Returns the kernel launches
-    of (d)'s steps (``part_report``)."""
+    thread beside it, the checks after it.  (e) the partitioned decode
+    (``decode_rank``, ``decode_report``), in the same spawn after (c).
+    Returns the kernel launches of (d)'s steps (``part_report``) and
+    (e)'s calls."""
     import threading
     from repro_torch.configs import arch_names
     from repro_torch.launch import mesh as mesh_lib
@@ -3401,12 +3794,14 @@ def run_dryrun_phase(torch, src: str):
     one_path = os.path.join(work, "one_rank_params.pt")
     prefill_path = os.path.join(work, "prefill_one_rank.pt")
     hybrid_path = os.path.join(work, "hybrid_one_rank_params.pt")
+    decode_path = os.path.join(work, "decode_one_rank.pt")
     preds = {}
 
     def predict():
         try:
             preds["b"] = part_predictions("b")
             preds["c"] = prefill_predictions()
+            preds["e"] = decode_predictions()
             preds["d"] = part_predictions("d")
         except BaseException as e:        # re-raised after the spawn
             preds["error"] = e
@@ -3417,11 +3812,11 @@ def run_dryrun_phase(torch, src: str):
         t1 = time.monotonic()
         ranks = mesh_lib.run_ranks(dryrun_rank, 4, work,
                                    args=(one_path, prefill_path,
-                                         hybrid_path),
+                                         hybrid_path, decode_path),
                                    timeout=DRYRUN_RANK_TIMEOUT_S, threads=2)
     finally:
         thread.join()
-        for path in (one_path, prefill_path, hybrid_path):
+        for path in (one_path, prefill_path, hybrid_path, decode_path):
             if os.path.exists(path):
                 os.unlink(path)
     if "error" in preds:
@@ -3429,6 +3824,7 @@ def run_dryrun_phase(torch, src: str):
     say({"phase": "dryrun ranks", "seconds": time.monotonic() - t1,
          "b_seconds": ranks[0]["b_seconds"],
          "c_seconds": ranks[0]["c_seconds"],
+         "e_seconds": ranks[0]["e_seconds"],
          "d_seconds": ranks[0]["d_seconds"],
          "reserved_gb_after_parts": [[b / 1e9 for b in r["reserved"]]
                                      for r in ranks],
@@ -3437,7 +3833,11 @@ def run_dryrun_phase(torch, src: str):
     part_report(ranks, "b", preds["b"])
     prefill_report([r["prefill"] for r in ranks], preds["c"],
                    ranks[0]["c_seconds"])
+    decoded = decode_report([r["decode"] for r in ranks], preds["e"],
+                            ranks[0]["e_seconds"])
     launched = part_report(ranks, "d", preds["d"])
+    for name, n in decoded.items():
+        launched[name] = launched.get(name, 0) + n
     hybrid_prefill_report(ranks)
 
     rows = cells.collect()
@@ -4269,9 +4669,6 @@ def main(argv=None) -> None:
         torch, api, dense_per_step(transport_config().n_layers))
     smoke = get_smoke_config("h2o-danube-1.8b")
     passes = smoke.n_layers * (2 if smoke.remat == "full" else 1)
-    run_transport_paths(torch, api, {"flash_attention_fwd": passes,
-                                     "residual_rmsnorm": passes,
-                                     "rmsnorm": passes + 1})
 
     mark("ft")
     # -- ft, ft paths ----------------------------------------------------
@@ -4287,8 +4684,9 @@ def main(argv=None) -> None:
     for name in ("fused_update", "rmsnorm", "residual_rmsnorm",
                  "flash_attention_fwd"):
         launches[name] += serve["launches"][name]
-    served = run_serve_transport(
-        torch, api, dense_per_step(SERVE_TRANSPORT_LAYERS))
+    # the transport paths (smoke size) run beside it, in a process of
+    # their own
+    served = run_serve_transport_beside_paths(torch, api, args.src)
     say(f"serve transport: pushes/s {served['pushes_per_s']} with a "
         f"replica at {SERVE_TRANSPORT_LAYERS} layers (the transport "
         f"phase's without one at {transport_config().n_layers}: "
@@ -4319,7 +4717,8 @@ def main(argv=None) -> None:
         launches[name] += n
     mark("dryrun")
     # -- the dry run's cells; the partitioned step on four ranks ----------
-    # (d)'s steps launch the scan and the norms on its four ranks
+    # (d)'s steps launch the scan and the norms on its four ranks, (e)'s
+    # calls the norm
     for name, n in run_dryrun_phase(torch, args.src).items():
         launches[name] += n
 

@@ -29,8 +29,14 @@ port keeps the reference's values and its per-device storage:
   ``cache_specs`` gives it, the greedy token an argmax over the
   vocabulary blocks; for the hybrid its loss over the global batch; it
   gathers no whole parameter;
+* the transformers' decode computes on blocks too (``build_serve_step``):
+  per layer the FSDP gather, heads over 'model', attention of every head
+  over the rank's block of the KV cache's sequence joined by a
+  log-sum-exp combine over the cache's sequence axes, the cache updated
+  in place where it lies; it gathers neither a whole parameter nor the
+  cache's whole sequence;
 * every other config (xLSTM, Whisper, role 'dp'), their prefill
-  and the decode bundle gather each parameter whole
+  and decode, and the hybrid's decode gather each parameter whole
   and run the model on the rank's batch rows, then average the
   gradients over the batch's mesh axes (an f32 ``all_reduce`` sum, a
   division by a tensor) and take each rank's block: ranks on one
@@ -473,6 +479,12 @@ def _own_block(x: torch.Tensor, spec: PartitionSpec, mesh,
 
 # ------------------------------------------------------------------ decode
 def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec) -> StepBundle:
+    """The transformers under role 'tp' decode on blocks
+    (``models.partition``, ``decoding=True``): the bundle gathers no
+    whole parameter and no whole sequence of the cache, updates the
+    rank's cache blocks in place and returns the rank's rows of the
+    token.  Every other config and a mesh of one rank gather the
+    parameters and the cache's sequence whole."""
     # decode always uses TP weight sharding (sp=False, role='tp')
     rules = rules_for_mesh(mesh, sp=False, role="tp")
     if not cfg.decode_batch_shard:
@@ -495,29 +507,47 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec) -> StepBundle:
     tok_spec = rules.spec(("batch", None), (b, 1))
     entry = _rows_axes_entry(rules, b)
     c_specs = tree_util.leaves(cache_spec, is_leaf=is_spec)
+    part = None
+    if cfg.family in ("dense", "vlm", "moe") and cfg.model_axis_role == "tp":
+        part = partition_for(cfg, mesh, rules, p_spec, spec_axes(tok_spec),
+                             decoding=True)
+    if part is not None:
+        part.decode_cache(cache_spec)
 
-    def serve_step(params, token, cache, index):
-        """``cache`` (this rank's blocks) is updated in place; ``index``
-        is a host int."""
-        with use_rules(rules), torch.no_grad():
-            full = gather(params, p_spec, mesh)
-            blocks, treedef = tree_util.flatten(cache)
-            dims = [_non_batch_dims(s, mesh, entry) for s in c_specs]
-            rows = [gather_leaf(x, s, mesh, d) if d else x
-                    for x, s, d in zip(blocks, c_specs, dims)]
-            logits, rows_out = fam.decode_fn(
-                cfg, full, token, tree_util.unflatten(treedef, rows), index)
-            for x, r, s, d in zip(blocks, tree_util.leaves(rows_out),
-                                  c_specs, dims):
-                if d:
-                    x.copy_(block_view(r, s, mesh, d))
-            next_token = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        return next_token, cache
+        def serve_step(params, token, cache, index):
+            """``cache`` (this rank's blocks) is updated in place;
+            ``index`` is a host int."""
+            with use_rules(rules), torch.no_grad():
+                logits, cache = transformer.forward_decode(
+                    cfg, params, token, cache, index, part)
+                next_token = part.greedy(logits)[:, None]
+            return next_token, cache
+    else:
+        def serve_step(params, token, cache, index):
+            """``cache`` (this rank's blocks) is updated in place;
+            ``index`` is a host int."""
+            with use_rules(rules), torch.no_grad():
+                full = gather(params, p_spec, mesh)
+                blocks, treedef = tree_util.flatten(cache)
+                dims = [_non_batch_dims(s, mesh, entry) for s in c_specs]
+                rows = [gather_leaf(x, s, mesh, d) if d else x
+                        for x, s, d in zip(blocks, c_specs, dims)]
+                logits, rows_out = fam.decode_fn(
+                    cfg, full, token, tree_util.unflatten(treedef, rows),
+                    index)
+                for x, r, s, d in zip(blocks, tree_util.leaves(rows_out),
+                                      c_specs, dims):
+                    if d:
+                        x.copy_(block_view(r, s, mesh, d))
+                next_token = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            return next_token, cache
 
     in_sh = (p_spec, tok_spec, cache_spec, P())
     out_sh = (tok_spec, cache_spec)
     input_sds = (p_sds, tok_sds, cache_sds, _meta_scalar())
-    return StepBundle(serve_step, in_sh, out_sh, (2,), input_sds, rules)
+    serve_step.partition = part
+    return StepBundle(serve_step, in_sh, out_sh, (2,), input_sds, rules,
+                      part is not None)
 
 
 def build_step(cfg: ModelConfig, mesh, shape: ShapeSpec, **kw) -> StepBundle:

@@ -263,12 +263,25 @@ def _qkv(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, torch.Tensor],
     return q, k, v
 
 
-def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("blhk,hkd->bld") as one matmul."""
+def wide_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (n, k) @ w (k, m) in f32, unrounded: on the card in bf16 one
+    tensor-core product that accumulates and writes f32
+    (``aten::mm.dtype``), elsewhere an f32 product.
+    A mesh sums such partial products over its ranks before it rounds
+    them once, as the one-device product rounds its sum."""
+    if x.device.type != "cpu" and x.dtype == w.dtype == torch.bfloat16:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return x.float() @ w.float()
+
+
+def _out_project(out: torch.Tensor, wo: torch.Tensor,
+                 wide: bool = False) -> torch.Tensor:
+    """einsum("blhk,hkd->bld") as one matmul (``wide``: in f32,
+    ``wide_product``)."""
     b, l = out.shape[:2]
     hq, hd, d = wo.shape
-    return (out.reshape(b * l, hq * hd) @ wo.reshape(hq * hd, d)
-            ).view(b, l, d)
+    x2, w2 = out.reshape(b * l, hq * hd), wo.reshape(hq * hd, d)
+    return (wide_product(x2, w2) if wide else x2 @ w2).view(b, l, d)
 
 
 def attention_block(cfg: ModelConfig, x: torch.Tensor,
@@ -359,17 +372,20 @@ def decode_attention_block(cfg: ModelConfig, x: torch.Tensor,
 
 # ----------------------------------------------------------------- MLP
 def mlp_block(cfg: ModelConfig, x: torch.Tensor,
-              w: Dict[str, torch.Tensor]) -> torch.Tensor:
+              w: Dict[str, torch.Tensor], wide: bool = False
+              ) -> torch.Tensor:
     """SwiGLU (``cfg.act == "silu"``) or, for Whisper, the biased GELU
     MLP.  ``jax.nn.gelu`` is the tanh approximation by default, so the
-    GELU is ``approximate="tanh"`` on f32."""
+    GELU is ``approximate="tanh"`` on f32.  ``wide``: the SwiGLU's
+    ``w_down`` product in f32, unrounded (``wide_product``)."""
     b, l, d = x.shape
     x2 = x.reshape(b * l, d)
     if cfg.act == "silu":
         gate = x2 @ w["w_gate"]
         up = x2 @ w["w_up"]
         h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-        return (h @ w["w_down"]).view(b, l, d)
+        out = wide_product(h, w["w_down"]) if wide else h @ w["w_down"]
+        return out.view(b, l, d)
     h = x2 @ w["w_up"] + w["b_up"]
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
     return (h @ w["w_down"] + w["b_down"]).view(b, l, d)
@@ -389,8 +405,7 @@ class _Bf16Unembed(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, table):
         ctx.save_for_backward(x, table)
-        x2 = x.reshape(-1, x.shape[-1])
-        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        out = wide_product(x.reshape(-1, x.shape[-1]), table.t())
         return out.view(*x.shape[:-1], table.shape[0])
 
     @staticmethod

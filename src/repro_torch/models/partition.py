@@ -94,10 +94,42 @@ Prefill (``serving=True``, ``launch.steps.build_prefill_step``) runs
 The hybrid's prefill (``build_prefill_step``) is its loss on blocks
 under ``no_grad``, the aux loss over the global batch as in training.
 
+Decode (``decoding=True``, ``launch.steps.build_serve_step``) runs
+``transformer.forward_decode`` through the same hooks under the
+reference's decode rules (``sp=False``, role 'tp'): per layer the FSDP
+gathers and the TP MLP (an MoE's experts whole) as above, the embedding
+and the vocabulary-split logits and ``greedy`` as in prefill, and
+
+* the cache: each rank holds the block ``transformer.cache_specs``
+  gives it, the batch rows over the batch's axes and the sequence over
+  whatever of ('data', 'model') the batch left free (``decode_cache``):
+  ``P(None, 'data', 'model')``, or for a replicated batch
+  (``decode_batch_shard=False``: qwen1.5-32b, mistral-large-123b)
+  ``P(None, None, ('data', 'model'))``.  The rank's block index along
+  the sequence comes from that spec, its axes in the tuple's order;
+* attention (``decode_attention``): q, k and v of the rank's head
+  block, the new token's K/V gathered over 'model' where 'model'
+  splits the K/V heads, written (quantized per (token, head) for the
+  int8 cache) by the one rank whose block holds slot ``index % S``;
+  q's heads gathered over 'model'; every head scores the rank's own
+  sequence block, validity from the global slot index, and one
+  log-sum-exp combine over the cache's sequence axes joins the blocks
+  (``combine``): the largest score (an all-reduce MAX), the sum of the
+  exponentials (SUM), then the weighted V (SUM) of probabilities
+  rounded to V's dtype as the reference rounds them, which needs the
+  whole sum before the product; a block with no valid slot adds zero.
+  The rank's head block of the output times ``wo``'s row block is
+  all-reduced over 'model', the reference's psum of that small
+  partial; this partial and the MLP's (rows x d elements a token) are
+  summed in f32 and rounded once, as the one-device product rounds its
+  sum;
+* a sliding window's ring cache is refused.
+
 What this does not partition (``partition_for`` returns None and the
 step gathers whole leaves): xLSTM and Whisper, role 'dp' configs, a
-mesh of one rank, and decode.  A transformer or hybrid config under
-role 'tp' that it cannot split is refused, not gathered whole.
+mesh of one rank, and the hybrid's decode.  A transformer or hybrid
+config under role 'tp' that it cannot split is refused, not gathered
+whole.
 """
 
 from __future__ import annotations
@@ -175,15 +207,18 @@ def _leaf_kind(path: Tuple[Any, ...]) -> str:
 
 
 def partition_for(cfg: ModelConfig, mesh, rules: AxisRules, p_spec: Any,
-                  batch_axes: Tuple[str, ...], *, serving: bool = False
-                  ) -> Optional["Partition"]:
+                  batch_axes: Tuple[str, ...], *, serving: bool = False,
+                  decoding: bool = False) -> Optional["Partition"]:
     """The partition of ``cfg``'s step on ``mesh``, or None where this
     module leaves the step to gather whole leaves (another family, role
     'dp', a mesh of one rank).  Raises for a transformer under role 'tp'
     that it cannot split: a GELU MLP, a batch that does not split over
-    every axis but 'model', or a vocabulary, MLP width or Mamba inner
-    dim that 'model' does not split.  ``serving``: the transformers'
-    prefill partition (no aux loss)."""
+    every axis but 'model' (decode aside: there a replicated batch
+    leaves 'data' to the cache's sequence), or a vocabulary, MLP width
+    or Mamba inner dim that 'model' does not split; with ``decoding``,
+    the hybrid and a sliding window's ring cache too.  ``serving``: the
+    transformers' prefill partition (no aux loss); ``decoding``: their
+    decode partition (``Partition.decode_cache`` places its cache)."""
     sizes = mesh_axis_sizes(mesh)
     if (cfg.family not in ("dense", "vlm", "moe", "hybrid")
             or rules.rules.get("model") != "model"
@@ -194,7 +229,13 @@ def partition_for(cfg: ModelConfig, mesh, rules: AxisRules, p_spec: Any,
     layers = _layer_specs(p_spec)
     if cfg.act != "silu":
         why = f"act={cfg.act!r} (only the SwiGLU MLP is split)"
-    elif live - {"model"} != {a for a in batch_axes if sizes[a] > 1}:
+    elif decoding and cfg.family == "hybrid":
+        why = "the hybrid's decode is not split (its Mamba state)"
+    elif decoding and cfg.sliding_window is not None:
+        why = ("a sliding window's ring cache (its slots are not blocks "
+               "of the sequence)")
+    elif (not decoding
+          and live - {"model"} != {a for a in batch_axes if sizes[a] > 1}):
         why = (f"the batch splits over {tuple(batch_axes)}, not every "
                f"axis but 'model' of {sizes}")
     elif sizes.get("model", 1) > 1:
@@ -209,7 +250,22 @@ def partition_for(cfg: ModelConfig, mesh, rules: AxisRules, p_spec: Any,
     if why is not None:
         raise ValueError(f"{cfg.name}: the step on {sizes} cannot be "
                          f"partitioned: {why}")
-    return Partition(cfg, mesh, rules, p_spec, batch_axes, serving=serving)
+    return Partition(cfg, mesh, rules, p_spec, batch_axes,
+                     serving=serving or decoding, decoding=decoding)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor,
+            valid: torch.Tensor) -> torch.Tensor:
+    """One query's scores over a block of the cache, as
+    ``layers._attention_grouped`` makes them: q (b, 1, hkv, g, d), k (b,
+    s, hkv, d), valid (s,) -> f32 (b, hkv, g, 1, s), the products summed
+    in f32 and divided by a tensor sqrt(d), invalid slots at
+    ``NEG_INF``."""
+    d = q.shape[-1]
+    scores = torch.einsum("blhgd,bmhd->bhglm", q.float(), k.float())
+    scores = scores / torch.full((), math.sqrt(d), dtype=torch.float32,
+                                 device=scores.device)
+    return scores.masked_fill(~valid, L.NEG_INF)
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -231,9 +287,10 @@ class Partition(transformer.Whole):
 
     def __init__(self, cfg: ModelConfig, mesh, rules: AxisRules,
                  p_spec: Any, batch_axes: Tuple[str, ...] = (), *,
-                 serving: bool = False):
+                 serving: bool = False, decoding: bool = False):
         sizes = mesh_axis_sizes(mesh)
         self.serving = serving
+        self.decoding = decoding
         self.batch_axes = tuple(batch_axes)
         # the aux loss's means over the global batch (none in prefill)
         means = None if serving else batch_means(mesh, batch_axes)
@@ -471,10 +528,128 @@ class Partition(transformer.Whole):
                     f"{cfg.name}: cache {name!r} is split as {spec} "
                     f"({got}), the prefill's blocks as {want}")
 
+    # ------------------------------------------------------ decode
+    def decode_cache(self, cache_spec: Dict[str, PartitionSpec]) -> None:
+        """Place the decode cache: every leaf's spec must split the batch
+        rows over the batch's axes and nothing but the sequence besides,
+        the same way for every leaf.  Sets the sequence's live axes
+        (``seq_axes``, in the spec's order: the first major), their
+        groups, and this rank's block index among ``seq_blocks``."""
+        sizes, mesh = self.sizes, self.mesh
+        rows = tuple(a for a in self.batch_axes if sizes[a] > 1)
+        seq = None
+        for name, spec in cache_spec.items():
+            got = {d: tuple(a for a in axes if sizes[a] > 1)
+                   for d, axes in split_dims(spec, mesh).items()}
+            s = got.pop(2, ())
+            if got.pop(1, ()) != rows or got or seq not in (None, s):
+                raise ValueError(
+                    f"{self.cfg.name}: decode cache {name!r} is split as "
+                    f"{spec}, not as its batch rows over {rows} and its "
+                    "sequence like every other leaf's")
+            seq = s
+        self.seq_axes = seq or ()
+        self.seq_groups = [mesh.get_group(a) for a in self.seq_axes]
+        self.seq_blocks = math.prod(sizes[a] for a in self.seq_axes)
+        self.seq_block = 0
+        for a in self.seq_axes:
+            self.seq_block = (self.seq_block * sizes[a]
+                              + mesh.get_local_rank(a))
+
+    def decode_attention(self, cfg: ModelConfig, h: torch.Tensor,
+                         w: Dict[str, torch.Tensor],
+                         cache: Dict[str, torch.Tensor], index: int
+                         ) -> torch.Tensor:
+        """One token's attention on the rank's blocks: the head block's
+        q, k, v; the new token's K/V whole (gathered over 'model' where
+        it splits them), written by the owner of slot ``index % S``;
+        every head over the rank's sequence block, joined over the
+        cache's sequence axes (``combine``); the output's head block
+        times ``wo``'s row block, summed over 'model' (module
+        docstring)."""
+        b = h.shape[0]
+        s_l = cache["k"].shape[1]
+        s_max = s_l * self.seq_blocks
+        cos = sin = None
+        if cfg.use_rope:
+            pos = torch.full((b, 1), index, dtype=torch.int32,
+                             device=h.device)
+            cos, sin = L.rotary_embedding(pos, cfg.resolved_head_dim,
+                                          cfg.rope_theta)
+        q, k, v = L._qkv(cfg, h, w, cos, sin)
+        split = self.m > 1 and self.heads_split
+        if split:
+            q = all_gather_cat(q, self.mg, 2)
+            if self.kv_split:
+                k = all_gather_cat(k, self.mg, 2)
+                v = all_gather_cat(v, self.mg, 2)
+        slot = index % s_max
+        own = slot // s_l == self.seq_block
+        at = slot % s_l
+        if "k_scale" in cache:
+            if own:
+                kq, ks = L.quantize_kv(k)
+                vq, vs = L.quantize_kv(v)
+                cache["k"][:, at] = kq[:, 0]
+                cache["v"][:, at] = vq[:, 0]
+                cache["k_scale"][:, at] = ks[:, 0]
+                cache["v_scale"][:, at] = vs[:, 0]
+            ck = L.dequantize_kv(cache["k"], cache["k_scale"], h.dtype)
+            cv = L.dequantize_kv(cache["v"], cache["v_scale"], h.dtype)
+        else:
+            if own:
+                cache["k"][:, at] = k[:, 0].to(cache["k"].dtype)
+                cache["v"][:, at] = v[:, 0].to(cache["v"].dtype)
+            ck, cv = cache["k"], cache["v"]
+        # validity of each slot of the block by its global index, as
+        # ``layers.decode_attention_block`` (no ring: refused)
+        first = self.seq_block * s_l
+        slots = torch.arange(first, first + s_l, device=h.device)
+        valid = (slot - slots) % s_max <= index
+        hq, hkv, hd = q.shape[2], ck.shape[2], q.shape[-1]
+        scores = _scores(q.reshape(b, 1, hkv, hq // hkv, hd), ck, valid)
+        out = self.combine(scores, cv)
+        # (b, hkv, g, 1, d) -> (b, 1, hq, d)
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, hd).to(q.dtype)
+        if not split:
+            return L._out_project(out, w["wo"])
+        hb = hq // self.m
+        out = L._out_project(out.narrow(2, self.rank * hb, hb), w["wo"],
+                             wide=True)
+        return reduce_from_group(out, self.mg).to(h.dtype)
+
+    def combine(self, scores: torch.Tensor, v: torch.Tensor
+                ) -> torch.Tensor:
+        """The attention output (b, hkv, g, 1, d) in f32 from each
+        sequence block's scores (``_scores``) and V (b, s, hkv, d), as
+        the reference's softmax over the whole sequence: the largest
+        score over the cache's sequence axes (an all-reduce MAX), the
+        sum of the exponentials (SUM), then each block's probabilities,
+        rounded to V's dtype as the reference rounds them, times its V,
+        summed (SUM).  A block with no valid slot has exponentials of
+        zero: it adds nothing."""
+        big = scores.amax(dim=-1)
+        for g in self.seq_groups:
+            all_reduce_sum_(big, g, op=dist.ReduceOp.MAX)
+        e = torch.exp(scores - big[..., None])
+        total = e.sum(dim=-1)
+        for g in self.seq_groups:
+            all_reduce_sum_(total, g)
+        probs = (e / total[..., None]).to(v.dtype).float()
+        out = torch.einsum("bhglm,bmhd->bhgld", probs, v.float())
+        for g in self.seq_groups:
+            all_reduce_sum_(out, g)
+        return out
+
     def _mlp(self, h: torch.Tensor, w: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
         if self.m == 1:
             return L.mlp_block(self.cfg, h, w)
+        if self.decoding:
+            # a token's partial sums (rows x d) are summed in f32 and
+            # rounded once, as the one-device product rounds its sum
+            out = L.mlp_block(self.cfg, h, w, wide=True)
+            return reduce_from_group(out, self.mg).to(h.dtype)
         hg = (gather_grad(h, self.mg, 1) if self.sp
               else copy_to_group(h, self.mg))
         out = L.mlp_block(self.cfg, hg, w)

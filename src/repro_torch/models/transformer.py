@@ -168,6 +168,14 @@ class Whole:
                   sin: torch.Tensor, collect_kv: bool = False):
         return L.attention_block(cfg, h, w, cos, sin, collect_kv=collect_kv)
 
+    def decode_attention(self, cfg: ModelConfig, h: torch.Tensor,
+                         w: Dict[str, torch.Tensor],
+                         cache: Dict[str, torch.Tensor], index: int
+                         ) -> torch.Tensor:
+        """One token's attention over one layer's KV cache, which it
+        updates in place (``forward_decode``)."""
+        return L.decode_attention_block(cfg, h, w, cache, index)
+
     def ffn(self, cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any]):
         return _ffn(cfg, h, w, self.moe_means)
 
@@ -350,22 +358,25 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int, rules,
 
 def forward_decode(cfg: ModelConfig, params: Dict[str, Any],
                    token: torch.Tensor, cache: Dict[str, torch.Tensor],
-                   index: int
+                   index: int, part: Whole = WHOLE
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: token (b, 1) at position ``index`` (a host int);
     cache leaves (n_layers, ...), updated in place.  Returns (logits
     (b, 1, v), cache).  Two norms a layer, as the reference's step: no
     fused residual+norm on this path.  An MoE FFN routes the one token in
-    a single dispatch (``moe_block``'s branch for l = 1)."""
-    x = L.embed(token, params["embed"]).to(torch_dtype(cfg.dtype))
+    a single dispatch (``moe_block``'s branch for l = 1).  ``part``: a
+    rank's block of the compute on a mesh (``models.partition``): the
+    cache is then the rank's block of ``cache_specs``, the logits the
+    rank's vocabulary block (``part.greedy`` takes the token)."""
+    x = part.embed(cfg, token, params["embed"]).to(torch_dtype(cfg.dtype))
     ws = layer_weights(params["layers"], cfg.n_layers)
     for i, w in enumerate(ws):
+        w = part.layer(w)
         layer_cache = {name: t[i] for name, t in cache.items()}
         h = L.apply_norm(cfg, x, w["attn_norm"])
-        x = x + L.decode_attention_block(cfg, h, w["attn"], layer_cache,
-                                         index)
+        x = x + part.decode_attention(cfg, h, w["attn"], layer_cache, index)
         h = L.apply_norm(cfg, x, w["mlp_norm"])
-        x = x + _ffn(cfg, h, w)[0]
-    x = L.apply_norm(cfg, x, params["final_norm"])
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed(x, table, cfg.vocab_size), cache
+        x = x + part.ffn(cfg, h, w)[0]
+    x = L.apply_norm(cfg, x, part.final_norm(params["final_norm"]))
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    return part.unembed_row(cfg, x, params[name], name), cache

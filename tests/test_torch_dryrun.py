@@ -9,7 +9,8 @@
   same cell records, for a train and a (partitioned) prefill cell, and
   for Jamba's partitioned train cell with its ``ssm_scan`` calls.
 * The transformers and the hybrid under role 'tp' prefill on blocks
-  (``partitioned``).
+  (``partitioned``), and the transformers decode on blocks, with the
+  collectives of a gloo run's decode call.
 * It leaves no process group, the kernel registry as it was, and the
   counters untouched; it refuses to start beside a group.
 * The partitioned step's peak per rank is below the gather-whole step's.
@@ -58,6 +59,11 @@ def test_run_cell_on_every_smoke_config_is_ok(arch):
             # on blocks
             assert rep["partitioned"] == (
                 cfg.family in ("dense", "vlm", "moe", "hybrid")
+                and cfg.model_axis_role == "tp")
+        if name == "decode":
+            # the transformers under role 'tp' decode on blocks
+            assert rep["partitioned"] == (
+                cfg.family in ("dense", "vlm", "moe")
                 and cfg.model_axis_role == "tp")
         if name == "train":
             assert rep["partitioned"] == (
@@ -159,6 +165,31 @@ def test_prefill_collective_counts_equal_a_real_four_rank_run(real_counts):
     assert rep["collective_counts"]["broadcast"] == 1
     for rank_counts in real_counts:
         got = rank_counts["prefill"]
+        assert got["partitioned"]
+        assert {KINDS[k]: got[k] for k in KINDS if got[k]} == \
+            rep["collective_counts"]
+
+
+@pytest.mark.parametrize("arch", ranks.DECODE_COUNT_ARCHS)
+def test_decode_collective_counts_equal_a_real_four_rank_run(arch,
+                                                             real_counts):
+    """A smoke decode call on (2, 2), on blocks: the dry run's
+    collectives per kind against a gloo run's (qwen1.5-32b: the batch
+    replicated, the cache's sequence over ('data', 'model'); deepseek:
+    the batch over 'data', the heads and K/V heads over 'model', the
+    experts gathered whole), and its ``rmsnorm`` stand-in calls two a
+    layer and the final norm's."""
+    cfg = get_smoke_config(arch)
+    rep = dryrun.run_cell(arch, "decode", False, verbose=False, cfg=cfg,
+                          shape=ShapeSpec("decode", ranks.SEQ, ranks.BATCH,
+                                          "decode"),
+                          mesh_shape=(2, 2))
+    assert rep["partitioned"]
+    assert rep["kernel_calls"]["rmsnorm"] == (
+        cfg.n_layers * (2 + 2 * cfg.qk_norm) + 1)
+    assert rep["collective_counts"]["all-reduce"] > 0
+    for rank_counts in real_counts:
+        got = rank_counts[f"decode/{arch}"]
         assert got["partitioned"]
         assert {KINDS[k]: got[k] for k in KINDS if got[k]} == \
             rep["collective_counts"]

@@ -361,16 +361,19 @@ def _stacked_whole_shapes(cfg, p_spec, mesh, layer_blocks=False,
             if split_dims(s, mesh)} - blocks
 
 
-def _allocations(watch, seen):
+def _allocations(watch, seen, writes=True):
     """A dispatch mode that appends ``(op, shape)`` to ``seen`` for every
     tensor an op that is not a view returns whose shape is in
-    ``watch``."""
+    ``watch``; with ``writes=False`` not for an op that writes into a
+    tensor it was given either (``copy_``: it returns that tensor)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Allocations(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             if func.is_view:         # a view of a block allocates nothing
+                return out
+            if not writes and func._schema.is_mutable:
                 return out
             for t in (out if isinstance(out, (tuple, list)) else (out,)):
                 if isinstance(t, torch.Tensor) and tuple(t.shape) in watch:
@@ -468,21 +471,30 @@ def partition_ranks(rank, world, meshes, inits, lr):
     return out
 
 
+#: the decode cells whose counts the dry run is held to: the batch
+#: replicated and the cache's sequence over both axes, and the batch,
+#: the heads and the K/V heads split beside an MoE
+DECODE_COUNT_ARCHS = ("qwen1.5-32b", "deepseek-moe-16b")
+
+
 def dryrun_count_ranks(rank, world, seq, batch):
     """One DSSP step (delay 1, the config's optimizer) of
     ``build_train_step`` on (2, 2) for qwen1.5-32b's, h2o-danube's and
-    Jamba's smoke configs, and qwen1.5-32b's ``build_prefill_step``: the
+    Jamba's smoke configs, qwen1.5-32b's ``build_prefill_step`` and the
+    ``build_serve_step`` of each of ``DECODE_COUNT_ARCHS``: the
     ``perfcount.MESH`` counts of each (what ``launch.dryrun`` predicts
-    for the same cell), the prefill's under ``"prefill"``, and Jamba's
-    calls of the kernel registry's ``ssm_scan`` (``"ssm_scan"``)."""
+    for the same cell), the prefill's under ``"prefill"``, a decode's
+    under ``"decode/<arch>"``, and Jamba's calls of the kernel
+    registry's ``ssm_scan`` (``"ssm_scan"``)."""
     from repro_torch.api.session import batch_tensors
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.core import dssp_spmd
     from repro_torch.data.synthetic import batches
     from repro_torch.launch.mesh import make_mesh, place
-    from repro_torch.launch.steps import build_prefill_step, build_train_step
-    from repro_torch.models import registry
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, build_train_step)
+    from repro_torch.models import registry, transformer
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.perfcount import MESH
     from repro_torch.kernels import registry as kreg
@@ -523,6 +535,21 @@ def dryrun_count_ranks(rank, world, seq, batch):
     MESH.reset()
     pre.fn(params, rows)
     out["prefill"] = dict(MESH.snapshot(), partitioned=pre.partitioned)
+    for arch in DECODE_COUNT_ARCHS:
+        cfg = get_smoke_config(arch)
+        dec = build_serve_step(cfg, mesh, ShapeSpec("decode", seq, batch,
+                                                    "decode"))
+        p_sh, tok_sh, c_sh, _ = dec.in_shardings
+        params = place(registry.init_params(cfg, seed=0, device="cpu"),
+                       p_sh, mesh)
+        cache = place(transformer.init_cache(cfg, batch, seq), c_sh, mesh)
+        token = place(torch.zeros((batch, 1), dtype=torch.long), tok_sh,
+                      mesh)
+        MESH.reset()
+        # the dry run decodes at the cache's last slot
+        dec.fn(params, token, cache, seq - 1)
+        out[f"decode/{arch}"] = dict(MESH.snapshot(),
+                                     partitioned=dec.partitioned)
     return out
 
 
@@ -773,6 +800,88 @@ def prefill_ranks(rank, world, meshes, inits, tokens):
                     "counts": counts, "allocated": seen,
                     "watched": sorted(watch)}
         layers.NO_GRAD_SCORE_BYTES = 1 << 30
+    return out
+
+
+#: decode on blocks (``tests/test_torch_decode_partition.py``): the int8
+#: cache with QKV bias and a replicated batch (its sequence over both
+#: axes), GQA with split heads, q/k norms and an MoE, shared experts with
+#: split K/V heads
+DECODE_ARCHS = ("qwen1.5-32b", "qwen1.5-110b", "qwen3-moe-235b-a22b",
+                "deepseek-moe-16b")
+#: the decode cache's slots (the prefill's SEQ, then room to decode, in
+#: blocks of which a (1, 4) rank's last holds no written slot) and the
+#: tokens decoded at positions SEQ, SEQ + 1, ...
+DECODE_CACHE = 48
+DECODE_TOKENS = 3
+
+
+def decode_whole_cache(cfg, prefill):
+    """The decode cache of ``DECODE_CACHE`` slots whose first ``SEQ``
+    hold ``prefill`` (numpy leaves (layers, rows, SEQ, ...)), the rest
+    zeros."""
+    out = {}
+    for k, v in prefill.items():
+        whole = np.zeros(v.shape[:2] + (DECODE_CACHE,) + v.shape[3:],
+                         dtype=v.dtype)
+        whole[:, :, :v.shape[2]] = v
+        out[k] = whole
+    return out
+
+
+def decode_ranks(rank, world, meshes, inits, prefills):
+    """``build_serve_step`` on each of ``meshes`` for each of
+    ``DECODE_ARCHS`` (f32 smoke configs): from the reference's prefill
+    (``prefills[arch]``: its greedy tokens and cache), ``DECODE_TOKENS``
+    greedy tokens at positions ``SEQ`` on.  Per case the partitioned
+    flag, the rank's tokens of each call and their rows, the rank's
+    cache blocks after the last call with their place in the whole
+    cache, the mesh counts of each call, and the allocations of whole
+    layer-stacked leaves or of a whole cache leaf (or one layer of one)
+    the calls made."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh, place
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models.params import from_numpy_tree
+    from repro_torch.perfcount import MESH
+    out = {}
+    for label, shape, axes in meshes:
+        mesh = make_mesh(shape, axes)
+        for arch in DECODE_ARCHS:
+            cfg = get_smoke_config(arch)
+            bundle = build_serve_step(
+                cfg, mesh, ShapeSpec("d", DECODE_CACHE, BATCH, "decode"))
+            p_sh, tok_sh, c_sh, _ = bundle.in_shardings
+            params = place(from_numpy_tree(inits[arch], "cpu"), p_sh, mesh)
+            first, prefill = prefills[arch]
+            whole = decode_whole_cache(cfg, prefill)
+            cache = place({k: torch.from_numpy(v) for k, v in
+                           whole.items()}, c_sh, mesh)
+            token = place(torch.from_numpy(first).long()[:, None], tok_sh,
+                          mesh)
+            watch = _stacked_whole_shapes(cfg, p_sh, mesh, True)
+            watch |= {v.shape for v in whole.values()}
+            watch |= {v.shape[1:] for v in whole.values()}
+            seen, tokens, counts = [], [], []
+            for i in range(DECODE_TOKENS):
+                MESH.reset()
+                # the cache's slot is written in place: a (rows, heads,
+                # head dim) write can have a stacked bias's shape
+                with _allocations(watch, seen, writes=False):
+                    token, cache = bundle.fn(params, token, cache, SEQ + i)
+                counts.append(MESH.snapshot())
+                tokens.append(token[:, 0].numpy().copy())
+            out[f"{label}/{arch}"] = {
+                "partitioned": bundle.partitioned,
+                "tokens": tokens,
+                "token_rows": _block_slices((BATCH,), tok_sh, mesh)[0],
+                "cache": {k: v.numpy() for k, v in cache.items()},
+                "cache_slices": {k: _block_slices(whole[k].shape, c_sh[k],
+                                                  mesh)
+                                 for k in cache},
+                "counts": counts, "allocated": seen,
+                "watched": sorted(watch)}
     return out
 
 
