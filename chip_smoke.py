@@ -244,8 +244,19 @@ after an error:
            logits' vocabulary block and the cache blocks held to the one
            rank's, the combine over the sequence blocks dropped as a
            planted fault that must be caught, collectives and ``rmsnorm``
-           launches the dry run's; (b), (c), (e) and (d) run in one spawn
-           of the four ranks
+           launches the dry run's; (f) Jamba's decode on blocks at (d)'s
+           cut in bf16 and in f32 from a seeded state of
+           ``HYB_DECODE_SLOTS`` KV slots (``DECODE_STEPS`` teacher-forced
+           tokens): rank 0 alone, then four ranks on (2, 2) and (1, 4)
+           (the Mamba state on channel blocks over 'model'), the last
+           logits, the KV blocks (bit for bit but the written slots), the
+           conv tails and ``h`` held to the one rank's (f32: tokens
+           equal), in bf16 one call more with every sublayer fed the one
+           rank's input and held to its output, ``reduce_bcdt`` the
+           identity and the Mamba partials rounded to bf16 before their
+           sum as planted faults that must be caught, collectives,
+           ``rmsnorm`` launches and peaks the dry run's; (b), (c), (e),
+           (d) and (f) run in one spawn of the four ranks
 
 Each phase boundary prints the script's elapsed seconds.  The last two
 lines of standard output are the JSON kernel table and the contract
@@ -628,6 +639,10 @@ XLSTM_NORM_ROWS = ((2, 1024, 768), (8, 1, 768))
 #: replicated rows, on every rank (``rmsnorm`` only: decode adds its
 #: residual plainly)
 MESH_DECODE_ROWS = (2, 1, 5120)
+#: part (f): Jamba's decode on blocks, the rows of d_model 4096 a rank
+#: holds (two on one rank and on (1, 4), one on (2, 2), whose 'data'
+#: splits them), in bf16 and f32
+HYBRID_DECODE_ROWS = ((2, 1, 4096), (1, 1, 4096))
 
 
 def check_norms(torch, timer, rn, rrn):
@@ -638,7 +653,7 @@ def check_norms(torch, timer, rn, rrn):
     #: transformer families' (ARCH_NORM_ROWS) and xLSTM's
     timed_device = ((4, 1024, 2560), (2, 1024, 4096), SERVE_DECODE_ROWS,
                     SERVE_PREFILL_ROWS) + ARCH_NORM_ROWS + XLSTM_NORM_ROWS \
-        + (MESH_DECODE_ROWS,)
+        + (MESH_DECODE_ROWS,) + HYBRID_DECODE_ROWS
     for dt, shape in ((torch.bfloat16, (4, 1024, 2560)),
                       (torch.bfloat16, (2, 1024, 4096)),
                       (torch.bfloat16, SERVE_DECODE_ROWS),
@@ -646,6 +661,8 @@ def check_norms(torch, timer, rn, rrn):
                       *((torch.bfloat16, rows) for rows in ARCH_NORM_ROWS),
                       *((torch.bfloat16, rows) for rows in XLSTM_NORM_ROWS),
                       (torch.bfloat16, MESH_DECODE_ROWS),
+                      *((dt, rows) for dt in (torch.bfloat16, torch.float32)
+                        for rows in HYBRID_DECODE_ROWS),
                       (torch.float32, (4, 1024, 2560)),
                       (torch.float32, (3, 7, 2561)),
                       (torch.bfloat16, (5, 1000))):
@@ -658,7 +675,8 @@ def check_norms(torch, timer, rn, rrn):
         for name in ("rmsnorm", "residual_rmsnorm"):
             if name == "residual_rmsnorm" and (
                     shape in (QK_NORM_ROWS, MESH_DECODE_ROWS)
-                    or shape in XLSTM_NORM_ROWS):
+                    or shape in XLSTM_NORM_ROWS
+                    or shape in HYBRID_DECODE_ROWS):
                 continue    # the q/k norms, xLSTM's and decode's have
                 #             no fused residual
             if name == "rmsnorm":
@@ -3288,31 +3306,34 @@ def decode_cell():
                           PREFILL_BATCH, "decode")
 
 
-def _decode_calls(torch, bundle, params, cache, first, forced, device):
+def _decode_calls(torch, bundle, params, cache, first, forced, device,
+                  start: int = PREFILL_SEQ):
     """``DECODE_STEPS`` calls of the decode bundle from position
-    ``PREFILL_SEQ``: the first fed ``first``, each next ``forced[i]`` or,
+    ``start``: the first fed ``first``, each next ``forced[i]`` or,
     without ``forced``, the previous output.  (tokens a call, cache,
-    seconds, peak bytes, mesh counts a call, kernel launches a call)."""
+    seconds a call, peak bytes, mesh counts a call, kernel launches a
+    call)."""
     from repro_torch.perfcount import LAUNCHES, MESH
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    tokens, counts, launches = [], [], []
+    tokens, counts, launches, secs = [], [], [], []
     token = first
-    t0 = time.monotonic()
     for i in range(DECODE_STEPS):
         if forced is not None:
             token = forced[i]
         MESH.reset()
         before = LAUNCHES.snapshot()
-        token, cache = bundle.fn(params, token, cache, PREFILL_SEQ + i)
+        t0 = time.monotonic()
+        token, cache = bundle.fn(params, token, cache, start + i)
         torch.cuda.synchronize(device)
+        secs.append(time.monotonic() - t0)
         counts.append(MESH.snapshot())
         launches.append({k: v for k, v in LAUNCHES.delta(before).items()
                          if v})
         tokens.append(token[:, 0].cpu())
-    return (tokens, cache, time.monotonic() - t0,
-            torch.cuda.max_memory_allocated(device), counts, launches)
+    return (tokens, cache, secs, torch.cuda.max_memory_allocated(device),
+            counts, launches)
 
 
 def decode_compare(torch, tokens, logits, cache, one, token_spec,
@@ -3390,7 +3411,7 @@ def decode_rank(rank: int, world: int, prefill_path: str,
         torch.save({"tokens": tokens, "logits": seen[0],
                     "cache": {k: v.cpu() for k, v in cache.items()}},
                    one_path)
-        out["one"] = {"partitioned": bundle.partitioned, "seconds": sec,
+        out["one"] = {"partitioned": bundle.partitioned, "seconds": sum(sec),
                       "peak_bytes": peak, "counts": counts,
                       "launches": launches,
                       "tokens": [t.tolist() for t in tokens]}
@@ -3426,7 +3447,7 @@ def decode_rank(rank: int, world: int, prefill_path: str,
                     sec, peak, counts, launches)
 
         cmp, sec, peak, counts, launches = decode()
-        rec = {"partitioned": bundle.partitioned, "seconds": sec,
+        rec = {"partitioned": bundle.partitioned, "seconds": sum(sec),
                "peak_bytes": peak, "counts": counts, "launches": launches,
                "seq_axes": part.seq_axes, "compare": cmp}
         if tuple(shape_) == DECODE_PLANT:
@@ -3538,24 +3559,670 @@ def decode_report(outs, preds, seconds: float) -> dict:
     return launched
 
 
+#: (f): Jamba's decode on blocks, ``hybrid_config``'s cut (one period
+#: group of jamba-v0.1-52b at its published widths: 7 Mamba slots and
+#: attention at slot 3, dense FFNs; the MoE slots stay out, as four
+#: ranks each holding a quarter of 22.5 GB of experts, one layer's 5.64
+#: GB gathered whole and the one-rank run leave too little of the card),
+#: HYB_DECODE_BATCH rows, a state of HYB_DECODE_SLOTS KV slots
+#: (decode_32k's sequence), in each of HYB_DECODE_DTYPES: bf16, the
+#: cell's, and f32 on the same values (the parameters made in bf16, the
+#: state drawn from N(0, 1) by a ``torch.Generator`` of seed
+#: HYB_DECODE_SEED on the card and rounded to bf16, alike on every rank:
+#: K/V of every slot, the conv tails and ``h``; the first token drawn on
+#: the host).  DECODE_STEPS tokens are decoded from index
+#: HYB_DECODE_START, teacher-forced with the one rank's bf16 tokens:
+#: rank 0 alone on a (1, 1) mesh, then every rank on blocks on each of
+#: DECODE_SHAPES (the rows over 'data' on (2, 2); the KV cache's
+#: sequence and the Mamba channels over 'model').  Each rank's tokens,
+#: its vocabulary block of the last logits, its written K/V slots, its
+#: conv tail and ``h`` blocks are held to the one rank's (the values
+#: within HYB_DECODE_BOUNDS of the dtype, of the block's largest
+#: one-rank value), the K/V slots no call wrote bit for bit, the
+#: collectives, ``rmsnorm`` launches and peaks to the dry run's.  In f32
+#: the tokens must be equal and every bound is HYB_DECODE_REL.  In bf16
+#: the tokens are printed and the bounds are twice the largest distance
+#: measured on an H100 (PERF.md §6, Jamba's decode): once two decodes
+#: round one
+#: value apart, every later sublayer rounds apart too, and over 8 layers
+#: and 4 calls that grows to 3.6e-2-5.5e-2 of the largest logit (a
+#: w_out partial rounded to bf16 before its sum lands no further off).
+#: So bf16 is also held sublayer by sublayer (``hybrid_decode_forced``):
+#: one call more on each mesh, each sublayer fed the one rank's input of
+#: its first call and each Mamba sublayer, past its sum over 'model',
+#: the one rank's (B, C, dt).  Each Mamba and FFN sublayer's output, and
+#: each Mamba sublayer's summed (B, C, dt), must lie within
+#: HYB_FORCED_ULPS bf16 ulps of the one rank's and be apart on at most
+#: HYB_FORCED_FRAC of its elements (twice the largest reading there: on
+#: (1, 4), where ``w_in``'s column blocks round some ``x`` channels
+#: apart, 7.5% of a (B, C, dt) and 6.2% of a Mamba output, by up to 6
+#: ulps; a w_out or w_bcdt partial rounded to bf16 before its sum puts
+#: 37-42% apart, by 21-100 ulps), and that call's token and logits be
+#: the one rank's (HYB_DECODE_REL); the attention's output is printed
+#: (one element of q rounded apart moves its whole head: 22-26% of the
+#: output there).  On DECODE_PLANT each
+#: of HYB_PLANTS runs in bf16: ``local_bcdt`` the 4 calls, whose logits
+#: must miss by 10 times HYB_DECODE_REL or more; the bf16 roundings the
+#: forced call, which must break its check on every rank.
+#: cuBLAS's reduced precision bf16 reductions are off in (f), as TF32
+#: is: a product then rounds once, as the partition's f32 partials do,
+#: and not once a split-K partial.
+HYB_DECODE_SLOTS = 32768
+HYB_DECODE_BATCH = 2
+HYB_DECODE_START = HYB_DECODE_SLOTS - DECODE_STEPS
+HYB_DECODE_SEED = 0
+HYB_DECODE_DTYPES = ("bfloat16", "float32")
+HYB_DECODE_REL = 2.0 ** -7
+HYB_DECODE_BOUNDS = {
+    "float32": {"logits": HYB_DECODE_REL, "kv": HYB_DECODE_REL,
+                "conv": HYB_DECODE_REL, "h": HYB_DECODE_REL},
+    "bfloat16": {"logits": 0.11, "kv": 0.052, "conv": 0.082, "h": 0.082},
+}
+HYB_FORCED_ULPS = 12.0
+HYB_FORCED_FRAC = 0.15
+#: each planted fault: what it breaks, the dtypes it runs in, and how
+#: many times HYB_DECODE_REL its logits must miss by (None: it runs in
+#: the forced call and must break that call's check)
+HYB_PLANTS = {
+    "local_bcdt": ("reduce_bcdt the identity (each rank's B, C and dt "
+                   "from its own channels)", ("bfloat16",), 10.0),
+    "bf16_out": ("the w_out partials rounded to bf16 before their sum "
+                 "over 'model'", ("bfloat16",), None),
+    "bf16_bcdt": ("the w_bcdt partials rounded to bf16 before their sum "
+                  "over 'model'", ("bfloat16",), None),
+}
+#: each rank's peak against the dry run's count for its mesh
+HYB_DECODE_PEAK_GAP_GB = 1.0
+
+
+def hybrid_decode_cell(dtype: str = "bfloat16"):
+    """The (f) cell in ``dtype``: its config and the decode shape."""
+    from repro_torch.configs.shapes import ShapeSpec
+    return (hybrid_config().scaled(dtype=dtype),
+            ShapeSpec("decode_32k", HYB_DECODE_SLOTS, HYB_DECODE_BATCH,
+                      "decode"))
+
+
+def hybrid_decode_params(torch, cfg, device, specs=None, mesh=None):
+    """The seed-0 parameters, made in bf16 (the rank's blocks of
+    ``specs`` on ``mesh``), in ``cfg``'s dtype."""
+    from repro_torch import tree as tree_util
+    from repro_torch.launch.mesh import place
+    from repro_torch.models import registry
+    params = registry.init_params(cfg.scaled(dtype="bfloat16"), seed=0,
+                                  device=device)
+    if specs is not None:
+        params = place(params, specs, mesh)
+    dt = getattr(torch, cfg.dtype)
+    return tree_util.tree_map(
+        lambda x: x.to(dt) if x.is_floating_point() else x, params)
+
+
+def hybrid_decode_state(torch, cfg, shape, device):
+    """(f)'s seeded whole state on ``device``, every value a bf16 one,
+    the same on every rank."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import hybrid
+    state = hybrid.init_state(cfg, shape.global_batch, shape.seq_len,
+                              device=device)
+    g = torch.Generator(device=device).manual_seed(HYB_DECODE_SEED)
+    for x in tree_util.leaves(state):
+        x.copy_(torch.randn(x.shape, generator=g, device=device).to(
+            torch.bfloat16))
+    return state
+
+
+def hybrid_decode_first(torch):
+    """(f)'s first token (rows, 1), drawn on the host."""
+    cfg, shape = hybrid_decode_cell()
+    return torch.randint(
+        0, cfg.vocab_size, (shape.global_batch, 1),
+        generator=torch.Generator().manual_seed(HYB_DECODE_SEED))
+
+
+def hybrid_decode_plant(torch, part, fault: str) -> None:
+    """Plant ``fault`` of HYB_PLANTS in ``part`` (``del`` the hook's
+    attribute to take it out)."""
+    if fault == "local_bcdt":
+        part.reduce_bcdt = lambda t: t
+        return
+    name = {"bf16_out": "reduce_out", "bf16_bcdt": "reduce_bcdt"}[fault]
+    reduce = getattr(part, name)
+    setattr(part, name, lambda t: reduce(t.to(torch.bfloat16).float()))
+
+
+def _rel(a, b) -> float:
+    """The largest distance of ``a`` from ``b`` over ``b``'s largest
+    magnitude."""
+    b = b.float()
+    return float((a.float() - b).abs().max() / b.abs().max())
+
+
+def hybrid_decode_compare(torch, tokens, logits, state, one, token_spec,
+                          state_spec, mesh):
+    """This rank's tokens, last logits and state blocks against the one
+    rank's blocks: whether every call's tokens are equal; the logits',
+    the conv tails' and ``h``'s largest distance over the block's
+    largest one-rank value; per KV leaf whether the slots no call wrote
+    are equal, and the written slots' largest distance over their
+    largest one-rank value (None where the block holds none)."""
+    from repro_torch.launch.mesh import block_view
+    from repro_torch.models.sharding import PartitionSpec
+    rows = PartitionSpec(*token_spec[:1])
+    out = {"tokens_equal": all(
+        bool(torch.equal(t, block_view(o, rows, mesh)))
+        for t, o in zip(tokens, one["tokens"]))}
+    out["logits"] = {"max_rel": _rel(logits, block_view(
+        one["logits"], PartitionSpec(rows[0] if len(rows) else None,
+                                     "model"), mesh))}
+    for name in ("k", "v"):
+        spec = state_spec["kv"][name]
+        got = state["kv"][name].cpu()
+        want = block_view(one["state"]["kv"][name], spec, mesh)
+        slots = block_view(torch.arange(HYB_DECODE_SLOTS),
+                           PartitionSpec(*spec[2:3]), mesh)
+        kept = slots < HYB_DECODE_START
+        written = None
+        if not bool(kept.all()):
+            written = _rel(got[:, :, ~kept], want[:, :, ~kept])
+        out[f"kv/{name}"] = {
+            "kept_equal": bool(torch.equal(got[:, :, kept],
+                                           want[:, :, kept])),
+            "written_max_rel": written}
+    for name in ("conv", "h"):
+        out[f"mamba/{name}"] = {"max_rel": _rel(
+            state["mamba"][name].cpu(),
+            block_view(one["state"]["mamba"][name],
+                       state_spec["mamba"][name], mesh))}
+    return out
+
+
+def hybrid_decode_check(cmp, dtype: str) -> list:
+    """What breaks (f)'s bounds in ``hybrid_decode_compare``'s record:
+    every value within HYB_DECODE_BOUNDS of ``dtype``, the unwritten K/V
+    slots equal, in f32 every call's tokens equal."""
+    bound = HYB_DECODE_BOUNDS[dtype]
+    out = ([] if cmp["tokens_equal"] or dtype != "float32"
+           else ["tokens"])
+    for k, c in cmp.items():
+        if k == "tokens_equal":
+            continue
+        leaf = k.split("/")[-1]
+        written = c.get("written_max_rel")
+        if "kept_equal" in c and not (c["kept_equal"] and (
+                written is None or written <= bound["kv"])):
+            out.append((k, c))
+        if "max_rel" in c and not c["max_rel"] <= bound[leaf]:
+            out.append((k, c))
+    return out
+
+
+#: the decode's sublayers, each a hook of ``transformer.Whole`` and of
+#: ``partition.Partition`` taking (cfg, h, ...)
+HYB_SUBLAYERS = ("decode_attention", "mamba_decode", "ffn")
+
+
+def _route_sublayers(part, fn):
+    """Send each of HYB_SUBLAYERS of ``part`` through ``fn(i, sublayer,
+    cfg, h, *rest)``, ``i`` counting the calls from 0 and ``sublayer``
+    the hook itself.  Returns what takes the routing out."""
+    count = [0]
+
+    def route(hook):
+        def routed(cfg, h, *rest):
+            count[0] += 1
+            return fn(count[0] - 1, hook, cfg, h, *rest)
+        return routed
+
+    for name in HYB_SUBLAYERS:
+        setattr(part, name, route(getattr(part, name)))
+    return lambda: [part.__dict__.pop(n) for n in HYB_SUBLAYERS]
+
+
+def _first(out):
+    """A sublayer's output tensor (``mamba_decode`` and ``ffn`` return
+    it first in a tuple)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def hybrid_decode_forced_check(rec) -> list:
+    """What breaks the forced call's bounds in ``hybrid_decode_forced``'s
+    record: its token, its logits, and each Mamba and FFN sublayer's
+    output and each Mamba sublayer's (B, C, dt)."""
+    out = [] if rec["token_equal"] else ["token"]
+    if not rec["logits_max_rel"] <= HYB_DECODE_REL:
+        out.append(("logits", rec["logits_max_rel"]))
+    for i, r in enumerate(rec["sublayers"]):
+        for what in ("out", "bcdt"):
+            if r["name"] == "decode_attention" or what not in r:
+                continue
+            frac, ulps = r[what]
+            if not (frac <= HYB_FORCED_FRAC and ulps <= HYB_FORCED_ULPS):
+                out.append((i, r["name"], what, frac, ulps))
+    return out
+
+
+def _bf16_apart(torch, got, want) -> list:
+    """[share of the elements of ``got`` apart from ``want``, their largest
+    distance in bf16 ulps of ``want`` (values below 2^-8 of its largest
+    counted at that ulp)]."""
+    got, want = got.float().cpu(), want.float().cpu()
+    apart = (got - want).abs()
+    ulp = bf16_ulp(torch, want, float(want.abs().max()) * 2.0 ** -8)
+    return [float((apart > 0).float().mean()), float((apart / ulp).max())]
+
+
+def _hybrid_one_rank(torch, dtype, forced, device, one_mesh):
+    """Rank 0's decode of (f)'s cell in ``dtype`` alone: greedy from the
+    first token, or teacher-forced with ``forced``.  (record, saved
+    values: tokens, the first and the last call's logits, state, and per
+    sublayer of the first call its name, input, output and, for a Mamba
+    sublayer, its (B, C, dt): ``sublayers``)."""
+    from unittest import mock
+    from repro_torch import tree as tree_util
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import layers, ssm
+    from repro_torch.models.transformer import WHOLE
+    cfg, shape = hybrid_decode_cell(dtype)
+    bundle = build_serve_step(cfg, one_mesh, shape)
+    params = hybrid_decode_params(torch, cfg, device)
+    state = hybrid_decode_state(torch, cfg, shape, device)
+    seen, sublayers = [], []
+    unembed, matmul = layers.unembed, ssm._matmul
+
+    def captured(*a, **kw):
+        logits = unembed(*a, **kw)
+        seen.append(logits[:, -1].float().cpu())
+        return logits
+
+    def record(i, hook, cfg_, h, *rest):
+        if i >= 2 * cfg.n_layers:
+            return hook(cfg_, h, *rest)
+        bcdt = []
+
+        def spy(x, wt):
+            y = matmul(x, wt)
+            if wt is rest[0].get("w_bcdt"):
+                bcdt.append(y.cpu())
+            return y
+
+        with mock.patch.object(ssm, "_matmul", spy):
+            out = hook(cfg_, h, *rest)
+        sublayers.append({"name": hook.__name__, "in": h.cpu(),
+                          "out": _first(out).cpu(),
+                          "bcdt": bcdt[0] if bcdt else None})
+        return out
+
+    feed = None if forced is None else [t.to(device) for t in forced]
+    unroute = _route_sublayers(WHOLE, record)
+    try:
+        with mock.patch.object(layers, "unembed", captured):
+            tokens, state, secs, peak, counts, launches = _decode_calls(
+                torch, bundle, params, state,
+                hybrid_decode_first(torch).to(device), feed, device,
+                HYB_DECODE_START)
+    finally:
+        unroute()
+    rec = {"partitioned": bundle.partitioned, "call_seconds": secs,
+           "peak_bytes": peak, "counts": counts, "launches": launches,
+           "tokens": [t.tolist() for t in tokens]}
+    saved = {"tokens": tokens, "logits": seen[-1], "first_logits": seen[0],
+             "sublayers": sublayers,
+             "state": tree_util.tree_map(lambda x: x.cpu(), state)}
+    return rec, saved
+
+
+def hybrid_decode_forced(torch, bundle, params, cfg, shape, feed, one,
+                         token_spec, state_spec, mesh, device):
+    """One call of the mesh's decode from (f)'s first state, each
+    sublayer fed the one rank's input of its first call (``one
+    ["sublayers"]``, the rank's rows), and each Mamba sublayer, once the
+    mesh has summed its (B, C, dt) over 'model' (``reduce_bcdt``), the
+    one rank's (B, C, dt): one value of B, C or dt rounded apart moves
+    every channel of the sublayer's output, as does one element of q
+    every value of its head.  Whether its token equals the one rank's,
+    its logits' largest distance over the block's largest one-rank logit,
+    and per sublayer its name and ``_bf16_apart`` of its output
+    (``out``) and of its summed (B, C, dt) (``bcdt``) from the one
+    rank's."""
+    from repro_torch.launch.mesh import block_view, place
+    from repro_torch.models.sharding import PartitionSpec
+    part = bundle.fn.partition
+    rows = PartitionSpec(*token_spec[:1])
+    found, seen = [], []
+    greedy = part.greedy
+
+    def captured(logits):
+        seen[:] = [logits[:, -1].float().cpu()]
+        return greedy(logits)
+
+    def fed(i, hook, cfg_, h, *rest):
+        sub = one["sublayers"][i]
+        rec = {"name": sub["name"]}
+        planted = part.__dict__.get("reduce_bcdt")
+        reduce = part.reduce_bcdt
+        if sub["bcdt"] is not None:
+            want = block_view(sub["bcdt"], rows, mesh)
+
+            def one_bcdt(t):
+                rec["bcdt"] = _bf16_apart(torch, reduce(t).to(want.dtype),
+                                          want)
+                return want.to(t.device).float()
+
+            part.reduce_bcdt = one_bcdt
+        try:
+            out = hook(cfg_, block_view(sub["in"], rows, mesh).to(h.device),
+                       *rest)
+        finally:
+            part.__dict__.pop("reduce_bcdt", None)
+            if planted is not None:
+                part.reduce_bcdt = planted
+        rec["out"] = _bf16_apart(torch, _first(out),
+                                 block_view(sub["out"], rows, mesh))
+        found.append(rec)
+        return out
+
+    state = place(hybrid_decode_state(torch, cfg, shape, device),
+                  state_spec, mesh)
+    part.greedy = captured
+    unroute = _route_sublayers(part, fed)
+    try:
+        token, _ = bundle.fn(params, feed[0], state, HYB_DECODE_START)
+    finally:
+        unroute()
+        part.greedy = greedy
+    want = block_view(one["first_logits"], PartitionSpec(
+        rows[0] if len(rows) else None, "model"), mesh)
+    return {"token_equal": bool(torch.equal(
+                token[:, 0].cpu(), block_view(one["tokens"][0], rows,
+                                              mesh))),
+            "logits_max_rel": _rel(seen[0], want), "sublayers": found}
+
+
+def hybrid_decode_rank(rank: int, world: int, one_path: str):
+    """Part (f) on one of four ranks, cuBLAS's reduced precision bf16
+    reductions off.  Rank 0 alone on a (1, 1) mesh: the bf16 decode,
+    greedy, then the f32 decode teacher-forced with its tokens, both
+    saved to ``one_path``, and how far the bf16 values lie from the f32
+    ones (``bf16_vs_f32``, printed only).  Then in each of
+    ``HYB_DECODE_DTYPES`` each of ``DECODE_SHAPES`` on blocks,
+    teacher-forced with the bf16 tokens and held to the one rank's
+    values of that dtype (``hybrid_decode_compare``), in bf16 one call
+    more with each sublayer fed the one rank's input
+    (``hybrid_decode_forced``), and on ``DECODE_PLANT`` once more with
+    each of ``HYB_PLANTS`` of the dtype."""
+    import torch
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return _hybrid_decode_rank(torch, rank, one_path)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def _hybrid_decode_rank(torch, rank: int, one_path: str):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, place
+    from repro_torch.launch.steps import build_serve_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = MESH_DEVICE
+    out = {}
+    # every rank takes part in making a mesh's groups
+    one_mesh = make_mesh((1, 1), ("data", "model"), devices=[0])
+    if rank == 0:
+        rec, bf16 = _hybrid_one_rank(torch, "bfloat16", None, device,
+                                     one_mesh)
+        out["one", "bfloat16"] = rec
+        release(torch)
+        forced = ([hybrid_decode_first(torch)]
+                  + [t[:, None] for t in bf16["tokens"][:-1]])
+        rec, f32 = _hybrid_one_rank(torch, "float32", forced, device,
+                                    one_mesh)
+        out["one", "float32"] = rec
+        release(torch)
+        apart = {"logits": _rel(bf16["logits"], f32["logits"])}
+        for leaf in ("conv", "h"):
+            apart[f"mamba/{leaf}"] = _rel(bf16["state"]["mamba"][leaf],
+                                          f32["state"]["mamba"][leaf])
+        for leaf in ("k", "v"):
+            apart[f"kv/{leaf}"] = _rel(
+                bf16["state"]["kv"][leaf][:, :, HYB_DECODE_START:],
+                f32["state"]["kv"][leaf][:, :, HYB_DECODE_START:])
+        out["bf16_vs_f32"] = apart
+        torch.save({"bfloat16": bf16, "float32": f32}, one_path)
+        del bf16, f32
+    dist.barrier()
+    ones = torch.load(one_path)
+    forced = ([hybrid_decode_first(torch)]
+              + [t[:, None] for t in ones["bfloat16"]["tokens"][:-1]])
+    for dtype in HYB_DECODE_DTYPES:
+        cfg, shape = hybrid_decode_cell(dtype)
+        one = ones[dtype]
+        for shape_, axes in DECODE_SHAPES:
+            mesh = make_mesh(shape_, axes)
+            bundle = build_serve_step(cfg, mesh, shape)
+            p_sh, tok_sh, c_sh, _ = bundle.in_shardings
+            part = bundle.fn.partition
+            params = hybrid_decode_params(torch, cfg, device, p_sh, mesh)
+            feed = [place(t, tok_sh, mesh).to(device) for t in forced]
+            seen = []
+            greedy = part.greedy
+
+            def captured(logits):
+                seen[:] = [logits[:, -1].float().cpu()]
+                return greedy(logits)
+
+            part.greedy = captured
+
+            def decode():
+                state = place(hybrid_decode_state(torch, cfg, shape,
+                                                  device), c_sh, mesh)
+                tokens, state, secs, peak, counts, launches = \
+                    _decode_calls(torch, bundle, params, state, None, feed,
+                                  device, HYB_DECODE_START)
+                return (hybrid_decode_compare(torch, tokens, seen[0],
+                                              state, one, tok_sh, c_sh,
+                                              mesh),
+                        secs, peak, counts, launches)
+
+            def forced_call():
+                return hybrid_decode_forced(torch, bundle, params, cfg,
+                                            shape, feed, one, tok_sh, c_sh,
+                                            mesh, device)
+
+            cmp, secs, peak, counts, launches = decode()
+            rec = {"partitioned": bundle.partitioned, "call_seconds": secs,
+                   "peak_bytes": peak, "counts": counts,
+                   "launches": launches, "seq_axes": part.seq_axes,
+                   "compare": cmp, "planted": {}}
+            if dtype == "bfloat16":
+                rec["forced"] = forced_call()
+            for fault, (_, dtypes, factor) in HYB_PLANTS.items():
+                if tuple(shape_) != DECODE_PLANT or dtype not in dtypes:
+                    continue
+                hybrid_decode_plant(torch, part, fault)
+                rec["planted"][fault] = (decode()[0] if factor is not None
+                                         else forced_call())
+                part.__dict__.pop("reduce_bcdt", None)
+                part.__dict__.pop("reduce_out", None)
+            out[dtype, tuple(shape_)] = rec
+            del params, bundle, part, feed
+            release(torch)
+    return out
+
+
+def hybrid_decode_predictions() -> dict:
+    """The dry run's count of (f)'s cell in each of
+    ``HYB_DECODE_DTYPES`` on a (1, 1) mesh and on each of
+    ``DECODE_SHAPES``, by (dtype, mesh shape)."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for dtype in HYB_DECODE_DTYPES:
+        cfg, shape = hybrid_decode_cell(dtype)
+        for s in [(1, 1)] + [s for s, _ in DECODE_SHAPES]:
+            out[dtype, tuple(s)] = dryrun.run_cell(
+                JAMBA, "decode_32k", False, verbose=False, cfg=cfg,
+                shape=shape, mesh_shape=s)
+    return out
+
+
+def _warm(secs) -> list:
+    """A decode's call seconds but the first (cold) one's."""
+    return list(secs[1:])
+
+
+def hybrid_decode_report(outs, preds, seconds: float) -> dict:
+    """(f)'s records: the four ranks' ``hybrid_decode_rank`` results
+    beside the dry run's count of each cell
+    (``hybrid_decode_predictions``); fails on a broken bound
+    (``hybrid_decode_check``, ``hybrid_decode_forced_check``), a planted
+    fault of HYB_PLANTS missed by less than its factor times
+    HYB_DECODE_REL or passing the forced call's check, a peak more than
+    ``HYB_DECODE_PEAK_GAP_GB`` from the dry run's, or a call's
+    collectives or ``rmsnorm`` launches other than the dry run's.
+    Returns the kernel launches of (f)'s calls, every rank's (the
+    planted faults' aside)."""
+    launched = {}
+
+    def check_calls(what, recs, pred):
+        for i, r in enumerate(recs):
+            for call, (c, n) in enumerate(zip(r["counts"], r["launches"])):
+                for k, v in n.items():
+                    launched[k] = launched.get(k, 0) + v
+                got = {MESH_KINDS[k]: v for k, v in c.items()
+                       if k in MESH_KINDS and v}
+                if got != pred["collective_counts"]:
+                    fail(f"hybrid decode {what} rank {i} call {call}: "
+                         f"collectives {got}, the dry run's "
+                         f"{pred['collective_counts']}")
+                if n != pred["kernel_calls"] or not n:
+                    fail(f"hybrid decode {what} rank {i} call {call}: "
+                         f"launches {n}, the dry run's "
+                         f"{pred['kernel_calls']}")
+            gap = (r["peak_bytes"]
+                   - pred["peak_gib_per_chip"] * 2**30) / 1e9
+            if abs(gap) > HYB_DECODE_PEAK_GAP_GB:
+                fail(f"hybrid decode {what} rank {i}: peak "
+                     f"{r['peak_bytes'] / 1e9} GB, {gap} GB from the dry "
+                     "run's")
+
+    cfg, shape = hybrid_decode_cell()
+    for dtype in HYB_DECODE_DTYPES:
+        one, pred = outs[0]["one", dtype], preds[dtype, (1, 1)]
+        say({"phase": "dryrun hybrid decode one rank", "arch": JAMBA,
+             "dtype": dtype,
+             "cut": f"{cfg.n_layers} layers (one period group) of the "
+                    f"published widths, dense FFNs, a state of "
+                    f"{HYB_DECODE_SLOTS} KV slots, {HYB_DECODE_BATCH} "
+                    f"rows, {DECODE_STEPS} tokens from {HYB_DECODE_START}",
+             "partitioned": one["partitioned"],
+             "seconds": sum(one["call_seconds"]),
+             "warm_call_seconds": _warm(one["call_seconds"]),
+             "peak_gb": one["peak_bytes"] / 1e9,
+             "dryrun_peak_gb": pred["peak_gib_per_chip"] * 2**30 / 1e9,
+             "launches_per_call": one["launches"][0],
+             "dryrun_kernel_calls": pred["kernel_calls"],
+             "tokens": one["tokens"],
+             "bf16_vs_f32": (outs[0]["bf16_vs_f32"]
+                             if dtype == "bfloat16" else None)})
+        check_calls(f"{dtype} 1x1", [one], pred)
+        for shape_, axes in DECODE_SHAPES:
+            label = f"{dtype} " + "x".join(map(str, shape_))
+            pred = preds[dtype, tuple(shape_)]
+            peak_pred = pred["peak_gib_per_chip"] * 2**30
+            recs = [o[dtype, tuple(shape_)] for o in outs]
+            rec = {"phase": "dryrun hybrid decode four ranks",
+                   "dtype": dtype, "mesh": dict(zip(axes, shape_)),
+                   "partitioned": [r["partitioned"] for r in recs],
+                   "cache_seq_axes": recs[0]["seq_axes"],
+                   "seconds": [sum(r["call_seconds"]) for r in recs],
+                   "warm_call_seconds": [_warm(r["call_seconds"])
+                                         for r in recs],
+                   "peak_gb": [r["peak_bytes"] / 1e9 for r in recs],
+                   "dryrun_peak_gb": peak_pred / 1e9,
+                   "peak_gap_gb": [(r["peak_bytes"] - peak_pred) / 1e9
+                                   for r in recs],
+                   "collectives_per_call": recs[0]["counts"][0],
+                   "dryrun_collectives": pred["collective_counts"],
+                   "launches_per_call": recs[0]["launches"][0],
+                   "dryrun_kernel_calls": pred["kernel_calls"],
+                   "compare": [r["compare"] for r in recs],
+                   "tol": {"tokens": ("equal" if dtype == "float32"
+                                      else "printed"),
+                           "rel": HYB_DECODE_BOUNDS[dtype],
+                           "kv_kept": "bit for bit",
+                           "forced": (None if dtype == "float32" else {
+                               "ulps": HYB_FORCED_ULPS,
+                               "frac": HYB_FORCED_FRAC,
+                               "logits": HYB_DECODE_REL})}}
+            planted = {}
+            for fault in recs[0]["planted"]:
+                what, _, factor = HYB_PLANTS[fault]
+                got = [r["planted"][fault] for r in recs]
+                if factor is None:
+                    planted[fault] = {
+                        "fault": what, "in": "the forced call",
+                        "broken": [hybrid_decode_forced_check(g)
+                                   for g in got],
+                        "logits_rel": [g["logits_max_rel"] for g in got],
+                        "sublayers": [g["sublayers"] for g in got]}
+                    continue
+                rels = [g["logits"]["max_rel"] for g in got]
+                planted[fault] = {
+                    "fault": what, "logits_rel": rels,
+                    "over_tol": [p / HYB_DECODE_REL for p in rels],
+                    "must_exceed": factor, "compare": got}
+            if planted:
+                rec["planted_faults"] = planted
+            if dtype == "bfloat16":
+                rec["forced"] = [r["forced"] for r in recs]
+            say(rec)
+            if not all(rec["partitioned"]):
+                fail(f"hybrid decode {label}: a rank did not take the "
+                     "partitioned decode")
+            broken = [(i, hybrid_decode_check(r["compare"], dtype))
+                      for i, r in enumerate(recs)]
+            broken += [(i, "forced", hybrid_decode_forced_check(f))
+                       for i, f in enumerate(rec.get("forced", []))]
+            broken = [b for b in broken if b[-1]]
+            if broken:
+                fail(f"hybrid decode {label}: ranks off the one rank's: "
+                     f"{broken}")
+            for fault, p in planted.items():
+                if "broken" in p:
+                    if not all(p["broken"]):
+                        fail(f"hybrid decode {label}: the planted fault "
+                             f"{fault} passed the forced call's check on "
+                             "a rank")
+                elif not min(p["over_tol"]) >= p["must_exceed"]:
+                    fail(f"hybrid decode {label}: the planted fault "
+                         f"{fault} missed by {min(p['logits_rel'])}, less "
+                         f"than {p['must_exceed']} times {HYB_DECODE_REL}")
+            check_calls(label, recs, pred)
+    say({"phase": "dryrun hybrid decode", "seconds": seconds})
+    return launched
+
+
 #: the one spawn of four ranks that runs (b)-(e): its time limit
 DRYRUN_RANK_TIMEOUT_S = 900.0
 
 
 def dryrun_rank(rank: int, world: int, part_path: str, prefill_path: str,
-                hybrid_path: str, decode_path: str):
-    """(b)-(e) on one of four ranks sharing the card, in one spawn:
+                hybrid_path: str, decode_path: str, hybrid_decode_path: str):
+    """(b)-(f) on one of four ranks sharing the card, in one spawn:
     (b)'s one-rank step on rank 0 alone (a (1, 1) mesh; the others
     wait), (b) on each of ``PART_SHAPES`` (``part_rank``), then (c)
     (``prefill_rank``), then (e) from (c)'s saved prefill
     (``decode_rank``), then (d) as (b) on ``HYB_SHAPES`` and its prefill
-    (``hybrid_prefill_rank``).  Between them every rank frees what the
-    part left (``release``), so that four ranks fit the card as they did
-    in spawns of their own.  Returns each part's record, the bytes the
-    rank kept reserved after each (``reserved``), the bytes of pinned
-    host exchange segments it mapped then (``exchange``) and the parts'
-    wall seconds (``b_seconds``, ``c_seconds``, ``e_seconds``,
-    ``d_seconds``)."""
+    (``hybrid_prefill_rank``), then (f) (``hybrid_decode_rank``).
+    Between them every rank frees what the part left (``release``), so
+    that four ranks fit the card as they did in spawns of their own.
+    Returns each part's record, the bytes the rank kept reserved after
+    each (``reserved``), the bytes of pinned host exchange segments it
+    mapped then (``exchange``) and the parts' wall seconds
+    (``b_seconds``, ``c_seconds``, ``e_seconds``, ``d_seconds``,
+    ``f_seconds``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import host_exchange_bytes, make_mesh
@@ -3604,8 +4271,14 @@ def dryrun_rank(rank: int, world: int, part_path: str, prefill_path: str,
     progress("(d) prefill")
     out["d_prefill"] = hybrid_prefill_rank(rank, one)
     freed()
+    t4 = time.monotonic()
+    progress("(f)")
+    out["hybrid_decode"] = hybrid_decode_rank(rank, world,
+                                              hybrid_decode_path)
+    freed()
     out["b_seconds"], out["c_seconds"] = t1 - t0, t2 - t1
-    out["e_seconds"], out["d_seconds"] = t3 - t2, time.monotonic() - t3
+    out["e_seconds"], out["d_seconds"] = t3 - t2, t4 - t3
+    out["f_seconds"] = time.monotonic() - t4
     return out
 
 
@@ -3780,9 +4453,10 @@ def run_dryrun_phase(torch, src: str):
     (``hybrid_prefill_report``).  (b), (c) and (d) run in one spawn of
     four ranks (``dryrun_rank``): the dry run's counts are made on a
     thread beside it, the checks after it.  (e) the partitioned decode
-    (``decode_rank``, ``decode_report``), in the same spawn after (c).
-    Returns the kernel launches of (d)'s steps (``part_report``) and
-    (e)'s calls."""
+    (``decode_rank``, ``decode_report``), in the same spawn after (c);
+    (f) Jamba's (``hybrid_decode_rank``, ``hybrid_decode_report``) after
+    (d).  Returns the kernel launches of (d)'s steps (``part_report``)
+    and (e)'s and (f)'s calls."""
     import threading
     from repro_torch.configs import arch_names
     from repro_torch.launch import mesh as mesh_lib
@@ -3795,6 +4469,9 @@ def run_dryrun_phase(torch, src: str):
     prefill_path = os.path.join(work, "prefill_one_rank.pt")
     hybrid_path = os.path.join(work, "hybrid_one_rank_params.pt")
     decode_path = os.path.join(work, "decode_one_rank.pt")
+    hybrid_decode_path = os.path.join(work, "hybrid_decode_one_rank.pt")
+    paths = (one_path, prefill_path, hybrid_path, decode_path,
+             hybrid_decode_path)
     preds = {}
 
     def predict():
@@ -3803,6 +4480,7 @@ def run_dryrun_phase(torch, src: str):
             preds["c"] = prefill_predictions()
             preds["e"] = decode_predictions()
             preds["d"] = part_predictions("d")
+            preds["f"] = hybrid_decode_predictions()
         except BaseException as e:        # re-raised after the spawn
             preds["error"] = e
 
@@ -3810,13 +4488,11 @@ def run_dryrun_phase(torch, src: str):
     thread.start()
     try:
         t1 = time.monotonic()
-        ranks = mesh_lib.run_ranks(dryrun_rank, 4, work,
-                                   args=(one_path, prefill_path,
-                                         hybrid_path, decode_path),
+        ranks = mesh_lib.run_ranks(dryrun_rank, 4, work, args=paths,
                                    timeout=DRYRUN_RANK_TIMEOUT_S, threads=2)
     finally:
         thread.join()
-        for path in (one_path, prefill_path, hybrid_path, decode_path):
+        for path in paths:
             if os.path.exists(path):
                 os.unlink(path)
     if "error" in preds:
@@ -3826,6 +4502,7 @@ def run_dryrun_phase(torch, src: str):
          "c_seconds": ranks[0]["c_seconds"],
          "e_seconds": ranks[0]["e_seconds"],
          "d_seconds": ranks[0]["d_seconds"],
+         "f_seconds": ranks[0]["f_seconds"],
          "reserved_gb_after_parts": [[b / 1e9 for b in r["reserved"]]
                                      for r in ranks],
          "exchange_gb_after_parts": [[b / 1e9 for b in r["exchange"]]
@@ -3836,9 +4513,12 @@ def run_dryrun_phase(torch, src: str):
     decoded = decode_report([r["decode"] for r in ranks], preds["e"],
                             ranks[0]["e_seconds"])
     launched = part_report(ranks, "d", preds["d"])
-    for name, n in decoded.items():
-        launched[name] = launched.get(name, 0) + n
     hybrid_prefill_report(ranks)
+    hybrid = hybrid_decode_report([r["hybrid_decode"] for r in ranks],
+                                  preds["f"], ranks[0]["f_seconds"])
+    for calls in (decoded, hybrid):
+        for name, n in calls.items():
+            launched[name] = launched.get(name, 0) + n
 
     rows = cells.collect()
     for r in rows:
@@ -4718,7 +5398,7 @@ def main(argv=None) -> None:
     mark("dryrun")
     # -- the dry run's cells; the partitioned step on four ranks ----------
     # (d)'s steps launch the scan and the norms on its four ranks, (e)'s
-    # calls the norm
+    # and (f)'s calls the norm
     for name, n in run_dryrun_phase(torch, args.src).items():
         launches[name] += n
 

@@ -29,14 +29,16 @@ port keeps the reference's values and its per-device storage:
   ``cache_specs`` gives it, the greedy token an argmax over the
   vocabulary blocks; for the hybrid its loss over the global batch; it
   gathers no whole parameter;
-* the transformers' decode computes on blocks too (``build_serve_step``):
-  per layer the FSDP gather, heads over 'model', attention of every head
+* their decode computes on blocks too (``build_serve_step``): per
+  layer the FSDP gather, heads over 'model', attention of every head
   over the rank's block of the KV cache's sequence joined by a
-  log-sum-exp combine over the cache's sequence axes, the cache updated
-  in place where it lies; it gathers neither a whole parameter nor the
-  cache's whole sequence;
-* every other config (xLSTM, Whisper, role 'dp'), their prefill
-  and decode, and the hybrid's decode gather each parameter whole
+  log-sum-exp combine over the cache's sequence axes, the hybrid's
+  Mamba slots on the rank's channel block of the layer and of the
+  recurrent state, the cache and state updated in place where they
+  lie; it gathers neither a whole parameter (an MoE's experts aside)
+  nor the cache's whole sequence nor a whole Mamba state leaf;
+* every other config (xLSTM, Whisper, role 'dp', a sliding window's
+  ring cache), their prefill and decode gather each parameter whole
   and run the model on the rank's batch rows, then average the
   gradients over the batch's mesh axes (an f32 ``all_reduce`` sum, a
   division by a tensor) and take each rank's block: ranks on one
@@ -479,12 +481,13 @@ def _own_block(x: torch.Tensor, spec: PartitionSpec, mesh,
 
 # ------------------------------------------------------------------ decode
 def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec) -> StepBundle:
-    """The transformers under role 'tp' decode on blocks
+    """The transformers and the hybrid under role 'tp' decode on blocks
     (``models.partition``, ``decoding=True``): the bundle gathers no
-    whole parameter and no whole sequence of the cache, updates the
-    rank's cache blocks in place and returns the rank's rows of the
-    token.  Every other config and a mesh of one rank gather the
-    parameters and the cache's sequence whole."""
+    whole parameter (an MoE's experts aside), no whole sequence of the
+    cache and no whole Mamba state leaf, updates the rank's cache and
+    state blocks in place and returns the rank's rows of the token.
+    Every other config (xLSTM, Whisper, a ring cache) and a mesh of one
+    rank gather the parameters and the cache's sequence whole."""
     # decode always uses TP weight sharding (sp=False, role='tp')
     rules = rules_for_mesh(mesh, sp=False, role="tp")
     if not cfg.decode_batch_shard:
@@ -508,7 +511,8 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec) -> StepBundle:
     entry = _rows_axes_entry(rules, b)
     c_specs = tree_util.leaves(cache_spec, is_leaf=is_spec)
     part = None
-    if cfg.family in ("dense", "vlm", "moe") and cfg.model_axis_role == "tp":
+    if (cfg.family in ("dense", "vlm", "moe", "hybrid")
+            and cfg.model_axis_role == "tp"):
         part = partition_for(cfg, mesh, rules, p_spec, spec_axes(tok_spec),
                              decoding=True)
     if part is not None:
@@ -518,8 +522,8 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec) -> StepBundle:
             """``cache`` (this rank's blocks) is updated in place;
             ``index`` is a host int."""
             with use_rules(rules), torch.no_grad():
-                logits, cache = transformer.forward_decode(
-                    cfg, params, token, cache, index, part)
+                logits, cache = fam.decode_fn(cfg, params, token, cache,
+                                              index, part)
                 next_token = part.greedy(logits)[:, None]
             return next_token, cache
     else:

@@ -23,7 +23,8 @@ Decode (``init_state``, ``forward_decode``) is the reference's: one
 token through every group, the attention slot over its KV cache and
 each Mamba slot one recurrence step (``ssm.mamba_decode``), the state
 updated in place and returned.  ``state_specs`` places the state on a
-mesh.
+mesh; ``forward_decode`` takes the same hooks (``decode_attention``,
+``mamba_decode`` among them), so a mesh decodes on its blocks.
 """
 
 from __future__ import annotations
@@ -193,25 +194,30 @@ def state_specs(cfg: ModelConfig, batch: int, max_seq: int, rules):
 
 def forward_decode(cfg: ModelConfig, params: Dict[str, Any],
                    token: torch.Tensor, state: Dict[str, Any], index: int,
+                   part: T.Whole = T.WHOLE
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: token (b, 1) at position ``index`` (a host int).
-    Returns (logits (b, 1, v), state), the state updated in place."""
+    Returns (logits (b, 1, v), state), the state updated in place.
+    ``part``: a rank's block of the compute on a mesh
+    (``models.partition``): the state is then the rank's block of
+    ``state_specs``, the logits the rank's vocabulary block
+    (``part.greedy`` takes the token)."""
     kinds = _slot_kinds(cfg)
     groups = cfg.n_layers // (cfg.attn_period or 1)
-    x = L.embed(token, params["embed"]).to(torch_dtype(cfg.dtype))
+    x = part.embed(cfg, token, params["embed"]).to(torch_dtype(cfg.dtype))
     per_slot = [T.layer_weights(slot, groups) for slot in params["slots"]]
     kv, mamba = state["kv"], state["mamba"]
     for g in range(groups):
         mi = 0  # mamba slot counter within the group
-        for (mixer, ffn), ws in zip(kinds, per_slot):
-            w = ws[g]
+        for j, ((mixer, _), ws) in enumerate(zip(kinds, per_slot)):
+            w = part.layer(ws[g], j)
             h = L.apply_norm(cfg, x, w["mixer_norm"])
             if mixer == "attn":
-                out = L.decode_attention_block(
+                out = part.decode_attention(
                     cfg, h, w["attn"], {"k": kv["k"][g], "v": kv["v"][g]},
                     index)
             else:
-                out, st = ssm.mamba_decode(
+                out, st = part.mamba_decode(
                     cfg, h, w["mamba"], {"conv": mamba["conv"][g, mi],
                                          "h": mamba["h"][g, mi]})
                 mamba["conv"][g, mi] = st["conv"]
@@ -219,11 +225,7 @@ def forward_decode(cfg: ModelConfig, params: Dict[str, Any],
                 mi += 1
             x = x + out
             h = L.apply_norm(cfg, x, w["ffn_norm"])
-            if ffn == "moe":
-                out, _ = moe_lib.moe_block(cfg, h, w["moe"])
-            else:
-                out = L.mlp_block(cfg, h, w["mlp"])
-            x = x + out
-    x = L.apply_norm(cfg, x, params["final_norm"])
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed(x, table, cfg.vocab_size), state
+            x = x + part.ffn(cfg, h, w)[0]
+    x = L.apply_norm(cfg, x, part.final_norm(params["final_norm"]))
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    return part.unembed_row(cfg, x, params[name], name), state

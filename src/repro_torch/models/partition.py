@@ -95,10 +95,11 @@ The hybrid's prefill (``build_prefill_step``) is its loss on blocks
 under ``no_grad``, the aux loss over the global batch as in training.
 
 Decode (``decoding=True``, ``launch.steps.build_serve_step``) runs
-``transformer.forward_decode`` through the same hooks under the
-reference's decode rules (``sp=False``, role 'tp'): per layer the FSDP
-gathers and the TP MLP (an MoE's experts whole) as above, the embedding
-and the vocabulary-split logits and ``greedy`` as in prefill, and
+``transformer.forward_decode`` (and the hybrid's, below) through the
+same hooks under the reference's decode rules (``sp=False``, role
+'tp'): per layer the FSDP gathers and the TP MLP (an MoE's experts
+whole) as above, the embedding and the vocabulary-split logits and
+``greedy`` as in prefill, and
 
 * the cache: each rank holds the block ``transformer.cache_specs``
   gives it, the batch rows over the batch's axes and the sequence over
@@ -125,11 +126,26 @@ and the vocabulary-split logits and ``greedy`` as in prefill, and
   sum;
 * a sliding window's ring cache is refused.
 
+The hybrid's decode (``hybrid.forward_decode``) runs the same hooks
+slot by slot: its attention slot as above on that group's KV block
+(``P(None, 'data', 'model')`` for decode_32k's 128 rows, ``P(None,
+None, ('data', 'model'))`` for long_500k's one), its FFNs as above, and
+each Mamba slot on the rank's ``di / m`` channels (``mamba_decode``):
+the residual is whole on every rank, the rank's ``w_in`` columns come
+by ``_channels``' all-to-all, the block's product with ``w_bcdt``'s
+row block is all-reduced over 'model' into the whole (B, C, dt)
+(``reduce_bcdt``), the rank's block of the conv tail and of ``h``
+(``hybrid.state_specs``: rows over the batch's axes, channels over
+'model', in the blocks of ``conv_b``; ``decode_cache`` checks it) takes
+its one recurrence step in place, and the block's partial product with
+``w_out``'s row block is all-reduced over 'model' (``reduce_out``),
+summed in f32 and rounded once as ``wo``'s.  An MoE slot still gathers its experts whole
+per layer (no expert parallelism yet).
+
 What this does not partition (``partition_for`` returns None and the
-step gathers whole leaves): xLSTM and Whisper, role 'dp' configs, a
-mesh of one rank, and the hybrid's decode.  A transformer or hybrid
-config under role 'tp' that it cannot split is refused, not gathered
-whole.
+step gathers whole leaves): xLSTM and Whisper, role 'dp' configs and a
+mesh of one rank.  A transformer or hybrid config under role 'tp' that
+it cannot split is refused, not gathered whole.
 """
 
 from __future__ import annotations
@@ -216,9 +232,10 @@ def partition_for(cfg: ModelConfig, mesh, rules: AxisRules, p_spec: Any,
     every axis but 'model' (decode aside: there a replicated batch
     leaves 'data' to the cache's sequence), or a vocabulary, MLP width
     or Mamba inner dim that 'model' does not split; with ``decoding``,
-    the hybrid and a sliding window's ring cache too.  ``serving``: the
-    transformers' prefill partition (no aux loss); ``decoding``: their
-    decode partition (``Partition.decode_cache`` places its cache)."""
+    a sliding window's ring cache too.  ``serving``: the transformers'
+    prefill partition (no aux loss); ``decoding``: the decode partition
+    of the transformers and the hybrid (``Partition.decode_cache``
+    places its cache or state)."""
     sizes = mesh_axis_sizes(mesh)
     if (cfg.family not in ("dense", "vlm", "moe", "hybrid")
             or rules.rules.get("model") != "model"
@@ -229,8 +246,6 @@ def partition_for(cfg: ModelConfig, mesh, rules: AxisRules, p_spec: Any,
     layers = _layer_specs(p_spec)
     if cfg.act != "silu":
         why = f"act={cfg.act!r} (only the SwiGLU MLP is split)"
-    elif decoding and cfg.family == "hybrid":
-        why = "the hybrid's decode is not split (its Mamba state)"
     elif decoding and cfg.sliding_window is not None:
         why = ("a sliding window's ring cache (its slots are not blocks "
                "of the sequence)")
@@ -529,25 +544,50 @@ class Partition(transformer.Whole):
                     f"({got}), the prefill's blocks as {want}")
 
     # ------------------------------------------------------ decode
-    def decode_cache(self, cache_spec: Dict[str, PartitionSpec]) -> None:
-        """Place the decode cache: every leaf's spec must split the batch
-        rows over the batch's axes and nothing but the sequence besides,
-        the same way for every leaf.  Sets the sequence's live axes
-        (``seq_axes``, in the spec's order: the first major), their
-        groups, and this rank's block index among ``seq_blocks``."""
+    def decode_cache(self, cache_spec: Any) -> None:
+        """Place the decode cache or state (``cache_spec``: the
+        transformers' flat tree, or the hybrid's ``kv`` and ``mamba``).
+        A KV leaf's spec must split its batch rows (dim 1) over the
+        batch's axes and nothing but its sequence (dim 2) besides, the
+        same way for every KV leaf.  A Mamba leaf (``conv`` (groups,
+        slots, rows, k - 1, di), ``h`` (groups, slots, rows, di, ds))
+        must split its rows (dim 2) over the batch's axes and its
+        channels over 'model' alone, in the blocks of the Mamba
+        parameters' channels (``conv_b``), and nothing else.  Any other
+        layout is refused, naming the leaf.  Sets the sequence's live
+        axes (``seq_axes``, from the KV leaves' spec in its order: the
+        first major), their groups, and this rank's block index among
+        ``seq_blocks``."""
         sizes, mesh = self.sizes, self.mesh
         rows = tuple(a for a in self.batch_axes if sizes[a] > 1)
+        conv_b = [w["mamba"]["conv_b"] for w in _layer_specs(self.p_spec)
+                  if "mamba" in w]
+        chans = ("model",) if self.m > 1 else ()
         seq = None
-        for name, spec in cache_spec.items():
+        for path, spec in _spec_paths(cache_spec):
             got = {d: tuple(a for a in axes if sizes[a] > 1)
                    for d, axes in split_dims(spec, mesh).items()}
-            s = got.pop(2, ())
-            if got.pop(1, ()) != rows or got or seq not in (None, s):
+            if path[0] == "mamba":
+                dim = {"conv": 4, "h": 3}.get(path[-1])
+                ok = (dim is not None and bool(conv_b)
+                      and got.pop(2, ()) == rows
+                      and got.pop(dim, ()) == chans
+                      and all(tuple(a for a in _dim_axes(c, 1)
+                                    if sizes[a] > 1) == chans
+                              for c in conv_b))
+                want = (f"its rows over {rows} and its channels over "
+                        f"{chans}, as the Mamba parameters' channels")
+            else:
+                s = got.pop(2, ())
+                ok = got.pop(1, ()) == rows and seq in (None, s)
+                seq = s
+                want = (f"its batch rows over {rows} and its sequence "
+                        "like every other KV leaf's")
+            if not ok or got:
                 raise ValueError(
-                    f"{self.cfg.name}: decode cache {name!r} is split as "
-                    f"{spec}, not as its batch rows over {rows} and its "
-                    "sequence like every other leaf's")
-            seq = s
+                    f"{self.cfg.name}: decode cache "
+                    f"{'/'.join(map(str, path))!r} is split as {spec}, "
+                    f"not as {want}")
         self.seq_axes = seq or ()
         self.seq_groups = [mesh.get_group(a) for a in self.seq_axes]
         self.seq_blocks = math.prod(sizes[a] for a in self.seq_axes)
@@ -679,6 +719,33 @@ class Partition(transformer.Whole):
         if self.sp:
             return scatter_grad(out, mg, 1)
         return reduce_from_group(out, mg)
+
+    def mamba_decode(self, cfg: ModelConfig, h: torch.Tensor,
+                     w: Dict[str, torch.Tensor],
+                     state: Dict[str, torch.Tensor]):
+        """One token's Mamba sublayer on the rank's block of channels and
+        of the state (module docstring): the residual is whole on every
+        rank (TP), the rank's ``w_in`` columns came through ``layer``'s
+        ``_channels``; the block's product with ``w_bcdt``'s row block
+        is summed over 'model' into the whole (B, C, dt)
+        (``reduce_bcdt``), the state block stepped, and the partial
+        product of the block's ``y`` with ``w_out``'s row block summed
+        over 'model' (``reduce_out``), both in f32 and rounded once.
+        (out, the new state block)."""
+        if self.m == 1:
+            return ssm.mamba_decode(cfg, h, w, state)
+        return ssm.mamba_decode(cfg, h, w, state,
+                                reduce_bcdt=self.reduce_bcdt,
+                                reduce_out=self.reduce_out)
+
+    def reduce_bcdt(self, t: torch.Tensor) -> torch.Tensor:
+        """A decode's partial (B, C, dt) in f32, summed over 'model' in
+        place."""
+        return all_reduce_sum_(t, self.mg)
+
+    def reduce_out(self, t: torch.Tensor) -> torch.Tensor:
+        """A decode's partial Mamba output in f32, summed over 'model'."""
+        return reduce_from_group(t, self.mg)
 
     def ffn(self, cfg: ModelConfig, h: torch.Tensor, w: Dict[str, Any]):
         if "moe" in w:

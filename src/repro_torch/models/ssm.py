@@ -102,7 +102,8 @@ def mamba_block(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
     block, the block's rows of ``w_bcdt`` and ``w_out``).  Then
     ``reduce_bcdt`` sums the block's partial product with ``w_bcdt``
     (in f32) into the whole (B, C, dt) over the ranks, and the result is
-    the block's partial sum of the output."""
+    the block's partial sum of the output in x's dtype, for the caller
+    to sum over the ranks."""
     b, l, d = x.shape
     di = w["conv_b"].shape[-1]
     ds = cfg.d_state
@@ -131,17 +132,31 @@ def mamba_block(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
 
 
 def mamba_decode(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
-                 state: Dict[str, torch.Tensor]
+                 state: Dict[str, torch.Tensor],
+                 reduce_bcdt: Optional[Callable] = None,
+                 reduce_out: Optional[Callable] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One token: x (b, 1, d); state conv (b, k-1, di), h (b, di, ds) f32.
-    Returns (out (b, 1, d), new state)."""
+    """One token: x (b, 1, d); state conv (b, k-1, di), h (b, di, ds) f32,
+    over the channels ``w`` holds, as ``mamba_block``: every one, or on
+    a mesh a rank's block of them and of the state.  ``reduce_bcdt``
+    sums the block's partial product with ``w_bcdt`` into the whole (B,
+    C, dt), and ``reduce_out`` the block's partial product with
+    ``w_out`` into the whole output: each is given its partial in f32,
+    unrounded (``layers.wide_product``), and its sum is rounded once.
+    Without a hook that product is the block's own.  Returns (out (b, 1,
+    d) in x's dtype, new state)."""
+    b = x.shape[0]
     ds = cfg.d_state
-    di = cfg.expand * cfg.d_model
+    di = w["conv_b"].shape[-1]
     xin, z = _matmul(x, w["w_in"]).split(di, dim=-1)
     xc, new_tail = _causal_conv(xin, w["conv_w"], w["conv_b"],
                                 tail=state["conv"])
     xc = F.silu(xc.float()).to(x.dtype)
-    bcdt = _matmul(xc, w["w_bcdt"]).float()
+    if reduce_bcdt is None:
+        bcdt = _matmul(xc, w["w_bcdt"]).float()
+    else:
+        part = L.wide_product(xc.reshape(b, di), w["w_bcdt"])[:, None]
+        bcdt = reduce_bcdt(part).to(x.dtype).float()
     bmat, cmat, dt = bcdt[..., :ds], bcdt[..., ds:2 * ds], bcdt[..., 2 * ds:]
     delta = F.softplus(_matmul(dt, w["dt_proj"].float())
                        + w["dt_bias"].float())                 # (b, 1, di)
@@ -153,7 +168,12 @@ def mamba_decode(cfg: ModelConfig, x: torch.Tensor, w: Dict[str, Any],
     y = torch.einsum("bds,bs->bd", h, cmat[:, 0])
     y = y + xcf[:, 0] * w["d_skip"].float()
     y = y[:, None].to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    return _matmul(y, w["w_out"]), {"conv": new_tail, "h": h}
+    if reduce_out is None:
+        out = _matmul(y, w["w_out"])
+    else:
+        part = L.wide_product(y.reshape(b, di), w["w_out"])[:, None]
+        out = reduce_out(part).to(x.dtype)
+    return out, {"conv": new_tail, "h": h}
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:

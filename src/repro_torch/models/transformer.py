@@ -185,6 +185,14 @@ class Whole:
         from repro_torch.models import ssm   # ssm imports this module
         return ssm.mamba_block(cfg, h, w)
 
+    def mamba_decode(self, cfg: ModelConfig, h: torch.Tensor,
+                     w: Dict[str, torch.Tensor],
+                     state: Dict[str, torch.Tensor]):
+        """One token through the hybrid's Mamba sublayer and one step of
+        its state (``ssm.mamba_decode``): (out, the new state)."""
+        from repro_torch.models import ssm
+        return ssm.mamba_decode(cfg, h, w, state)
+
     def unembed(self, cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor,
                 name: str) -> torch.Tensor:
         return L.unembed(x, table, cfg.vocab_size)

@@ -228,11 +228,14 @@ class _Mesh:
 
 
 def test_decode_refuses_a_ring_cache_and_places_the_production_cache():
-    """A sliding window's ring (and the hybrid's state) is refused, not
-    gathered whole.  On the production 16 x 16 mesh (fake ranks) every
+    """A sliding window's ring is refused, not gathered whole, and so is
+    a Mamba inner dim that 'model' does not split; the hybrid's decode
+    is split.  On the production 16 x 16 mesh (fake ranks) every
     transformer's decode_32k bundle is partitioned, and the cache's
     sequence takes ('data', 'model') beside a replicated batch and
-    'model' beside one split over 'data'."""
+    'model' beside one split over 'data'; Jamba's decode_32k state is
+    placed with its KV cache's sequence over 'model' and its Mamba
+    channels over 'model', its rows over 'data'."""
     sizes = {"data": 2, "model": 2}
     rules = single_pod_rules(sizes, sp=False, role="tp")
     ring = get_smoke_config("qwen1.5-110b").scaled(sliding_window=8)
@@ -240,9 +243,17 @@ def test_decode_refuses_a_ring_cache_and_places_the_production_cache():
         partition_for(ring, _Mesh(), rules, registry.param_specs(ring, rules),
                       ("data",), decoding=True)
     jamba = get_smoke_config("jamba-v0.1-52b")
-    with pytest.raises(ValueError, match="hybrid"):
-        partition_for(jamba, _Mesh(), rules,
-                      registry.param_specs(jamba, rules), ("data",),
+    part = partition_for(jamba, _Mesh(), rules,
+                         registry.param_specs(jamba, rules), ("data",),
+                         decoding=True)
+    assert part is not None and part.decoding
+    wide = type("Mesh", (_Mesh,), {"shape": (1, 4)})()
+    wide_rules = single_pod_rules({"data": 1, "model": 4}, sp=False,
+                                  role="tp")
+    odd = jamba.scaled(d_model=65)       # di 130 does not split over 4
+    with pytest.raises(ValueError, match="Mamba inner dim"):
+        partition_for(odd, wide, wide_rules,
+                      registry.param_specs(odd, wide_rules), ("data",),
                       decoding=True)
     replicated = {"qwen1.5-32b", "mistral-large-123b"}
     with dryrun.fake_group(256):
@@ -261,3 +272,50 @@ def test_decode_refuses_a_ring_cache_and_places_the_production_cache():
             assert part.seq_axes == (("data", "model") if arch in replicated
                                      else ("model",)), arch
             assert part.seq_blocks == (256 if arch in replicated else 16)
+        bundle = build_serve_step(get_config("jamba-v0.1-52b"), mesh,
+                                  SHAPES["decode_32k"])
+        assert bundle.partitioned
+        state = bundle.in_shardings[2]
+        assert state["kv"]["k"] == PartitionSpec(None, "data", "model")
+        assert state["mamba"]["conv"] == PartitionSpec(None, None, "data",
+                                                       None, "model")
+        assert state["mamba"]["h"] == PartitionSpec(None, None, "data",
+                                                    "model")
+        part = bundle.fn.partition
+        assert part.seq_axes == ("model",) and part.seq_blocks == 16
+        # long_500k: one row, replicated; the sequence over both axes
+        bundle = build_serve_step(get_config("jamba-v0.1-52b"), mesh,
+                                  SHAPES["long_500k"])
+        assert bundle.partitioned
+        state = bundle.in_shardings[2]
+        assert state["kv"]["k"] == PartitionSpec(None, None,
+                                                 ("data", "model"))
+        assert state["mamba"]["h"] == PartitionSpec(None, None, None,
+                                                    "model")
+        assert bundle.fn.partition.seq_blocks == 256
+
+
+def test_decode_cache_refuses_another_state_layout():
+    """``decode_cache`` takes the hybrid's state as ``state_specs``
+    places it and refuses, naming the leaf, a Mamba state whose channels
+    are not split as the Mamba parameters' or whose rows are split over
+    another axis than the batch's."""
+    from repro_torch.models import hybrid
+    P = PartitionSpec
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    sizes = {"data": 2, "model": 2}
+    rules = single_pod_rules(sizes, sp=False, role="tp")
+    part = partition_for(cfg, _Mesh(), rules,
+                         registry.param_specs(cfg, rules), ("data",),
+                         decoding=True)
+    spec = hybrid.state_specs(cfg, 2, 16, rules)
+    part.decode_cache(spec)
+    assert part.seq_axes == ("model",) and part.seq_blocks == 2
+    bad_h = dict(spec, mamba=dict(spec["mamba"],
+                                  h=P(None, None, "data", None, "model")))
+    with pytest.raises(ValueError, match="mamba/h"):
+        part.decode_cache(bad_h)
+    bad_conv = dict(spec, mamba=dict(spec["mamba"],
+                                     conv=P(None, None, "model")))
+    with pytest.raises(ValueError, match="mamba/conv"):
+        part.decode_cache(bad_conv)

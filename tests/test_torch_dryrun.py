@@ -8,9 +8,10 @@
 * Its collective counts equal those a real four-rank gloo run of the
   same cell records, for a train and a (partitioned) prefill cell, and
   for Jamba's partitioned train cell with its ``ssm_scan`` calls.
-* The transformers and the hybrid under role 'tp' prefill on blocks
-  (``partitioned``), and the transformers decode on blocks, with the
-  collectives of a gloo run's decode call.
+* The transformers and the hybrid under role 'tp' prefill and decode
+  on blocks (``partitioned``), with the collectives of a gloo run's
+  decode call; the two-depth fit of the hybrid's decode gives its
+  direct count.
 * It leaves no process group, the kernel registry as it was, and the
   counters untouched; it refuses to start beside a group.
 * The partitioned step's peak per rank is below the gather-whole step's.
@@ -61,9 +62,10 @@ def test_run_cell_on_every_smoke_config_is_ok(arch):
                 cfg.family in ("dense", "vlm", "moe", "hybrid")
                 and cfg.model_axis_role == "tp")
         if name == "decode":
-            # the transformers under role 'tp' decode on blocks
+            # the transformers and the hybrid under role 'tp' decode on
+            # blocks
             assert rep["partitioned"] == (
-                cfg.family in ("dense", "vlm", "moe")
+                cfg.family in ("dense", "vlm", "moe", "hybrid")
                 and cfg.model_axis_role == "tp")
         if name == "train":
             assert rep["partitioned"] == (
@@ -193,6 +195,55 @@ def test_decode_collective_counts_equal_a_real_four_rank_run(arch,
         assert got["partitioned"]
         assert {KINDS[k]: got[k] for k in KINDS if got[k]} == \
             rep["collective_counts"]
+
+
+def test_hybrid_decode_collective_counts_equal_a_real_four_rank_run(
+        real_counts):
+    """Jamba's smoke decode call on (2, 2), on blocks (the rows over
+    'data', the KV cache's sequence and the Mamba channels over 'model',
+    ``w_in`` moved by an all-to-all, the experts gathered whole): the
+    dry run's collectives per kind against a gloo run's, and its
+    ``rmsnorm`` stand-in calls two a slot and the final norm's."""
+    arch = ranks.HYBRID_ARCH
+    cfg = get_smoke_config(arch)
+    rep = dryrun.run_cell(arch, "decode", False, verbose=False, cfg=cfg,
+                          shape=ShapeSpec("decode", ranks.SEQ, ranks.BATCH,
+                                          "decode"),
+                          mesh_shape=(2, 2))
+    assert rep["partitioned"]
+    assert rep["kernel_calls"] == {"rmsnorm": 2 * cfg.n_layers + 1}
+    assert rep["collective_counts"]["all-to-all"] == (
+        cfg.n_layers - cfg.n_layers // cfg.attn_period)
+    for rank_counts in real_counts:
+        got = rank_counts[f"decode/{arch}"]
+        assert got["partitioned"]
+        assert {KINDS[k]: got[k] for k in KINDS if got[k]} == \
+            rep["collective_counts"]
+
+
+def test_depth_fit_holds_for_a_hybrid_decode_trace():
+    """The hybrid's decode counted at one and two period groups and
+    fitted to three (``depth_fit``, ``_fit``) gives the direct trace's
+    counts at three: every count of a decode call is affine in the
+    groups."""
+    cfg = get_smoke_config(ranks.HYBRID_ARCH)
+    cfg = cfg.scaled(n_layers=3 * cfg.attn_period)
+    shape = ShapeSpec("decode", ranks.SEQ, ranks.BATCH, "decode")
+    cfg1, cfg2, d1, d2, units = dryrun.depth_fit(cfg)
+    assert units == 3
+    with dryrun.fake_group(4):
+        mesh = mesh_lib.make_mesh((2, 2), ("data", "model"))
+        c1, _ = dryrun._cell_counts(cfg1, mesh, shape, {})
+        c2, _ = dryrun._cell_counts(cfg2, mesh, shape, {})
+        direct, partitioned = dryrun._cell_counts(cfg, mesh, shape, {})
+    assert partitioned
+    fit = dryrun._fit(c1, c2, d1, d2, units)
+    for k in ("flops", "bytes", "argument_bytes", "peak_bytes"):
+        assert fit[k] == pytest.approx(direct[k], rel=1e-9), k
+    assert fit["kernels"] == direct["kernels"]
+    got, want = fit["collectives"], direct["collectives"]
+    assert got.count_by_kind == want.count_by_kind
+    assert got.bytes_by_kind == want.bytes_by_kind
 
 
 def test_dry_run_restores_the_process_state():

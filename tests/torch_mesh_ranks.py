@@ -481,7 +481,7 @@ def dryrun_count_ranks(rank, world, seq, batch):
     """One DSSP step (delay 1, the config's optimizer) of
     ``build_train_step`` on (2, 2) for qwen1.5-32b's, h2o-danube's and
     Jamba's smoke configs, qwen1.5-32b's ``build_prefill_step`` and the
-    ``build_serve_step`` of each of ``DECODE_COUNT_ARCHS``: the
+    ``build_serve_step`` of each of ``DECODE_COUNT_ARCHS`` and Jamba: the
     ``perfcount.MESH`` counts of each (what ``launch.dryrun`` predicts
     for the same cell), the prefill's under ``"prefill"``, a decode's
     under ``"decode/<arch>"``, and Jamba's calls of the kernel
@@ -494,7 +494,7 @@ def dryrun_count_ranks(rank, world, seq, batch):
     from repro_torch.launch.mesh import make_mesh, place
     from repro_torch.launch.steps import (build_prefill_step,
                                           build_serve_step, build_train_step)
-    from repro_torch.models import registry, transformer
+    from repro_torch.models import registry
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.perfcount import MESH
     from repro_torch.kernels import registry as kreg
@@ -535,14 +535,15 @@ def dryrun_count_ranks(rank, world, seq, batch):
     MESH.reset()
     pre.fn(params, rows)
     out["prefill"] = dict(MESH.snapshot(), partitioned=pre.partitioned)
-    for arch in DECODE_COUNT_ARCHS:
+    for arch in DECODE_COUNT_ARCHS + (HYBRID_ARCH,):
         cfg = get_smoke_config(arch)
         dec = build_serve_step(cfg, mesh, ShapeSpec("decode", seq, batch,
                                                     "decode"))
         p_sh, tok_sh, c_sh, _ = dec.in_shardings
         params = place(registry.init_params(cfg, seed=0, device="cpu"),
                        p_sh, mesh)
-        cache = place(transformer.init_cache(cfg, batch, seq), c_sh, mesh)
+        cache = place(registry.family(cfg).init_state(cfg, batch, seq),
+                      c_sh, mesh)
         token = place(torch.zeros((batch, 1), dtype=torch.long), tok_sh,
                       mesh)
         MESH.reset()
@@ -960,6 +961,119 @@ def hybrid_partition_ranks(rank, world, meshes, init, lr, tokens, plant):
                 out[f"prefill/{partition}"] = {
                     "partitioned": bundle.partitioned,
                     "loss": float(bundle.fn(params, batch))}
+    return out
+
+
+#: the hybrid's decode on blocks
+#: (``tests/test_torch_hybrid_decode_partition.py``): the state's KV
+#: slots and the tokens decoded from each start's index
+HYBRID_DECODE_CACHE = 16
+HYBRID_DECODE_TOKENS = 3
+
+
+def _state_watch(state):
+    """The shapes of a whole state leaf, of one group's and of one
+    slot's (a Mamba leaf's groups and slots lead)."""
+    out = set()
+    for path, x in _np_paths(state):
+        out |= {x.shape, x.shape[1:]}
+        if path[0] == "mamba":
+            out.add(x.shape[2:])
+    return out
+
+
+def _np_paths(tree, prefix=()):
+    """(path, leaf) of a nested dict of arrays, keys sorted."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    return [pl for k in sorted(tree) for pl in _np_paths(tree[k],
+                                                         prefix + (k,))]
+
+
+def hybrid_decode_ranks(rank, world, cases, init, starts, plant):
+    """``build_serve_step`` for Jamba's f32 smoke config on each of
+    ``cases`` (``(label, shape, axes, batch)``, every mesh over the same
+    four ranks), from each of ``starts[batch]`` (``{name: (first token,
+    whole state as numpy, index)}``): ``HYBRID_DECODE_TOKENS`` greedy
+    tokens from ``index`` on.  Per case and start the partitioned flag,
+    the cache's sequence axes, the rank's tokens of each call and their
+    rows, its block of the last call's logits and that block's place,
+    its state blocks after the last call with their place in the whole
+    state, the mesh counts of each call, and the allocations of whole
+    layer-stacked leaves or of a whole state leaf (or one group's or
+    slot's of one) the calls made; on ``plant`` (a case label and a
+    start) the last call's logits once more with ``reduce_bcdt`` the
+    identity."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh, place
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models.params import from_numpy_tree
+    from repro_torch.perfcount import MESH
+    cfg = get_smoke_config(HYBRID_ARCH)
+    out = {}
+    for label, shape, axes, batch in cases:
+        mesh = make_mesh(shape, axes)
+        bundle = build_serve_step(
+            cfg, mesh, ShapeSpec("d", HYBRID_DECODE_CACHE, batch, "decode"))
+        p_sh, tok_sh, c_sh, _ = bundle.in_shardings
+        part = bundle.fn.partition
+        params = place(from_numpy_tree(init, "cpu"), p_sh, mesh)
+        seen_logits = []
+        greedy = part.greedy
+
+        def captured(logits):
+            seen_logits[:] = [logits[:, -1].numpy().copy()]
+            return greedy(logits)
+
+        part.greedy = captured
+        watch = _stacked_whole_shapes(cfg, p_sh, mesh, True, gathered=True)
+        rows = _block_slices((batch,), tok_sh, mesh)[0]
+        for name, (first, whole, index) in starts[batch].items():
+            watch_s = watch | _state_watch(whole)
+
+            def decode():
+                state = place(tree_util.tree_map(torch.from_numpy, whole),
+                              c_sh, mesh)
+                token = place(torch.from_numpy(first).long(), tok_sh, mesh)
+                seen, tokens, counts = [], [], []
+                for i in range(HYBRID_DECODE_TOKENS):
+                    MESH.reset()
+                    # the state's blocks are written in place
+                    with _allocations(watch_s, seen, writes=False):
+                        token, state = bundle.fn(params, token, state,
+                                                 index + i)
+                    counts.append(MESH.snapshot())
+                    tokens.append(token[:, 0].numpy().copy())
+                return state, tokens, counts, seen
+
+            state, tokens, counts, seen = decode()
+            vb = seen_logits[0].shape[-1]
+            v0 = (mesh.get_local_rank("model") * vb
+                  if "model" in mesh.mesh_dim_names else 0)
+            rec = {"partitioned": bundle.partitioned,
+                   "seq_axes": part.seq_axes,
+                   "tokens": tokens, "token_rows": rows,
+                   "logits": seen_logits[0],
+                   "logit_slices": [rows, (v0, v0 + vb)],
+                   "state": {"/".join(p): x.numpy().copy()
+                             for p, x in _np_paths(state)},
+                   "state_slices": {
+                       "/".join(p): _block_slices(x.shape, c_sh[p[0]][p[1]],
+                                                  mesh)
+                       for p, x in _np_paths(whole)},
+                   "counts": counts, "allocated": seen,
+                   "watched": sorted(watch_s)}
+            if (label, name) == plant:
+                # a planted fault: each rank's (B, C, dt) from its own
+                # channels alone
+                part.reduce_bcdt = lambda t: t
+                try:
+                    decode()
+                finally:
+                    del part.reduce_bcdt
+                rec["planted_logits"] = seen_logits[0]
+            out[f"{label}/b{batch}/{name}"] = rec
     return out
 
 
